@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; there is no CPU path):
+  1. build the WN layer kernel (csrc/wn_layer.cu, nvcc for sm_90a);
+  2. hold the kernel against `wn_layer_plain` on the card: dilations
+     1, 2, 8, 128 and the last layer, B=2, T=1000, C=256, in f32 (TF32
+     off, atol 1e-4) and bf16 (atol 3e-2); then all 8 layers of a flow
+     at the main path's shapes: bf16 B=4, T=10000 (the served batch) and
+     f32 B=1, T=1760 (the denoiser's bias pass);
+  3. hold WaveGlow on the kernel against its conv formulation (plain
+     torch) on one short mel, f32, atol 1e-4;
+  4. serve 8 seeded synthetic wavs (2-4 s, 16 kHz) as two batches of 4
+     through FusedSynthesizer.launch_feature_pairs / collect_feature_pairs
+     at the full default configs (random seeded weights), bf16 WaveGlow,
+     max_frames=500; check each PCM and that the kernel ran >= 96 times
+     per batch;
+  5. time the kernel and its plain version at the serving shape, and one
+     batch stage by stage.
+  6. profile one batch (torch.profiler): device busy share (union of the
+     kernels' intervals), top kernels.
+Prints a `card:` line, `stages:`, `profile:` and `timing:` lines, a `{"kernels":
+...}` line and, last, `{"ok": true, "device": {...}}`.  Imports nothing of
+JAX or of the JAX package.
+"""
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+import torch
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM dense
+PEAK_BYTES = 3.35e12
+N_WAVS, BATCH, MAX_FRAMES, SEED = 8, 4, 500, 1234
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()].strip()
+
+
+def layer_inputs(g, B, T, C, last, dtype):
+    R = C if last else 2 * C
+
+    def mk(shape, s):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+
+    return (mk((B, T, C), 0.3), mk((B, T, 2 * C), 0.3),
+            mk((3 * C, 2 * C), 0.05), mk((2 * C,), 0.1),
+            mk((C, R), 0.05), mk((R,), 0.1))
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(wl, args, d, last, tag):
+    a_k, s_k = wl.wn_layer(*args, dilation=d, last=last)
+    torch.cuda.synchronize()
+    a_p, s_p = wl.wn_layer_plain(*args, dilation=d, last=last)
+    err = max((s_k.float() - s_p.float()).abs().max().item(),
+              (a_k.float() - a_p.float()).abs().max().item())
+    tol = TOL[args[0].dtype]
+    log(f"wn_layer {tag} d={d} last={last}: max_abs_err {err:.3g} "
+        f"(atol {tol})")
+    if not err <= tol:
+        raise AssertionError(f"WN kernel disagrees: {err} > {tol}")
+    return err
+
+
+def check_kernel(wl):
+    """The kernel against wn_layer_plain: B=2, T=1000 at a few dilations,
+    then every layer of a flow at the shapes the main path gives it (the
+    served batch in bf16, the denoiser's bias pass in f32), cond a
+    per-layer slice of the stacked (B, T, L*2C) projection as there.
+    Returns the largest error of each dtype."""
+    g = torch.Generator("cuda").manual_seed(SEED)
+    worst = {}
+    C = 256
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, last in ((1, False), (2, False), (8, False), (128, False),
+                        (128, True)):
+            args = layer_inputs(g, 2, 1000, C, last, dtype)
+            err = compare(wl, args, d, last, f"{str(dtype)[6:]} B=2 T=1000")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    T_serve = MAX_FRAMES * 160 // 8
+    for dtype, B, T in ((torch.bfloat16, BATCH, T_serve),
+                        (torch.float32, 1, 88 * 160 // 8)):
+        L = 8
+        cond_all = (torch.randn((B, T, L * 2 * C), generator=g,
+                                device="cuda") * 0.3).to(dtype)
+        for i in range(L):
+            last = i == L - 1
+            x, _, w_in, b_in, w_rs, b_rs = layer_inputs(g, B, T, C, last,
+                                                        dtype)
+            cond = cond_all[:, :, 2 * C * i: 2 * C * (i + 1)]
+            err = compare(wl, (x, cond, w_in, b_in, w_rs, b_rs), 2 ** i,
+                          last, f"{str(dtype)[6:]} B={B} T={T}")
+            worst[dtype] = max(worst[dtype], err)
+        del cond_all
+    return worst
+
+
+def check_waveglow(wg_cfg, wg_params):
+    from fac_via_ppg_torch.models.waveglow import remove_weightnorm, \
+        waveglow_infer
+
+    g = torch.Generator("cuda").manual_seed(SEED + 1)
+    mel = torch.randn((1, wg_cfg.n_mel_channels, 40), generator=g,
+                      device="cuda") - 4.0
+    params = remove_weightnorm(wg_params)
+    outs = [waveglow_infer(wg_cfg, params, mel, 0.6,
+                           torch.Generator("cuda").manual_seed(7),
+                           wn_impl=impl) for impl in ("layer", "conv")]
+    err = (outs[0] - outs[1]).abs().max().item()
+    log(f"waveglow layer vs conv, f32: max_abs_err {err:.3g} (atol 1e-4)")
+    if not (torch.isfinite(outs[0]).all() and err <= 1e-4):
+        raise AssertionError(f"WaveGlow on the kernel disagrees: {err}")
+
+
+def write_wavs(dirname):
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(SEED)
+    paths = []
+    for i in range(N_WAVS):
+        n = int(16000 * rng.uniform(2.0, 4.0))
+        t = np.arange(n) / 16000.0
+        f0 = rng.uniform(90, 220) * (1 + 0.05 * np.sin(2 * np.pi * 3 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 16000.0
+        x = sum(np.sin(h * phase) / h for h in range(1, 6))
+        x = x * (0.5 + 0.5 * np.sin(2 * np.pi * 1.5 * t) ** 2)
+        x = 6000 * x + 200 * rng.randn(n)
+        path = f"{dirname}/req{i}.wav"
+        wavfile.write(path, 16000, x.astype(np.int16))
+        paths.append(path)
+    return paths
+
+
+def build_synth():
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        WaveGlowConfig,
+    )
+    from fac_via_ppg_torch.eval.fused import FusedSynthesizer
+    from fac_via_ppg_torch.models import init_tacotron2, init_waveglow
+    from fac_via_ppg_torch.models.waveglow import remove_weightnorm
+
+    g = torch.Generator().manual_seed(SEED)
+    t2_cfg, wg_cfg = Tacotron2Config(), WaveGlowConfig()
+    t2_params, t2_state = init_tacotron2(t2_cfg, g)
+    # the gate never fires: every request decodes max_frames, the most
+    # work the path can be given
+    t2_params["decoder"]["gate_layer"]["bias"].fill_(-10.0)
+    wg_params = init_waveglow(wg_cfg, g)
+    # the end convs are zero at init; small weights let the kernel's
+    # output reach the audio
+    for wn in wg_params["wn"]:
+        w = wn["end"]["weight"]
+        wn["end"]["weight"] = torch.randn(w.shape, generator=g) * 1e-2
+    # the serving form, with the f32 1x1 inverses computed once
+    wg_params = remove_weightnorm(wg_params)
+    t0 = time.time()
+    synth = FusedSynthesizer(t2_cfg, t2_params, t2_state, wg_cfg, wg_params,
+                             serving_dtype=torch.bfloat16,
+                             max_frames=MAX_FRAMES, device="cuda")
+    torch.cuda.synchronize()
+    log(f"FusedSynthesizer built in {time.time() - t0:.2f} s")
+    return synth, wg_cfg, wg_params
+
+
+def serve(synth, wl, paths):
+    hop = synth.wg_cfg.hop_length
+    launches, feat_s, dev_s, audio_s = [], [], [], 0.0
+    wall0 = time.time()
+    for b in range(0, len(paths), BATCH):
+        t0 = time.time()
+        pairs = [synth.featurize(p) for p in paths[b:b + BATCH]]
+        t1 = time.time()
+        wl.launches = 0
+        handle = synth.launch_feature_pairs(
+            pairs, torch.Generator("cuda").manual_seed(SEED + b))
+        pcms = synth.collect_feature_pairs(handle)
+        t2 = time.time()
+        n = wl.launches
+        launches.append(n)
+        feat_s.append(t1 - t0)
+        dev_s.append(t2 - t1)
+        mel_lens = handle[1].cpu().tolist()
+        for pcm, m in zip(pcms, mel_lens):
+            if pcm.dtype != np.int16 or len(pcm) != m * hop:
+                raise AssertionError(f"bad PCM: {pcm.dtype} {len(pcm)} "
+                                     f"vs mel_len {m} * {hop}")
+            if not np.isfinite(pcm.astype(np.float64)).all() \
+                    or pcm.std() == 0:
+                raise AssertionError("PCM is constant or not finite")
+            audio_s += len(pcm) / 16000.0
+        log(f"batch {b // BATCH}: mel_lens {mel_lens}, WN kernel launches "
+            f"{n}, featurize {t1 - t0:.3f} s, device {t2 - t1:.3f} s")
+        if n < 96:
+            raise AssertionError(f"only {n} WN kernel launches in a batch")
+    wall = time.time() - wall0
+    return launches, feat_s, dev_s, audio_s, wall
+
+
+def stage_times(synth, paths, repeats=3):
+    """One batch, stage by stage, each stage closed by a synchronize;
+    each stage's seconds for every repeat."""
+    from fac_via_ppg_torch.eval.fused import SILENCE
+    from fac_via_ppg_torch.models.tacotron2 import \
+        tacotron2_inference_batched
+    from fac_via_ppg_torch.models.waveglow import waveglow_infer
+
+    pairs = [synth.featurize(p) for p in paths[:BATCH]]
+    t_max = max(f.shape[0] for f, _ in pairs)
+    feats = torch.as_tensor(np.stack([
+        np.concatenate([f, np.repeat(f[-1:], t_max - len(f), 0)])
+        for f, _ in pairs]), device="cuda")
+    n_frames = torch.tensor([t for _, t in pairs], device="cuda")
+    out = {}
+
+    def note(key, value):
+        out.setdefault(key, []).append(value)
+
+    for _ in range(repeats):
+        g = torch.Generator("cuda").manual_seed(SEED)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.time()
+            ppg = synth.nnet.forward(feats)
+            torch.cuda.synchronize()
+            note("am_s", time.time() - t)
+            t = time.time()
+            _, mel, _, _, lens = tacotron2_inference_batched(
+                synth.t2_cfg, synth.t2_params, synth.t2_state,
+                ppg.transpose(1, 2).float(), n_frames, g)
+            torch.cuda.synchronize()
+            note("decode_s", time.time() - t)
+            note("decode_steps", int(lens.max()))
+            produced = (torch.arange(MAX_FRAMES, device="cuda")[None, None]
+                        < lens[:, None, None])
+            mel = torch.where(produced, mel, mel.new_full((), SILENCE))
+            mel = mel.to(torch.bfloat16)
+            t = time.time()
+            audio = waveglow_infer(synth.wg_cfg, synth.wg_params, mel,
+                                   synth.sigma, g,
+                                   packed_wn=synth._packed_wn).float()
+            torch.cuda.synchronize()
+            note("waveglow_s", time.time() - t)
+            if not torch.isfinite(audio).all():
+                raise AssertionError("WaveGlow audio is not finite")
+            t = time.time()
+            waveglow_infer(synth.wg_cfg, synth.wg_params, mel, synth.sigma,
+                           g, wn_impl="conv")
+            torch.cuda.synchronize()
+            note("waveglow_conv_s", time.time() - t)
+            t = time.time()
+            spec, ang = synth._stft.transform(audio)
+            spec = torch.clamp(spec - synth._bias * synth.strength, min=0.0)
+            synth._stft.inverse(spec, ang)
+            torch.cuda.synchronize()
+            note("denoise_s", time.time() - t)
+    return out
+
+
+def profile_batch(synth, paths):
+    """One batch of the served path under torch.profiler: the device's
+    busy share of the wall time (the union of its kernels' intervals) and
+    the kernels that take the most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pairs = [synth.featurize(p) for p in paths[:BATCH]]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        synth.collect_feature_pairs(synth.launch_feature_pairs(pairs, gen))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+
+    # device kernels only: key_averages() would count each kernel again
+    # under the aten op that launched it
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, reach = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        start, end = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    per_name = {}
+    for e in kernels:
+        us, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    top = sorted(per_name.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+    busy_s = busy_us / 1e6
+    return {"wall_s_profiled": wall,
+            "device_kernels": len(kernels),
+            "device_busy_s": busy_s if kernels else "not measured",
+            "busy_share": busy_s / wall if kernels else "not measured",
+            "top": [[k[:70], us / 1e3, n] for k, (us, n) in top]}
+
+
+def time_kernel(wl, synth):
+    """The kernel and its plain version at the serving shape: one batch of
+    4 at max_frames, B x T = 4 x (500 * 160 / 8), C = 256, bf16, d = 8."""
+    C = synth.wg_cfg.wn_n_channels
+    B, T = BATCH, MAX_FRAMES * synth.wg_cfg.hop_length // synth.wg_cfg.n_group
+    g = torch.Generator("cuda").manual_seed(SEED + 2)
+    dt = torch.bfloat16
+    args = layer_inputs(g, B, T, C, False, dt)
+    n0 = wl.launches
+    ms = cuda_ms(lambda: wl.wn_layer(*args, dilation=8))
+    wl.launches = n0
+    plain_ms = cuda_ms(lambda: wl.wn_layer_plain(*args, dilation=8))
+    esz = 2
+    flops = 2 * B * T * (3 * C * 2 * C + C * 2 * C)
+    nbytes = (B * T * (C + 2 * C + C + C) + 3 * C * 2 * C + 2 * C
+              + C * 2 * C + 2 * C) * esz
+    t_ops, t_bytes = flops / PEAK_FLOPS[dt] * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"wn_layer bf16 B={B} T={T} C={C}: {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, bound {max(t_ops, t_bytes):.4f} ms ({flops} FLOP, {nbytes} B,"
+        f" {flops / ms / 1e9:.1f} TFLOP/s)")
+    # the denoiser's one-off f32 pass: B=1, 88 frames
+    a32 = layer_inputs(g, 1, 88 * 160 // 8, C, False, torch.float32)
+    ms32 = cuda_ms(lambda: wl.wn_layer(*a32, dilation=8))
+    wl.launches = n0
+    log(f"wn_layer f32 B=1 T=1760 C={C} (denoiser bias pass): {ms32:.4f} ms")
+    return ms, plain_ms, max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        from fac_via_ppg_torch.ops import wn_layer as wl
+        from fac_via_ppg_torch.weights import move
+    except ImportError as e:
+        print(f"chip_smoke: the port is missing: {e}", file=sys.stderr)
+        return 3
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
+
+    t0 = time.time()
+    report = wl.build()
+    log(f"built {wl.LIBRARY.name} in {time.time() - t0:.2f} s")
+    log("\n".join(l for l in report.splitlines() if "registers" in l
+                  or "spill" in l))
+    max_err = check_kernel(wl)
+
+    wl.launches = 0
+    synth, wg_cfg, wg_params = build_synth()
+    log(f"denoiser bias pass: {wl.launches} WN kernel launches")
+    check_waveglow(wg_cfg, move(wg_params, torch.device("cuda")))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_wavs(tmp)
+        launches, feat_s, dev_s, audio_s, wall = serve(synth, wl, paths)
+        stages = stage_times(synth, paths)
+        prof = profile_batch(synth, paths)
+    log("stages: " + json.dumps(stages))
+    log("profile: " + json.dumps(prof))
+    ms, plain_ms, bound_ms, bound_by = time_kernel(wl, synth)
+    log("timing: " + json.dumps({
+        "card": card, "batches": len(launches), "batch": BATCH,
+        "featurize_s_per_batch": feat_s, "device_s_per_batch": dev_s,
+        "audio_s": audio_s, "wall_s": wall,
+        "audio_s_per_wall_s": audio_s / wall}))
+    log(json.dumps({"kernels": [{
+        "name": "wn_layer", "route": "cuda",
+        "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
+        "replaces": "fac_via_ppg_tpu/ops/wn_pallas.py:129",
+        "launches": int(sum(launches)),
+        "max_abs_err": max(max_err.values()),
+        "max_abs_err_f32": max_err[torch.float32],
+        "max_abs_err_bf16": max_err[torch.bfloat16],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None}]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

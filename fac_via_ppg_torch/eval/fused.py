@@ -1,0 +1,220 @@
+"""Single-program accent-conversion serving on one CUDA card (torch).
+
+The port of fac_via_ppg_tpu/eval/fused.py.  `FusedSynthesizer` runs the
+whole device side of one micro-batch back to back on the card, with no host
+round trip between stages:
+
+    nnet3 AM forward -> batched autoregressive Tacotron2 decode (per-sequence
+    gate stop) -> log(1e-5) silence after each stop -> WaveGlow inverse (WN
+    layers on the hand-written kernel) -> STFT bias denoiser -> int16 PCM
+
+Host featurization (MFCC -> CMN -> splice +-3 -> LDA, numpy) is `featurize`.
+The decoder's stop is the only value the host reads mid-program (once per
+step, to end the loop); everything else stays on the card until
+`collect_feature_pairs` reads back the PCM.
+
+Only WaveGlow runs in `serving_dtype`, with its 1x1 inverses kept f32; the
+AM and Tacotron2 stay f32.  The denoiser's bias spectrum comes from the
+un-cast (f32) vocoder, as in the JAX package.
+
+Randomness comes from a torch.Generator (the JAX package's `key`).  Two
+hooks replace it with given draws, for tests against the JAX package:
+`dropout_masks` (the prenet keep-masks in call order) and `noise` (the
+WaveGlow draws in `waveglow_infer`'s order).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fac_via_ppg_torch.configs.hparams import Tacotron2Config, WaveGlowConfig
+from fac_via_ppg_torch.frontend import feat as feat_mod
+from fac_via_ppg_torch.frontend import ppg as ppg_mod
+from fac_via_ppg_torch.models.denoiser import Denoiser
+from fac_via_ppg_torch.models.tacotron2 import tacotron2_inference_batched
+from fac_via_ppg_torch.models.waveglow import (
+    cast_params,
+    pack_waveglow_layer,
+    waveglow_infer,
+)
+from fac_via_ppg_torch.utils.device import resolve_device
+from fac_via_ppg_torch.utils.numeric import round_batch_to_grid, round_up
+from fac_via_ppg_torch.weights import move
+
+SILENCE = math.log(1e-5)
+
+
+class FusedSynthesizer:
+    def __init__(
+        self,
+        t2_cfg: Tacotron2Config,
+        tacotron_params,
+        tacotron_state,
+        wg_cfg: WaveGlowConfig,
+        waveglow_params,
+        deps: Optional[ppg_mod.DependenciesPPG] = None,
+        sigma: float = 0.6,
+        denoiser_strength: float = 0.005,
+        serving_dtype: Optional[torch.dtype] = torch.bfloat16,
+        max_frames: int = 1000,
+        feat_bucket: int = 64,
+        pad_to_grid: bool = True,
+        device=None,
+    ):
+        """Parameters are the port's (`weights.py` converts the JAX
+        package's); they are moved to `device` (None means "cuda").
+
+        `deps` needs `.nnet` (an Nnet3) and `.lda`; the default
+        DependenciesPPG() generates the substitute bundle on first use."""
+        self.device = dev = resolve_device(device)
+        self.deps = deps or ppg_mod.DependenciesPPG()
+        self.nnet = self.deps.nnet.to(dev)
+        self.t2_cfg = dataclasses.replace(t2_cfg, max_decoder_steps=max_frames)
+        self.wg_cfg = wg_cfg
+        self.t2_params = move(tacotron_params, dev)
+        self.t2_state = move(tacotron_state, dev)
+        self.sigma = float(sigma)
+        self.strength = float(denoiser_strength)
+        self.serving_dtype = serving_dtype
+        self.max_frames = max_frames
+        self.feat_bucket = feat_bucket
+        # pads off-grid micro-batches (> 8, not a multiple of 8); the
+        # JAX package's TPU tile policy, kept as the default until it is
+        # measured on the card
+        self.pad_to_grid = bool(pad_to_grid)
+
+        wg_params = move(waveglow_params, dev)
+        # bias spectrum once, from the f32 vocoder
+        den = Denoiser(wg_cfg, wg_params)
+        self._stft = den.stft
+        self._bias = den.bias_spec
+        if serving_dtype is not None:
+            wg_params = cast_params(wg_params, serving_dtype)
+        self.wg_params = wg_params
+        self._packed_wn = pack_waveglow_layer(wg_cfg, wg_params)
+
+    def _device_program_batch(self, feats, n_frames, generator,
+                              dropout_masks=None, noise=None):
+        """(B, T_pad, lda_dim) -> (int16 PCM (B, M*hop), mel_lengths (B,))."""
+        ppg = self.nnet.forward(feats)                   # (B, T_pad, D)
+        x = ppg.transpose(1, 2).float()                  # (B, D, T_pad)
+        masks = None if dropout_masks is None else iter(dropout_masks)
+        _, mel_post, _, _, mel_lens = tacotron2_inference_batched(
+            self.t2_cfg, self.t2_params, self.t2_state, x, n_frames,
+            generator, masks)
+        produced = (torch.arange(self.max_frames, device=self.device)
+                    [None, None, :] < mel_lens[:, None, None])
+        mel_in = torch.where(produced, mel_post,
+                             mel_post.new_full((), SILENCE))
+        audio = waveglow_infer(
+            self.wg_cfg, self.wg_params,
+            mel_in.to(self.serving_dtype or torch.float32), self.sigma,
+            generator, noise=noise, packed_wn=self._packed_wn,
+        ).float()                                        # (B, M*hop)
+        spec, angles = self._stft.transform(audio)
+        spec = torch.clamp(spec - self._bias * self.strength, min=0.0)
+        denoised = self._stft.inverse(spec, angles)[:, 0, :]
+        pcm = torch.clamp(denoised, -1.0, 1.0) * 32767.0
+        return pcm.to(torch.int16), mel_lens
+
+    def _generator(self, generator):
+        if generator is not None:
+            return generator
+        return torch.Generator(self.device).manual_seed(0)
+
+    def synthesize_batch(self, wav_paths, generator=None, dither: float = 1.0,
+                         seed: int = 0):
+        """wav files -> list of int16 PCM arrays, one device program."""
+        pairs = [self.featurize(p, dither=dither, seed=seed)
+                 for p in wav_paths]
+        return self.synthesize_feature_pairs(pairs, generator)
+
+    def synthesize_feature_pairs(self, pairs, generator=None,
+                                 pad_batch_to: Optional[int] = None,
+                                 dropout_masks=None, noise=None):
+        """(featurized, n_frames) pairs -> list of int16 PCM arrays."""
+        return self.collect_feature_pairs(self.launch_feature_pairs(
+            pairs, generator, pad_batch_to=pad_batch_to,
+            dropout_masks=dropout_masks, noise=noise))
+
+    def launch_feature_pairs(self, pairs, generator=None,
+                             pad_batch_to: Optional[int] = None,
+                             dropout_masks=None, noise=None):
+        """Assemble and enqueue one micro-batch without waiting for its
+        PCM: the returned handle holds device tensors whose kernels may
+        still run.  `collect_feature_pairs` reads them back, so a serving
+        loop can featurize batch N+1 while batch N finishes on the card.
+
+        Feature rows are padded to the batch's longest by repeating the
+        last frame; the batch is padded with repeats of the last request
+        (`pad_batch_to`, the grid policy) and trimmed on collect."""
+        n_real = len(pairs)
+        t_max = max(f.shape[0] for f, _ in pairs)
+        feats = np.stack([
+            np.concatenate(
+                [f, np.repeat(f[-1:], t_max - f.shape[0], axis=0)], axis=0
+            ) if f.shape[0] != t_max else f
+            for f, _ in pairs
+        ])
+        n_frames = np.array([t for _, t in pairs], np.int64)
+        b_pad = n_real
+        if pad_batch_to is not None:
+            b_pad = max(b_pad, pad_batch_to)
+        if self.pad_to_grid:
+            b_pad = round_batch_to_grid(b_pad)
+        if b_pad != n_real:
+            reps = b_pad - n_real
+            feats = np.concatenate(
+                [feats, np.repeat(feats[-1:], reps, axis=0)], axis=0)
+            n_frames = np.concatenate(
+                [n_frames, np.repeat(n_frames[-1:], reps)], axis=0)
+        feats_t = torch.as_tensor(feats, dtype=torch.float32,
+                                  device=self.device)
+        n_frames_t = torch.as_tensor(n_frames, device=self.device)
+        with torch.no_grad():
+            pcm, mel_lens = self._device_program_batch(
+                feats_t, n_frames_t, self._generator(generator),
+                dropout_masks, noise)
+        return pcm, mel_lens, n_real
+
+    def collect_feature_pairs(self, handle):
+        """Wait for a `launch_feature_pairs` handle and return the list of
+        int16 PCM arrays, each trimmed to its mel length * hop."""
+        pcm, mel_lens, n_real = handle
+        pcm = pcm.cpu().numpy()
+        mel_lens = mel_lens.cpu().numpy()
+        hop = self.wg_cfg.hop_length
+        return [pcm[i, : min(int(mel_lens[i]) * hop, pcm.shape[1])]
+                for i in range(n_real)]
+
+    def featurize(self, wav_path: str, dither: float = 1.0, seed: int = 0):
+        """Host front end: wav file -> (bucket-padded AM features, true
+        frame count).  Safe to run on a worker thread."""
+        fs, wav = feat_mod.read_wav(wav_path)
+        feats = ppg_mod.compute_feat_for_nnet_internal(
+            wav, fs, self.deps.lda, dither=dither, seed=seed)
+        t = feats.shape[0]
+        t_pad = round_up(t, self.feat_bucket)
+        if t_pad != t:
+            feats = np.concatenate(
+                [feats, np.repeat(feats[-1:], t_pad - t, axis=0)], axis=0)
+        return feats.astype(np.float32), t
+
+    def synthesize_features(self, feats, n_frames: int,
+                            generator=None) -> np.ndarray:
+        """Padded features of one utterance -> trimmed int16 PCM.  The
+        batched program at B=1 stops on that utterance's gate, as the JAX
+        package's single program (`tacotron2_inference`) does."""
+        return self.synthesize_feature_pairs([(feats, n_frames)],
+                                             generator)[0]
+
+    def __call__(self, wav_path: str, generator=None, dither: float = 1.0,
+                 seed: int = 0) -> np.ndarray:
+        """wav file -> int16 PCM of the converted utterance."""
+        feats, t = self.featurize(wav_path, dither=dither, seed=seed)
+        return self.synthesize_features(feats, t, generator)

@@ -1,0 +1,133 @@
+"""Layer functions on parameter dictionaries, with torch layouts.
+
+The port of fac_via_ppg_tpu/ops/initializers.py (apply side; the init side
+is `init_params`' helpers below).  Layouts are torch's: Linear weight
+(out, in); Conv1d weight (out, in, k); LSTM gates packed (i, f, g, o)
+along dim 0.  JAX parameter pytrees already use them, so `weights.py`
+converts leaves and renames nothing.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+GAINS = {
+    "linear": 1.0,
+    "relu": math.sqrt(2.0),
+    "tanh": 5.0 / 3.0,
+    "sigmoid": 1.0,
+}
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    out = torch.matmul(x, p["weight"].T)
+    if "bias" in p:
+        out = out + p["bias"]
+    return out
+
+
+def conv1d(p: dict, x: torch.Tensor, padding: int = 0,
+           dilation: int = 1) -> torch.Tensor:
+    """(B, C_in, T) -> (B, C_out, T'), torch Conv1d semantics."""
+    return F.conv1d(x, p["weight"], p.get("bias"), padding=padding,
+                    dilation=dilation)
+
+
+def batchnorm(p: dict, state: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Eval-mode BatchNorm1d over (B, C, T) with running statistics."""
+    inv = torch.rsqrt(state["running_var"].float() + eps)
+    scale = (inv * p["weight"].float())[None, :, None].to(x.dtype)
+    y = (x - state["running_mean"].to(x.dtype)[None, :, None]) * scale
+    return (y + p["bias"][None, :, None]).to(x.dtype)
+
+
+def lstm_cell(p: dict, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              x_proj: Optional[torch.Tensor] = None):
+    """One LSTMCell step, gate order (i, f, g, o): (B, ...) -> (h', c').
+
+    `x_proj` is x @ W_ih.T + b_ih when the caller computed it for every
+    step at once."""
+    if x_proj is None:
+        x_proj = torch.matmul(x, p["weight_ih"].T) + p["bias_ih"]
+    gates = x_proj + torch.matmul(h, p["weight_hh"].T) + p["bias_hh"]
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def dropout(x: torch.Tensor, rate: float,
+            keep_mask: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """torch F.dropout semantics (kept units scaled by 1/(1-rate)).
+
+    `keep_mask` (bool, x's shape) injects the kept units, e.g. masks
+    recorded from the JAX package; otherwise they are drawn from
+    `generator`."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if keep_mask is None:
+        keep_mask = torch.rand(x.shape, generator=generator,
+                               device=x.device) < keep
+    elif not isinstance(keep_mask, torch.Tensor):
+        keep_mask = torch.tensor(keep_mask, device=x.device)
+    return torch.where(keep_mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+# ---------------------------------------------------------------- init
+# Same distributions as the JAX package's initializers (reference
+# src/common/layers.py:40-71), drawn from a torch.Generator.
+
+def _uniform(g: torch.Generator, shape, bound: float) -> torch.Tensor:
+    return (torch.rand(shape, generator=g) * 2.0 - 1.0) * bound
+
+
+def xavier_uniform(g: torch.Generator, shape, gain: float = 1.0):
+    """torch.nn.init.xavier_uniform_ for (out, in[, k]) weight layouts."""
+    receptive = shape[2] if len(shape) == 3 else 1
+    fan_out, fan_in = shape[0] * receptive, shape[1] * receptive
+    return _uniform(g, shape, gain * math.sqrt(6.0 / (fan_in + fan_out)))
+
+
+def linear_params(g, in_dim: int, out_dim: int, bias: bool = True,
+                  w_init_gain: str = "linear") -> dict:
+    p = {"weight": xavier_uniform(g, (out_dim, in_dim), GAINS[w_init_gain])}
+    if bias:
+        p["bias"] = _uniform(g, (out_dim,), 1.0 / math.sqrt(in_dim))
+    return p
+
+
+def conv1d_params(g, in_ch: int, out_ch: int, kernel_size: int,
+                  bias: bool = True, w_init_gain: str = "linear") -> dict:
+    p = {"weight": xavier_uniform(g, (out_ch, in_ch, kernel_size),
+                                  GAINS[w_init_gain])}
+    if bias:
+        p["bias"] = _uniform(g, (out_ch,),
+                             1.0 / math.sqrt(in_ch * kernel_size))
+    return p
+
+
+def batchnorm_params(dim: int) -> dict:
+    return {"weight": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def batchnorm_state(dim: int) -> dict:
+    return {"running_mean": torch.zeros(dim), "running_var": torch.ones(dim)}
+
+
+def lstm_params(g, input_dim: int, hidden_dim: int) -> dict:
+    """torch LSTMCell default init: U(-1/sqrt(H), 1/sqrt(H)) everywhere."""
+    b = 1.0 / math.sqrt(hidden_dim)
+    return {
+        "weight_ih": _uniform(g, (4 * hidden_dim, input_dim), b),
+        "weight_hh": _uniform(g, (4 * hidden_dim, hidden_dim), b),
+        "bias_ih": _uniform(g, (4 * hidden_dim,), b),
+        "bias_hh": _uniform(g, (4 * hidden_dim,), b),
+    }

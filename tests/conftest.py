@@ -115,6 +115,11 @@ def pytest_configure(config):
         "slow: expensive tests (the ~12s+ tier; skipped by default, run "
         "with RUN_SLOW=1 or an explicit -m expression)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
