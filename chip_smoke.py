@@ -4,26 +4,39 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; there is no CPU path):
-  1. build the WN layer kernel (csrc/wn_layer.cu, nvcc for sm_90a);
-  2. hold the kernel against `wn_layer_plain` on the card: dilations
-     1, 2, 8, 128 and the last layer, B=2, T=1000, C=256, in f32 (TF32
-     off, atol 1e-4) and bf16 (atol 3e-2); then all 8 layers of a flow
-     at the main path's shapes: bf16 B=4, T=10000 (the served batch) and
-     f32 B=1, T=1760 (the denoiser's bias pass);
-  3. hold WaveGlow on the kernel against its conv formulation (plain
-     torch) on one short mel, f32, atol 1e-4;
-  4. serve 8 seeded synthetic wavs (2-4 s, 16 kHz) as two batches of 4
+  1. build both kernels at once (csrc/wn_layer.cu, csrc/wn_flow.cu, one
+     nvcc each for sm_90a) and print their ptxas register / spill lines;
+  2. hold the WN layer kernel against `wn_layer_plain` on the card:
+     dilations 1, 2, 8, 128 and the last layer, B=2, T=1000, C=256, in f32
+     (TF32 off, atol 1e-4) and bf16 (atol 3e-2); then all 8 layers of a
+     flow at the fused path's shapes: bf16 B=4, T=10000 (the served batch)
+     and f32 B=1, T=1760 (the denoiser's bias pass);
+  3. hold the whole-net flow kernel against `wn_flow_plain`: n_half 4, 3
+     and 2 at B=2, T=1000, C=256, L=8 in f32 (atol 1e-4) and bf16 (3e-2 x
+     max(1, max|plain|)); then the vocoder CLI's shape, bf16 B=8, T=10240;
+  4. hold WaveGlow on each kernel ("layer", "flow") against its conv
+     formulation (plain torch) on one short mel, f32, atol 1e-4;
+  5. serve 8 seeded synthetic wavs (2-4 s, 16 kHz) as two batches of 4
      through FusedSynthesizer.launch_feature_pairs / collect_feature_pairs
      at the full default configs (random seeded weights), bf16 WaveGlow,
-     max_frames=500; check each PCM and that the kernel ran >= 96 times
-     per batch;
-  5. time the kernel and its plain version at the serving shape, and one
-     batch stage by stage.
-  6. profile one batch (torch.profiler): device busy share (union of the
-     kernels' intervals), top kernels.
-Prints a `card:` line, `stages:`, `profile:` and `timing:` lines, a `{"kernels":
-...}` line and, last, `{"ok": true, "device": {...}}`.  Imports nothing of
-JAX or of the JAX package.
+     max_frames=500; check each PCM and that the layer kernel ran >= 96
+     times per batch; time one batch stage by stage, with WaveGlow on the
+     layer kernel, the flow kernel and the conv formulation; profile one
+     batch (torch.profiler): device busy share, top kernels;
+  6. run the batched vocoder CLI (scripts/waveglow_inference.main) at the
+     full WaveGlowConfig(), seeded random weights written as a .pt state
+     dict by the port's exporter: 16 seeded mels of 449-512 frames, -b 8
+     --mel_bucket 64 -s 0.6 -d 0.005, bf16, --wn_impl flow (two batches of
+     8 x 512 frames); check each wav and 12 flow kernel launches per
+     batch; then --cond_impl auto over the first 8 mels; profile one
+     batch's device work; check torch._int_mm against the exact int32 CPU
+     product, bit for bit;
+  7. time both kernels and their plain versions at their main path's
+     shapes, with each one's bound.
+Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`
+and `cli:` lines,
+a `{"kernels": ...}` line and, last, `{"ok": true, "device": {...}}`.
+Imports nothing of JAX or of the JAX package.
 """
 
 import json
@@ -40,6 +53,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
 N_WAVS, BATCH, MAX_FRAMES, SEED = 8, 4, 500, 1234
+# the vocoder CLI's run: mels, their frame range, its batch
+N_MELS, MEL_FRAMES, CLI_BATCH = 16, (449, 512), 8
 
 
 def log(*a):
@@ -125,6 +140,82 @@ def check_kernel(wl):
     return worst
 
 
+def build_kernels(mods):
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.time()
+    with ThreadPoolExecutor(len(mods)) as pool:
+        reports = list(pool.map(lambda m: m.build(), mods))
+    log(f"built {', '.join(m.LIBRARY.name for m in mods)} in "
+        f"{time.time() - t0:.2f} s")
+    for m, report in zip(mods, reports):
+        log(f"{m.LIBRARY.name}: " + "\n".join(
+            l for l in report.splitlines() if "registers" in l
+            or "spill" in l))
+
+
+def flow_inputs(g, B, T, n_half, dtype, C=256, L=8):
+    """A random flow pack (ops/wn_flow.pack_wn_flow's layout, the last
+    layer's residual columns zero), audio (B, n_half, T) and cond
+    (B, T, L*2C) on the card."""
+    f32 = torch.float32
+
+    def mk(shape, s, dt=dtype):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dt)
+
+    packed = {"w_start": mk((n_half, C), 0.3), "b_start": mk((C,), 0.1, f32),
+              "w_in": mk((L, 3 * C, 2 * C), 0.05),
+              "b_in": mk((L, 2 * C), 0.1, f32),
+              "w_rs": mk((L, C, 2 * C), 0.05),
+              "b_rs": mk((L, 2 * C), 0.1, f32),
+              "w_end": mk((C, 2 * n_half), 0.05),
+              "b_end": mk((2 * n_half,), 0.1, f32)}
+    packed["w_rs"][L - 1, :, :C] = 0
+    packed["b_rs"][L - 1, :C] = 0
+    return packed, mk((B, n_half, T), 1.0), mk((B, T, L * 2 * C), 0.3)
+
+
+def compare_flow(wf, packed, audio, cond, tag):
+    """The flow kernel against wn_flow_plain: f32 within 1e-4; bf16 within
+    3e-2 x max(1, max|plain|), ~4 bf16 ulps of the largest output, as the
+    two round differently through 8 layers."""
+    n0 = wf.launches
+    got = wf.wn_flow(packed, audio, cond)
+    torch.cuda.synchronize()
+    if wf.launches != n0 + 1:
+        raise AssertionError("wn_flow did not count its launch")
+    want = wf.wn_flow_plain(packed, audio, cond).float()
+    err = (got.float() - want).abs().max().item()
+    dt = audio.dtype
+    tol = TOL[dt] * (max(1.0, want.abs().max().item())
+                     if dt == torch.bfloat16 else 1.0)
+    log(f"wn_flow {tag}: max_abs_err {err:.3g} (bound {tol:.3g}, "
+        f"max|plain| {want.abs().max().item():.3g})")
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"flow kernel disagrees: {err} > {tol}")
+    return err
+
+
+def check_flow_kernel(wf):
+    """The flow kernel against wn_flow_plain at n_half 4, 3, 2 (B=2,
+    T=1000) in both dtypes, then at the CLI's shape (bf16 B=8, T=10240).
+    Returns the largest error of each dtype."""
+    g = torch.Generator("cuda").manual_seed(SEED + 4)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_half in (4, 3, 2):
+            args = flow_inputs(g, 2, 1000, n_half, dtype)
+            err = compare_flow(wf, *args,
+                               f"{str(dtype)[6:]} B=2 T=1000 n_half={n_half}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    T = MEL_FRAMES[1] * 160 // 8
+    args = flow_inputs(g, CLI_BATCH, T, 4, torch.bfloat16)
+    err = compare_flow(wf, *args, f"bfloat16 B={CLI_BATCH} T={T} n_half=4")
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], err)
+    return worst
+
+
 def check_waveglow(wg_cfg, wg_params):
     from fac_via_ppg_torch.models.waveglow import remove_weightnorm, \
         waveglow_infer
@@ -133,13 +224,19 @@ def check_waveglow(wg_cfg, wg_params):
     mel = torch.randn((1, wg_cfg.n_mel_channels, 40), generator=g,
                       device="cuda") - 4.0
     params = remove_weightnorm(wg_params)
-    outs = [waveglow_infer(wg_cfg, params, mel, 0.6,
-                           torch.Generator("cuda").manual_seed(7),
-                           wn_impl=impl) for impl in ("layer", "conv")]
-    err = (outs[0] - outs[1]).abs().max().item()
-    log(f"waveglow layer vs conv, f32: max_abs_err {err:.3g} (atol 1e-4)")
-    if not (torch.isfinite(outs[0]).all() and err <= 1e-4):
-        raise AssertionError(f"WaveGlow on the kernel disagrees: {err}")
+    conv = waveglow_infer(wg_cfg, params, mel, 0.6,
+                          torch.Generator("cuda").manual_seed(7),
+                          wn_impl="conv")
+    for impl in ("layer", "flow"):
+        out = waveglow_infer(wg_cfg, params, mel, 0.6,
+                             torch.Generator("cuda").manual_seed(7),
+                             wn_impl=impl)
+        err = (out - conv).abs().max().item()
+        log(f"waveglow {impl} vs conv, f32: max_abs_err {err:.3g} "
+            f"(atol 1e-4)")
+        if not (torch.isfinite(out).all() and err <= 1e-4):
+            raise AssertionError(f"WaveGlow on the {impl} kernel disagrees: "
+                                 f"{err}")
 
 
 def write_wavs(dirname):
@@ -233,8 +330,12 @@ def stage_times(synth, paths, repeats=3):
     from fac_via_ppg_torch.eval.fused import SILENCE
     from fac_via_ppg_torch.models.tacotron2 import \
         tacotron2_inference_batched
-    from fac_via_ppg_torch.models.waveglow import waveglow_infer
+    from fac_via_ppg_torch.models.waveglow import (
+        pack_waveglow_flow,
+        waveglow_infer,
+    )
 
+    flow_pack = pack_waveglow_flow(synth.wg_cfg, synth.wg_params)
     pairs = [synth.featurize(p) for p in paths[:BATCH]]
     t_max = max(f.shape[0] for f, _ in pairs)
     feats = torch.as_tensor(np.stack([
@@ -275,6 +376,11 @@ def stage_times(synth, paths, repeats=3):
                 raise AssertionError("WaveGlow audio is not finite")
             t = time.time()
             waveglow_infer(synth.wg_cfg, synth.wg_params, mel, synth.sigma,
+                           g, wn_impl="flow", packed_wn=flow_pack)
+            torch.cuda.synchronize()
+            note("waveglow_flow_s", time.time() - t)
+            t = time.time()
+            waveglow_infer(synth.wg_cfg, synth.wg_params, mel, synth.sigma,
                            g, wn_impl="conv")
             torch.cuda.synchronize()
             note("waveglow_conv_s", time.time() - t)
@@ -287,20 +393,18 @@ def stage_times(synth, paths, repeats=3):
     return out
 
 
-def profile_batch(synth, paths):
-    """One batch of the served path under torch.profiler: the device's
-    busy share of the wall time (the union of its kernels' intervals) and
-    the kernels that take the most."""
+def profile_run(fn):
+    """`fn` under torch.profiler: the device's busy share of the wall time
+    (the union of its kernels' intervals) and the kernels that take the
+    most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pairs = [synth.featurize(p) for p in paths[:BATCH]]
-    gen = torch.Generator("cuda").manual_seed(SEED)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.time()
-        synth.collect_feature_pairs(synth.launch_feature_pairs(pairs, gen))
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t
 
@@ -323,6 +427,49 @@ def profile_batch(synth, paths):
             "device_busy_s": busy_s if kernels else "not measured",
             "busy_share": busy_s / wall if kernels else "not measured",
             "top": [[k[:70], us / 1e3, n] for k, (us, n) in top]}
+
+
+def profile_batch(synth, paths):
+    """One batch of the fused served path under the profiler."""
+    pairs = [synth.featurize(p) for p in paths[:BATCH]]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    return profile_run(lambda: synth.collect_feature_pairs(
+        synth.launch_feature_pairs(pairs, gen)))
+
+
+def profile_cli_batch(cfg, ckpt, paths):
+    """The vocoder CLI's device work for one batch (8 x 512 frames, bf16,
+    flow kernel, denoiser) under the profiler, after one warm-up."""
+    from fac_via_ppg_torch.models.denoiser import Denoiser
+    from fac_via_ppg_torch.models.waveglow import (
+        cast_params,
+        pack_waveglow_flow,
+        waveglow_infer,
+    )
+    from fac_via_ppg_torch.scripts.waveglow_inference import (
+        bucket_mels,
+        load_mel,
+    )
+    from fac_via_ppg_torch.utils.inference import load_waveglow_model
+    from fac_via_ppg_torch.weights import move
+
+    params = move(load_waveglow_model(ckpt, cfg), torch.device("cuda"))
+    den = Denoiser(cfg, params)
+    serve = cast_params(params, torch.bfloat16)
+    pack = pack_waveglow_flow(cfg, serve)
+    mels = bucket_mels([(p, load_mel(p)) for p in paths[:CLI_BATCH]], 64)
+    mel = torch.as_tensor(np.stack([m for _, m, _ in mels]),
+                          device="cuda").to(torch.bfloat16)
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def batch():
+        with torch.no_grad():
+            audio = waveglow_infer(cfg, serve, mel, 0.6, gen,
+                                   wn_impl="flow", packed_wn=pack).float()
+            den(audio, strength=0.005)
+
+    batch()
+    return profile_run(batch)
 
 
 def time_kernel(wl, synth):
@@ -354,11 +501,161 @@ def time_kernel(wl, synth):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def write_cli_inputs(tmp):
+    """A seeded full-width WaveGlow written as a .pt state dict by the
+    port's exporter, and N_MELS seeded mel .npy files."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models import init_waveglow
+    from fac_via_ppg_torch.train.export_torch import \
+        export_waveglow_state_dict
+
+    cfg = WaveGlowConfig()
+    g = torch.Generator().manual_seed(SEED + 3)
+    params = init_waveglow(cfg, g)
+    # the end convs are zero at init; small weights let the kernel's
+    # output reach the audio
+    for wn in params["wn"]:
+        w = wn["end"]["weight"]
+        wn["end"]["weight"] = torch.randn(w.shape, generator=g) * 1e-2
+    ckpt = f"{tmp}/waveglow.pt"
+    torch.save(export_waveglow_state_dict(params, cfg), ckpt)
+    rng = np.random.RandomState(SEED)
+    frames = rng.randint(MEL_FRAMES[0], MEL_FRAMES[1] + 1, size=N_MELS)
+    paths = []
+    for i, n in enumerate(frames):
+        paths.append(f"{tmp}/mel{i}.npy")
+        np.save(paths[-1], (rng.randn(cfg.n_mel_channels, n) * 0.5
+                            - 5).astype(np.float32))
+    return cfg, ckpt, paths, [int(n) for n in frames]
+
+
+def check_wavs(out_dir, paths, frames, hop):
+    from scipy.io import wavfile
+
+    for path, n in zip(paths, frames):
+        sr, wav = wavfile.read(f"{out_dir}/{path.rsplit('/', 1)[1]}"
+                               "_synthesis.wav")
+        if sr != 16000 or wav.dtype != np.int16 or len(wav) != n * hop:
+            raise AssertionError(f"bad wav for {path}: {sr} Hz {wav.dtype} "
+                                 f"{len(wav)} vs {n} * {hop}")
+        if wav.std() == 0:
+            raise AssertionError(f"constant wav for {path}")
+
+
+def run_cli(wf, tmp):
+    """The batched vocoder CLI in-process, as a user runs it: -b 8
+    --mel_bucket 64 -s 0.6 -d 0.005, bf16, --wn_impl flow; then
+    --cond_impl auto over the first 8 mels."""
+    from fac_via_ppg_torch.scripts import waveglow_inference as cli
+
+    cfg, ckpt, paths, frames = write_cli_inputs(tmp)
+    lists = {}
+    for name, n in (("all", N_MELS), ("first8", 8)):
+        lists[name] = f"{tmp}/{name}.txt"
+        with open(lists[name], "w") as fh:
+            fh.write("\n".join(paths[:n]) + "\n")
+    kw = dict(batch_size=CLI_BATCH, compute_dtype="bfloat16",
+              wn_impl="flow", mel_bucket=64)
+    wf.launches = 0
+    summary = cli.main(lists["all"], ckpt, f"{tmp}/out", 0.6, 0.005, **kw)
+    n = wf.launches
+    check_wavs(f"{tmp}/out", paths, frames, cfg.hop_length)
+    per_batch = [b["launches"] for b in summary["batches"]]
+    log(f"cli: {len(per_batch)} batches, flow kernel launches {per_batch} "
+        f"(total {n}), vocoder s per batch "
+        f"{[b['vocoder_s'] for b in summary['batches']]}, "
+        f"{summary['audio_s']:.2f} audio s in {summary['wall_s']:.3f} s")
+    if per_batch != [cfg.n_flows] * len(per_batch) or \
+            n != cfg.n_flows * len(per_batch):
+        raise AssertionError(f"expected {cfg.n_flows} flow kernel launches "
+                             f"per batch, got {per_batch} (total {n})")
+    auto = cli.main(lists["first8"], ckpt, f"{tmp}/out8", 0.6, 0.005,
+                    cond_impl="auto", **kw)
+    check_wavs(f"{tmp}/out8", paths[:8], frames[:8], cfg.hop_length)
+    log(f"cli --cond_impl auto: served {auto['cond_impl']!r}, gate's "
+        f"worst-utterance SNR {auto['gate_snr_db']} dB")
+    log("cli profile: " + json.dumps(profile_cli_batch(cfg, ckpt, paths)))
+    return summary, n, auto, check_int_mm(cfg, ckpt)
+
+
+def check_int_mm(cfg, ckpt):
+    """torch._int_mm (the int8 cond projection on CUDA) against the exact
+    int32 CPU product, bit for bit: the CLI batch's codes (B=8 x 512
+    frames) against flow 0's int8 weights, every 160th row checked."""
+    from fac_via_ppg_torch.models.waveglow import (
+        _int8_matmul,
+        pack_waveglow_int8cond,
+        quantize_per_column_int8,
+    )
+    from fac_via_ppg_torch.utils.inference import load_waveglow_model
+
+    pk = pack_waveglow_int8cond(cfg, load_waveglow_model(ckpt, cfg))[0]
+    g = torch.Generator("cuda").manual_seed(SEED + 5)
+    G = MEL_FRAMES[1] * cfg.hop_length // cfg.n_group
+    spect = torch.randn((CLI_BATCH, cfg.n_mel_channels * cfg.n_group, G),
+                        generator=g, device="cuda")
+    sq, _ = quantize_per_column_int8(spect)
+    rows = sq.transpose(1, 2).reshape(CLI_BATCH * G, -1)
+    wq = pk["wq"].T.to("cuda")
+    got = _int8_matmul(rows, wq)
+    torch.cuda.synchronize()
+    idx = torch.arange(0, rows.shape[0], 160, device="cuda")
+    want = torch.matmul(rows[idx].cpu().int(), wq.cpu().int())
+    same = torch.equal(got[idx].cpu(), want)
+    log(f"torch._int_mm ({rows.shape[0]} x {rows.shape[1]}) @ "
+        f"({wq.shape[0]} x {wq.shape[1]}) -> {got.dtype}: {len(idx)} rows "
+        f"{'bit-equal to' if same else 'DIFFER from'} the CPU int32 product")
+    if got.dtype != torch.int32 or not same:
+        raise AssertionError("torch._int_mm disagrees with the exact product")
+    return len(idx)
+
+
+def flow_bound(B, T, n_half, dtype, C=256, L=8):
+    """The least time of one net: FLOP per time row 2*(n_half*C + L*3C*2C
+    + (L-1)*C*2C + C*C + C*2*n_half); bytes: audio, cond and output once,
+    the weights once, biases in f32."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    flops = 2 * B * T * (n_half * C + L * 6 * C * C + (L - 1) * 2 * C * C
+                         + C * C + 2 * C * n_half)
+    nbytes = (esz * (B * T * (n_half + L * 2 * C + 2 * n_half)
+                     + n_half * C + L * 6 * C * C + L * 2 * C * C
+                     + 2 * C * n_half)
+              + 4 * (C + 4 * L * C + 2 * n_half))
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, \
+        nbytes / PEAK_BYTES * 1e3
+    return flops, nbytes, max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_flow_kernel(wf):
+    """The flow kernel and its plain version at the CLI's shape: one batch
+    of 8 x 512 frames, B x T = 8 x 10240, C=256, L=8, n_half=4, bf16; and
+    the kernel in f32 (--compute_dtype float32)."""
+    g = torch.Generator("cuda").manual_seed(SEED + 6)
+    B, T = CLI_BATCH, MEL_FRAMES[1] * 160 // 8
+    n0 = wf.launches
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = flow_inputs(g, B, T, 4, dtype)
+        ms = cuda_ms(lambda: wf.wn_flow(*args), reps=10)
+        plain_ms = cuda_ms(lambda: wf.wn_flow_plain(*args), reps=5)
+        flops, nbytes, bound, by = flow_bound(B, T, 4, dtype)
+        log(f"wn_flow {str(dtype)[6:]} B={B} T={T} C=256 L=8 n_half=4: "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}; {flops} FLOP, {nbytes} B, {flops / ms / 1e9:.1f} "
+            f"TFLOP/s, {100 * bound / ms:.2f} % of bound)")
+        out[dtype] = (ms, plain_ms, bound, by)
+        del args
+    wf.launches = n0
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
+        from fac_via_ppg_torch.ops import wn_flow as wf
         from fac_via_ppg_torch.ops import wn_layer as wl
         from fac_via_ppg_torch.weights import move
     except ImportError as e:
@@ -369,12 +666,9 @@ def main():
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
 
-    t0 = time.time()
-    report = wl.build()
-    log(f"built {wl.LIBRARY.name} in {time.time() - t0:.2f} s")
-    log("\n".join(l for l in report.splitlines() if "registers" in l
-                  or "spill" in l))
+    build_kernels((wl, wf))
     max_err = check_kernel(wl)
+    flow_err = check_flow_kernel(wf)
 
     wl.launches = 0
     synth, wg_cfg, wg_params = build_synth()
@@ -394,6 +688,21 @@ def main():
         "featurize_s_per_batch": feat_s, "device_s_per_batch": dev_s,
         "audio_s": audio_s, "wall_s": wall,
         "audio_s_per_wall_s": audio_s / wall}))
+    del synth
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, flow_launches, auto, int_mm_rows = run_cli(wf, tmp)
+    log("cli: " + json.dumps({
+        "card": card, "batch": CLI_BATCH, "mels": N_MELS,
+        "vocoder_s_per_batch": [b["vocoder_s"] for b in cli["batches"]],
+        "flow_launches_per_batch": [b["launches"] for b in cli["batches"]],
+        "audio_s": cli["audio_s"], "wall_s": cli["wall_s"],
+        "audio_s_per_wall_s": cli["audio_s"] / cli["wall_s"],
+        "auto_cond_impl": auto["cond_impl"],
+        "auto_gate_snr_db": auto["gate_snr_db"],
+        "int_mm_rows_bit_equal": int_mm_rows}))
+    flow_t = time_flow_kernel(wf)
+    f_ms, f_plain_ms, f_bound_ms, f_bound_by = flow_t[torch.bfloat16]
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
@@ -404,6 +713,16 @@ def main():
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None}, {
+        "name": "wn_flow", "route": "cuda",
+        "source": "fac_via_ppg_torch/csrc/wn_flow.cu",
+        "replaces": "fac_via_ppg_tpu/ops/wn_flow_pallas.py:245",
+        "launches": int(flow_launches),
+        "max_abs_err": max(flow_err.values()),
+        "max_abs_err_f32": flow_err[torch.float32],
+        "max_abs_err_bf16": flow_err[torch.bfloat16],
+        "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
+        "bound_by": f_bound_by, "ms_f32": flow_t[torch.float32][0],
         "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,7 @@ from fac_via_ppg_torch.frontend.mfcc import (
     MfccOptions,
     compute_mfcc,
 )
+from fac_via_ppg_torch.utils.device import resolve_device
 
 # Static resources (reference compute_ppg.py:33-39).
 DATA_DIR = os.path.join(
@@ -77,13 +78,15 @@ def compute_feat_for_nnet_internal(
 def compute_full_ppg(nnet: nnet3_mod.Nnet3, feats: np.ndarray,
                      pad_to: int = 64,
                      device: Optional[torch.device] = None) -> np.ndarray:
-    """AM input features -> (T, n_senones) posteriors.
+    """AM input features -> (T, n_senones) posteriors, computed on
+    `device` (None means the CUDA card; raises without one).
 
     Frames are padded to a `pad_to` bucket by replicating the last frame;
     replication preserves the TDNN's edge-clamping semantics exactly
     (offsets at the true last frame read the same values either way), and
     padded outputs are sliced off.
     """
+    device = resolve_device(device)
     t = feats.shape[0]
     feats = np.asarray(feats, dtype=np.float32)
     if pad_to > 1 and t % pad_to:
@@ -92,7 +95,7 @@ def compute_full_ppg(nnet: nnet3_mod.Nnet3, feats: np.ndarray,
             [feats, np.repeat(feats[-1:], t_pad - t, axis=0)], axis=0
         )
     with torch.no_grad():
-        out = nnet.forward(torch.as_tensor(feats, device=device))
+        out = nnet.to(device).forward(torch.as_tensor(feats, device=device))
     return out.cpu().numpy()[:t]
 
 

@@ -7,12 +7,19 @@ dictionaries in their folded form (weight-norm g/v already folded;
 ConvTranspose1d (in, out, k).  Layouts at the public functions follow the
 JAX package: channels-first (B, C, T).
 
-Two coupling-net implementations:
+Three coupling-net implementations:
   * `wn_apply` -- the conv formulation (the JAX package's wn_impl="xla").
   * `wn_apply_layer` -- channels-last on the hand-written WN layer kernel
     (ops/wn_layer.py; the JAX package's wn_impl="pallas").  The start
     conv, the stacked cond projection and the end conv are plain matmuls,
     as the JAX package computes them outside its kernel.
+  * `wn_apply_flow` -- one launch of the whole-net kernel per flow
+    (ops/wn_flow.py; the JAX package's wn_impl="flow").  The stacked cond
+    projection is computed outside it, as in the JAX package.
+
+The cond projection runs dense or, with `cond_impl="int8"`, as an int8
+matmul with int32 accumulation (per-column activation scales,
+per-out-channel weight scales) and exact dequantization.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ import torch.nn.functional as F
 
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 from fac_via_ppg_torch.ops.layers import conv1d
-from fac_via_ppg_torch.ops.wn_layer import wn_layer
+from fac_via_ppg_torch.ops.wn_flow import pack_wn_flow, wn_flow
+from fac_via_ppg_torch.ops.wn_layer import pack_in_weight, wn_layer
 
 
 def flow_channels(cfg: WaveGlowConfig) -> List[int]:
@@ -164,20 +172,82 @@ def ungroup_audio(audio: torch.Tensor) -> torch.Tensor:
 # WN coupling network
 # ==========================================================================
 
-def _cond_all(wn: dict, spect_grouped: torch.Tensor) -> torch.Tensor:
+def quantize_per_tensor_int8(x: torch.Tensor):
+    """Dynamic symmetric per-tensor int8: (q, scale) with x ~= q * scale."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().max(), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_per_column_int8(x: torch.Tensor):
+    """Dynamic symmetric int8 per (batch, position) column of a (B, C, G)
+    activation: (q, scale (B, G)) with x[b, :, g] ~= q[b, :, g] * s[b, g].
+    The scale sits outside the matmul's contraction over C, so
+    dequantization is exact."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[:, None, :]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def pack_waveglow_int8cond(cfg: WaveGlowConfig, params: dict) -> list:
+    """Per flow, the stacked cond weights (L*2C, n_mel*n_group) as int8
+    with per-out-channel symmetric scales, and the bias in f32.  Computed
+    once outside the call; feed to waveglow_infer(cond_impl="int8",
+    packed_cond=...).  Lossy: gate it on a measured SNR
+    (eval/int8_snr.select_cond_impl)."""
+    packed = []
+    for wn in params["wn"]:
+        w = torch.cat([p["weight"] for p in wn["cond_layers"]],
+                      dim=0)[:, :, 0].float()
+        b = torch.cat([p["bias"] for p in wn["cond_layers"]], dim=0)
+        w_scale = torch.clamp(w.abs().amax(dim=1), min=1e-8) / 127.0
+        wq = torch.clamp(torch.round(w / w_scale[:, None]), -127, 127)
+        packed.append({"wq": wq.to(torch.int8), "w_scale": w_scale,
+                       "bias": b.float()})
+    return packed
+
+
+def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact: torch._int_mm
+    on CUDA, an int32 matmul on the CPU (|sums| < 2^31 for K < 2^17)."""
+    if a.device.type == "cuda":
+        return torch._int_mm(a.contiguous(), b.contiguous())
+    return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+
+
+def _cond_int8(sq: torch.Tensor, s_scale: torch.Tensor, pk: dict,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The stacked cond projection on int8 codes, channels-last
+    (B, G, L*2C): int32 accumulation, then acc * s_scale * w_scale + bias
+    in f32 (the JAX package's order), rounded to out_dtype.  s_scale is a
+    scalar (per-tensor) or (B, G) (per-column)."""
+    B, K, G = sq.shape
+    acc = _int8_matmul(sq.transpose(1, 2).reshape(B * G, K), pk["wq"].T)
+    acc = acc.reshape(B, G, -1)
+    s = s_scale if s_scale.dim() == 0 else s_scale[:, :, None]
+    return (acc.float() * s * pk["w_scale"] + pk["bias"]).to(out_dtype)
+
+
+def _cond_all(wn: dict, spect_grouped: torch.Tensor,
+              cond_int8=None) -> torch.Tensor:
     """All layers' cond projections as ONE stacked (B, L*2C, G) conv over
-    the grouped spect, which is constant across the layer loop."""
+    the grouped spect, which is constant across the layer loop;
+    `cond_int8 = (codes, scale, flow pack)` runs it in int8."""
+    if cond_int8 is not None:
+        return _cond_int8(*cond_int8, spect_grouped.dtype).transpose(1, 2)
     w = torch.cat([p["weight"] for p in wn["cond_layers"]], dim=0)
     b = torch.cat([p["bias"] for p in wn["cond_layers"]], dim=0)
     return conv1d({"weight": w, "bias": b}, spect_grouped)
 
 
 def wn_apply(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
-             spect_grouped: torch.Tensor) -> torch.Tensor:
+             spect_grouped: torch.Tensor, cond_int8=None) -> torch.Tensor:
     """(B, n_half, T) x (B, 640, T) -> (B, 2*n_half, T), conv formulation."""
     C = cfg.wn_n_channels
     audio = conv1d(wn["start"], audio_half)
-    cond = _cond_all(wn, spect_grouped)
+    cond = _cond_all(wn, spect_grouped, cond_int8)
     output = None
     for i in range(cfg.wn_n_layers):
         dilation = 2 ** i
@@ -194,13 +264,6 @@ def wn_apply(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
             skip = res_skip
         output = skip if output is None else output + skip
     return conv1d(wn["end"], output)
-
-
-def pack_in_weight(conv_weight: torch.Tensor) -> torch.Tensor:
-    """torch conv weight (2C, C, 3) -> tap-stacked matmul form (3C, 2C):
-    tap j multiplies x[t + (j-1)*d]."""
-    return torch.cat([conv_weight[:, :, j].T
-                      for j in range(conv_weight.shape[2])], dim=0)
 
 
 def pack_wn_layer(wn: dict) -> dict:
@@ -255,6 +318,42 @@ def wn_apply_layer(cfg: WaveGlowConfig, packed: dict,
     return out.transpose(1, 2)
 
 
+def pack_waveglow_flow(cfg: WaveGlowConfig, params: dict,
+                       dtype: Optional[torch.dtype] = None) -> list:
+    """Every flow's whole-net kernel pack (ops/wn_flow.pack_wn_flow), plus
+    its stacked cond projection `cond_w` (n_mel*n_group, L*2C) and
+    `cond_b`, computed once outside the call.  `dtype` casts the matmul
+    weights (bf16 serving); biases stay f32."""
+    if cfg.wn_kernel_size != 3:
+        raise ValueError("the WN flow kernel needs wn_kernel_size=3, got "
+                         f"{cfg.wn_kernel_size}")
+    packs = []
+    for wn in params["wn"]:
+        pk = pack_wn_flow(wn, dtype)
+        cond_w = torch.cat([p["weight"] for p in wn["cond_layers"]], dim=0)
+        pk["cond_w"] = cond_w[:, :, 0].T.to(pk["w_in"].dtype).contiguous()
+        pk["cond_b"] = torch.cat([p["bias"] for p in wn["cond_layers"]],
+                                 dim=0).float()
+        packs.append(pk)
+    return packs
+
+
+def wn_apply_flow(cfg: WaveGlowConfig, packed: dict,
+                  audio_half: torch.Tensor, spect_grouped: torch.Tensor,
+                  cond_int8=None) -> torch.Tensor:
+    """`wn_apply` as ONE launch of the whole-net kernel (ops/wn_flow.py).
+    The stacked cond projection, dense or int8, is computed here,
+    channels-last; the kernel reads zeros outside [0, T) itself, so
+    nothing is padded."""
+    dt = audio_half.dtype
+    if cond_int8 is None:
+        cond = _dense(spect_grouped.transpose(1, 2), packed["cond_w"],
+                      packed["cond_b"], dt)                 # (B, T, L*2C)
+    else:
+        cond = _cond_int8(*cond_int8, dt)
+    return wn_flow(packed, audio_half.contiguous(), cond)
+
+
 # ==========================================================================
 # inference
 # ==========================================================================
@@ -264,7 +363,10 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    dtype: Optional[torch.dtype] = None, noise=None,
                    wn_impl: str = "layer",
-                   packed_wn: Optional[list] = None) -> torch.Tensor:
+                   packed_wn: Optional[list] = None,
+                   cond_impl: str = "dense",
+                   packed_cond: Optional[list] = None,
+                   cond_quant: str = "column") -> torch.Tensor:
     """(B, 80, F) mel -> (B, F*hop) audio (reference glow.py:252-293).
 
     `dtype=torch.bfloat16` runs the flows in bf16 with f32 matmul
@@ -277,10 +379,24 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     (glow.py:284-289).  Each is scaled by `sigma` here.
 
     `wn_impl`: "layer" (the WN layer kernel; `packed_wn` from
-    pack_waveglow_layer keeps packing out of the call) or "conv".
+    pack_waveglow_layer keeps packing out of the call), "flow" (the
+    whole-net kernel, one launch per flow; `packed_wn` from
+    pack_waveglow_flow) or "conv".
+
+    `cond_impl="int8"` (conv and flow) runs the stacked cond projections
+    on int8 codes: the grouped spect is quantized once per call, per
+    (batch, position) column (`cond_quant="tensor"`: one scale), the
+    weights per out channel (`packed_cond` from pack_waveglow_int8cond).
+    Lossy: gate it on a measured SNR (eval/int8_snr.select_cond_impl).
     """
-    if wn_impl not in ("layer", "conv"):
+    if wn_impl not in ("layer", "conv", "flow"):
         raise ValueError(f"unknown wn_impl {wn_impl!r}")
+    if cond_impl not in ("dense", "int8"):
+        raise ValueError(f"unknown cond_impl {cond_impl!r}")
+    if cond_quant not in ("column", "tensor"):
+        raise ValueError(f"unknown cond_quant {cond_quant!r}")
+    if cond_impl == "int8" and wn_impl == "layer":
+        raise ValueError("cond_impl='int8' requires wn_impl conv or flow")
     if dtype is not None:
         params = cast_params(params, dtype)
         spect = spect.to(dtype)
@@ -302,14 +418,26 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     packed = None
     if wn_impl == "layer":
         packed = packed_wn or pack_waveglow_layer(cfg, params)
+    elif wn_impl == "flow":
+        packed = packed_wn or pack_waveglow_flow(cfg, params)
+    cond_q = None
+    if cond_impl == "int8":
+        pack_c = packed_cond or pack_waveglow_int8cond(cfg, params)
+        # the spect is constant across flows: quantized once per call
+        quantize = (quantize_per_column_int8 if cond_quant == "column"
+                    else quantize_per_tensor_int8)
+        cond_q = quantize(spect_g)
 
     for k in reversed(range(cfg.n_flows)):
         n_half = audio.shape[1] // 2
         audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
-        if packed is not None:
+        c8 = None if cond_q is None else (*cond_q, pack_c[k])
+        if wn_impl == "layer":
             wn_out = wn_apply_layer(cfg, packed[k], audio_0, spect_g)
+        elif wn_impl == "flow":
+            wn_out = wn_apply_flow(cfg, packed[k], audio_0, spect_g, c8)
         else:
-            wn_out = wn_apply(cfg, params["wn"][k], audio_0, spect_g)
+            wn_out = wn_apply(cfg, params["wn"][k], audio_0, spect_g, c8)
         s, b = wn_out[:, n_half:], wn_out[:, :n_half]
         audio_1 = (audio_1 - b) * torch.exp(-s)
         audio = torch.cat([audio_0, audio_1], dim=1)

@@ -12,43 +12,47 @@ wn_layer_pallas`.  One layer, channels-last (B, T, C):
 Bound on the H100 at the serving shapes (C = 256, bf16): 2*(3C*2C + C*2C)
 FLOP per time row against (C + 2C + 2C) * 2 bytes moved, ~410 FLOP/byte,
 above the card's ~295 FLOP/byte ridge, so the tensor cores bound it (989
-TFLOP/s bf16).  The kernel (`csrc/wn_layer.cu`) keeps the (T, 2C)
-pre-activation and the gate output on the SM: one block per (batch, 64-row
-time tile); GEMM 1 in chunks of 64 tanh + 64 sigmoid columns with the gate
-applied from a f32 staging tile; the gate output stays in shared memory as
-the A operand of GEMM 2, whose epilogue writes audio and skip.  Taps read
-zero outside [0, T), which is the conv's zero padding, so every dilation
-runs in the kernel and the caller pads and re-masks nothing.  bf16 uses
-the tensor cores (wmma); f32 uses full-f32 FMAs.
+TFLOP/s bf16).  The kernel (`csrc/wn_layer.cu`, tile code in
+`csrc/wn_tile.cuh`) keeps the (T, 2C) pre-activation and the gate output on
+the SM: one block per (batch, 64-row time tile); GEMM 1 in chunks of 64
+tanh + 64 sigmoid columns with the gate applied from a f32 staging tile;
+the gate output stays in shared memory as the A operand of GEMM 2, whose
+epilogue writes audio and skip.  Taps read zero outside [0, T), which is
+the conv's zero padding, so every dilation runs in the kernel and the
+caller pads and re-masks nothing.  bf16 uses the tensor cores (wmma); f32
+uses full-f32 FMAs.
 
 The kernel is built with nvcc for sm_90a from the repository's source at
-first use, into `fac_via_ppg_torch/build/`, and loaded with ctypes.  CPU
-tensors take `wn_layer_plain`; CUDA tensors launch the kernel or raise.
+first use (`ops/cuda_lib.py`) and loaded with ctypes.  CPU tensors take
+`wn_layer_plain`; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "wn_layer.cu"
-BUILD_DIR = _PKG / "build"
-LIBRARY = BUILD_DIR / "libwn_layer.so"
+from fac_via_ppg_torch.ops.cuda_lib import CudaLibrary
+
+_SYMBOLS = {torch.float32: "wn_layer_f32", torch.bfloat16: "wn_layer_bf16"}
+_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_LIB = CudaLibrary("wn_layer", {
+    name: [_p, _p, _ll, _ll, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+           _p] for name in _SYMBOLS.values()})
+LIBRARY = _LIB.library
+build = _LIB.build
 
 # Kernel launches since the last reset (the caller sets it to 0).
 launches = 0
 
-_lock = threading.Lock()
-_lib = None
-_SYMBOLS = {torch.float32: "wn_layer_f32", torch.bfloat16: "wn_layer_bf16"}
+
+def pack_in_weight(conv_weight: torch.Tensor) -> torch.Tensor:
+    """torch conv weight (2C, C, 3) -> tap-stacked matmul form (3C, 2C):
+    tap j multiplies x[t + (j-1)*d]."""
+    return torch.cat([conv_weight[:, :, j].T
+                      for j in range(conv_weight.shape[2])], dim=0)
 
 
 def wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
@@ -68,48 +72,20 @@ def wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
     return x + rs[..., :C].to(x.dtype), rs[..., C:].to(x.dtype)
 
 
-def build() -> str:
-    """Compile the kernel into LIBRARY; returns nvcc's resource report."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the WN kernel cannot be built")
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = LIBRARY.with_name(f".{LIBRARY.name}.{os.getpid()}")
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return res.stderr
-
-
-def _library():
-    global _lib
-    with _lock:
-        if _lib is None:
-            if (not LIBRARY.exists()
-                    or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime):
-                build()
-            lib = ctypes.CDLL(str(LIBRARY))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            for name in _SYMBOLS.values():
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, ll, ll, p, p, p, p, p, p,
-                               i, i, i, i, i, i, p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
-
-
-def _check(name, t, shape, dtype, device):
+def check(name, t, shape, dtype, device):
+    """Raises unless `t` has this shape, dtype and device."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if t.dtype != dtype or t.device != device:
         raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
                          f"{dtype} on {device}")
+
+
+def check_dense(name, t):
+    """Raises unless `t` is contiguous and 16-byte aligned (the kernels
+    read it in 16-byte vectors)."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
 def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
@@ -133,19 +109,17 @@ def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
         raise ValueError(f"wn_layer: needs C % 128 == 0 and dilation >= 1, "
                          f"got C={C}, dilation={dilation}")
     dt, dev = x.dtype, x.device
-    _check("cond", cond, (B, T, 2 * C), dt, dev)
-    _check("w_in", w_in, (3 * C, 2 * C), dt, dev)
-    _check("b_in", b_in, (2 * C,), dt, dev)
-    _check("w_rs", w_rs, (C, R), dt, dev)
-    _check("b_rs", b_rs, (R,), dt, dev)
+    check("cond", cond, (B, T, 2 * C), dt, dev)
+    check("w_in", w_in, (3 * C, 2 * C), dt, dev)
+    check("b_in", b_in, (2 * C,), dt, dev)
+    check("w_rs", w_rs, (C, R), dt, dev)
+    check("b_rs", b_rs, (R,), dt, dev)
     if cond.stride(2) != 1:
         raise ValueError("wn_layer: cond needs a unit channel stride")
     for name, t in (("x", x), ("w_in", w_in), ("b_in", b_in),
                     ("w_rs", w_rs), ("b_rs", b_rs)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"wn_layer: {name} must be contiguous and "
-                             f"16-byte aligned")
-    fn = getattr(_library(), _SYMBOLS[dt])
+        check_dense(f"wn_layer: {name}", t)
+    fn = _LIB.function(_SYMBOLS[dt])
     skip = torch.empty((B, T, C), dtype=dt, device=dev)
     audio = x if last else torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream

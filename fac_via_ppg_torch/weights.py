@@ -9,7 +9,8 @@ module does not import JAX).
 WaveGlow comes in either of its JAX forms: the train form, whose weight-norm
 (g, v) pairs are folded here exactly as the JAX package's
 `_weight_norm_fold` does (f32 norm), or the `remove_weightnorm` form,
-whose `convinv[k].weight_inverse` is kept.
+whose `convinv[k].weight_inverse` is kept.  `fold_waveglow` folds a tree
+that is already torch (the reference checkpoint's, train/import_torch.py).
 """
 
 from __future__ import annotations
@@ -53,16 +54,15 @@ def _weight_norm_fold(p: dict) -> dict:
     return {"weight": w.to(v.dtype), "bias": p["bias"]}
 
 
-def waveglow_from_jax(params, device: Optional[torch.device] = None):
-    """JAX WaveGlow params (train or remove_weightnorm form) -> the port's
-    folded form."""
-    t = to_torch(params, device)
-
+def fold_waveglow(params):
+    """WaveGlow params of tensors, train (g, v) or folded form -> the
+    port's folded form (a `weight_inverse` already there is kept)."""
     def fold(p):
         return _weight_norm_fold(p) if "v" in p else p
 
-    out = {"upsample": t["upsample"], "convinv": t["convinv"], "wn": []}
-    for wn in t["wn"]:
+    out = {"upsample": params["upsample"], "convinv": params["convinv"],
+           "wn": []}
+    for wn in params["wn"]:
         out["wn"].append({
             "start": fold(wn["start"]),
             "end": fold(wn["end"]),
@@ -71,3 +71,9 @@ def waveglow_from_jax(params, device: Optional[torch.device] = None):
             "res_skip_layers": [fold(p) for p in wn["res_skip_layers"]],
         })
     return out
+
+
+def waveglow_from_jax(params, device: Optional[torch.device] = None):
+    """JAX WaveGlow params (train or remove_weightnorm form) -> the port's
+    folded form."""
+    return fold_waveglow(to_torch(params, device))

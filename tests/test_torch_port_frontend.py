@@ -197,10 +197,20 @@ def test_apply_component_matches_jax(kind, attrs):
 def test_compute_full_ppg_matches_jax():
     net_t, net_j = _nets()
     feats = np.random.RandomState(9).randn(37, 40).astype(np.float32)
-    out = t_ppg.compute_full_ppg(net_t, feats)
+    out = t_ppg.compute_full_ppg(net_t, feats, device="cpu")
     ref = j_ppg.compute_full_ppg(net_j, feats)
     assert out.shape == (37, 24)
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+def test_compute_full_ppg_defaults_to_the_card(monkeypatch):
+    """device=None means CUDA: without a card it raises, not a quiet CPU
+    run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net_t, _ = _nets()
+    feats = np.zeros((5, 40), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_ppg.compute_full_ppg(net_t, feats)
 
 
 def test_substitute_bundle_is_identical_to_jax(tmp_path):

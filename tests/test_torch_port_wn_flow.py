@@ -1,0 +1,239 @@
+"""The port's whole-net WN flow (ops/wn_flow.py), its WaveGlow path
+(`wn_impl="flow"`), the int8 cond projection and the int8 serving gate,
+against the JAX package on the CPU.
+
+At tests/test_wn_flow_pallas.py's config (C=64, L=4, 12 flows, so n_half
+4/3/2).  On a CPU tensor `wn_flow` takes `wn_flow_plain`; the kernel itself
+is held against it on the card by tests/test_torch_port_card.py.
+Tolerances: f32 atol 2e-5, rtol 2e-4 on one net and atol 2e-4, rtol 1e-3 on
+the 12-flow audio (the JAX tests' own: the same arithmetic summed in
+another order); bf16 against the JAX f32 result within
+0.05 * max(1, max|want|) (test_wn_flow_pallas.py:130-137); int8 codes and
+scales bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fac_via_ppg_torch import weights
+from fac_via_ppg_torch.configs.hparams import WaveGlowConfig as TWaveGlowConfig
+from fac_via_ppg_torch.eval import int8_snr as t_snr
+from fac_via_ppg_torch.models import waveglow as twg
+from fac_via_ppg_torch.ops import wn_flow as twf
+from fac_via_ppg_tpu.configs.hparams import WaveGlowConfig
+from fac_via_ppg_tpu.eval import int8_snr as j_snr
+from fac_via_ppg_tpu.models import waveglow as jwg
+from fac_via_ppg_tpu.ops.initializers import conv1d_apply
+from fac_via_ppg_tpu.ops.wn_flow_pallas import (
+    flow_buf_geometry,
+    pack_wn_flow,
+    pad_time_for_flow,
+    wn_flow_pallas,
+)
+
+CFG_KW = dict(n_mel_channels=16, n_flows=12, n_group=8, wn_n_layers=4,
+              wn_n_channels=64, upsample_kernel_size=32)
+CFG, TCFG = WaveGlowConfig(**CFG_KW), TWaveGlowConfig(**CFG_KW)
+FLOW_OF_N_HALF = {4: 0, 3: 4, 2: 8}   # the first flow of each width
+
+
+@pytest.fixture(scope="module")
+def params():
+    """JAX remove_weightnorm params with nonzero end convs (zero ones
+    would make every comparison vacuous), and the port's copy."""
+    p = jwg.remove_weightnorm(jwg.init_waveglow(jax.random.PRNGKey(0), CFG))
+    rng = np.random.RandomState(1)
+    for wn in p["wn"]:
+        for leaf in ("weight", "bias"):
+            wn["end"][leaf] = jnp.asarray(
+                rng.randn(*np.shape(wn["end"][leaf])) * 0.1, jnp.float32)
+    return p, weights.waveglow_from_jax(p)
+
+
+def _flow_inputs(flow, B, T, seed):
+    rng = np.random.RandomState(seed)
+    n_half = twg.flow_channels(TCFG)[flow] // 2
+    audio = rng.randn(B, n_half, T).astype(np.float32)
+    spect = rng.randn(B, CFG.n_mel_channels * CFG.n_group,
+                      T).astype(np.float32)
+    return n_half, audio, spect
+
+
+def _port_flow(tparams, flow, audio, spect, dtype=torch.float32):
+    """wn_flow on the port's pack, cond projected channels-last."""
+    pk = twg.pack_waveglow_flow(TCFG, tparams, dtype=dtype)[flow]
+    spect_t = torch.from_numpy(spect)
+    cond = (torch.matmul(spect_t.transpose(1, 2), pk["cond_w"].float())
+            + pk["cond_b"]).to(dtype)
+    return twf.wn_flow(pk, torch.from_numpy(audio).to(dtype), cond)
+
+
+@pytest.mark.parametrize("n_half", sorted(FLOW_OF_N_HALF))
+def test_wn_flow_plain_matches_jax_kernel(params, n_half):
+    """Against the Pallas kernel in interpret mode, sliced to its valid
+    rows and columns (its time and channel padding are TPU layout)."""
+    jparams, tparams = params
+    flow = FLOW_OF_N_HALF[n_half]
+    _, audio, spect = _flow_inputs(flow, 1, 100, seed=flow)
+    wn = jparams["wn"][flow]
+    t_pad, halo, _ = flow_buf_geometry(100, 128, CFG.wn_n_layers)
+    cond_w = jnp.concatenate([p["weight"] for p in wn["cond_layers"]], 0)
+    cond_b = jnp.concatenate([p["bias"] for p in wn["cond_layers"]], 0)
+    cond = conv1d_apply({"weight": cond_w, "bias": cond_b},
+                        pad_time_for_flow(jnp.asarray(spect), t_pad, halo))
+    want = wn_flow_pallas(pack_wn_flow(wn, CFG.wn_n_layers),
+                          jnp.asarray(audio), cond, CFG.wn_n_layers, 100,
+                          tile=128, interpret=True)[:, :2 * n_half, :100]
+    got = _port_flow(tparams, flow, audio, spect)
+    assert got.shape == (1, 2 * n_half, 100)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-4)
+
+
+@pytest.mark.parametrize("n_half", sorted(FLOW_OF_N_HALF))
+def test_wn_flow_plain_matches_jax_wn_apply(params, n_half):
+    """Against the conv formulation at a ragged T=300: every layer's zero
+    padding at both sequence edges, the last layer's skip-only projection
+    and the heterogeneous flow widths."""
+    jparams, tparams = params
+    flow = FLOW_OF_N_HALF[n_half]
+    _, audio, spect = _flow_inputs(flow, 2, 300, seed=10 + flow)
+    want = jwg.wn_apply(CFG, jparams["wn"][flow], jnp.asarray(audio),
+                        jnp.asarray(spect))
+    got = _port_flow(tparams, flow, audio, spect)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-4)
+
+
+def test_wn_flow_plain_bf16_close_to_jax_f32(params):
+    """bf16 weights, x, cond and skip sum with f32 accumulation and f32
+    biases stay within bf16-scale error of the JAX f32 result."""
+    jparams, tparams = params
+    _, audio, spect = _flow_inputs(0, 1, 200, seed=3)
+    want = np.asarray(jwg.wn_apply(CFG, jparams["wn"][0], jnp.asarray(audio),
+                                   jnp.asarray(spect)))
+    got = _port_flow(tparams, 0, audio, spect, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    err = np.max(np.abs(got.float().numpy() - want))
+    assert err < 0.05 * max(np.max(np.abs(want)), 1.0), err
+
+
+def test_wn_flow_cpu_takes_plain_and_counts_no_launch(params):
+    _, tparams = params
+    pk = twg.pack_waveglow_flow(TCFG, tparams)[0]
+    audio = torch.randn(1, 4, 50, generator=torch.Generator().manual_seed(0))
+    cond = torch.zeros(1, 50, CFG.wn_n_layers * 2 * CFG.wn_n_channels)
+    n0 = twf.launches
+    out = twf.wn_flow(pk, audio, cond)
+    assert twf.launches == n0
+    assert torch.equal(out, twf.wn_flow_plain(pk, audio, cond))
+    with pytest.raises(ValueError, match="unsupported device"):
+        twf.wn_flow(pk, audio.to("meta"), cond.to("meta"))
+
+
+def test_pack_wn_flow_places_the_last_layer_in_the_skip_columns(params):
+    """The kernel's uniform layer loop: the last layer's (C, C) skip-only
+    projection in columns [C, 2C), zero residual columns (as the TPU pack
+    puts it in rows [C, 2C) of its transposed form)."""
+    jparams, tparams = params
+    C, L = CFG.wn_n_channels, CFG.wn_n_layers
+    ours = twf.pack_wn_flow(tparams["wn"][5])
+    theirs = pack_wn_flow(jparams["wn"][5], L)
+    np.testing.assert_array_equal(
+        ours["w_rs"].numpy(), np.asarray(theirs["w_rs"]).transpose(0, 2, 1))
+    np.testing.assert_array_equal(ours["b_rs"].numpy(),
+                                  np.asarray(theirs["b_rs"]))
+    assert not ours["w_rs"][L - 1, :, :C].any()
+    n_half = ours["w_start"].shape[0]
+    np.testing.assert_array_equal(
+        ours["w_end"].numpy(), np.asarray(theirs["w_end"])[:2 * n_half].T)
+
+
+def _noise(B, F, seed):
+    return j_snr.matched_noise(CFG, B, F, seed)
+
+
+def test_waveglow_infer_flow_matches_jax_flow_kernel(params):
+    """All 12 flows on the flow path against the JAX package's flow path
+    (the Pallas kernel in interpret mode), dense cond, f32."""
+    jparams, tparams = params
+    mel = (np.random.RandomState(42).randn(2, 16, 6) * 0.5 - 1.0).astype(
+        np.float32)
+    noise = _noise(2, 6, 5)
+    want = jwg.waveglow_infer(CFG, jparams, jnp.asarray(mel), 0.7, None,
+                              noise=noise, wn_impl="flow_interpret",
+                              flow_tile=128)
+    got = twg.waveglow_infer(TCFG, tparams, torch.from_numpy(mel), 0.7,
+                             noise=noise, wn_impl="flow")
+    assert got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("cond_impl,cond_quant", [("dense", "column"),
+                                                  ("int8", "column"),
+                                                  ("int8", "tensor")])
+def test_waveglow_infer_flow_matches_jax_xla(params, cond_impl, cond_quant):
+    """The flow path, dense and int8 cond (per-column and per-tensor
+    activation scales), against the JAX conv formulation (wn_impl="xla"),
+    f32, with injected noise."""
+    jparams, tparams = params
+    mel = (np.random.RandomState(7).randn(2, 16, 20) * 0.5 - 1.0).astype(
+        np.float32)
+    noise = _noise(2, 20, 6)
+    want = jwg.waveglow_infer(CFG, jparams, jnp.asarray(mel), 0.7, None,
+                              noise=noise, cond_impl=cond_impl,
+                              cond_quant=cond_quant)
+    packed = twg.pack_waveglow_flow(TCFG, tparams)
+    got = twg.waveglow_infer(TCFG, tparams, torch.from_numpy(mel), 0.7,
+                             noise=noise, wn_impl="flow", packed_wn=packed,
+                             cond_impl=cond_impl, cond_quant=cond_quant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=1e-3)
+
+
+def test_int8_codes_scales_and_cond_match_jax(params):
+    """Quantized codes and scales are bit-equal to the JAX package's, per
+    column and per tensor; the dequantized projection agrees to f32
+    rounding."""
+    jparams, tparams = params
+    x = (np.random.RandomState(5).randn(2, 128, 37) * 3).astype(np.float32)
+    x[1, :, 4] = 0.0                      # an all-zero column: scale 1e-8
+    for tq, jq in ((twg.quantize_per_column_int8,
+                    jwg.quantize_per_column_int8),
+                   (twg.quantize_per_tensor_int8,
+                    jwg.quantize_per_tensor_int8)):
+        (q_t, s_t), (q_j, s_j) = tq(torch.from_numpy(x)), jq(jnp.asarray(x))
+        assert q_t.dtype == torch.int8
+        np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
+        np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    pk_t = twg.pack_waveglow_int8cond(TCFG, tparams)[3]
+    pk_j = jwg.pack_waveglow_int8cond(CFG, jparams)[3]
+    for k in ("wq", "w_scale", "bias"):
+        np.testing.assert_array_equal(pk_t[k].numpy(), np.asarray(pk_j[k]))
+    q_t, s_t = twg.quantize_per_column_int8(torch.from_numpy(x))
+    q_j, s_j = jwg.quantize_per_column_int8(jnp.asarray(x))
+    got = twg._cond_int8(q_t, s_t, pk_t, torch.float32)
+    want = jwg._cond_all(CFG, None, None, (q_j, s_j, pk_j), jnp.float32)
+    np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_select_cond_impl_reaches_jax_decision(params):
+    """The int8 gate on the flow path decides as the JAX package's gate
+    does, at a budget every mode meets (0 dB) and one none meets
+    (200 dB)."""
+    jparams, tparams = params
+    mel = (np.random.RandomState(9).randn(2, 16, 8) * 0.5 - 5.0).astype(
+        np.float32)
+    for budget, want in ((0.0, "int8"), (200.0, "dense")):
+        impl_j, snr_j = j_snr.select_cond_impl(CFG, jparams, jnp.asarray(mel),
+                                               budget)
+        impl_t, snr_t = t_snr.select_cond_impl(
+            TCFG, tparams, torch.from_numpy(mel), budget, wn_impl="flow")
+        assert impl_t == impl_j == want, (snr_t, snr_j)
+        assert 0.0 < snr_t < 200.0
