@@ -11,9 +11,13 @@ Phases (any failure exits nonzero; there is no CPU path):
      (TF32 off, atol 1e-4) and bf16 (atol 3e-2); then all 8 layers of a
      flow at the fused path's shapes: bf16 B=4, T=10000 (the served batch)
      and f32 B=1, T=1760 (the denoiser's bias pass);
-  3. hold the whole-net flow kernel against `wn_flow_plain`: n_half 4, 3
-     and 2 at B=2, T=1000, C=256, L=8 in f32 (atol 1e-4) and bf16 (3e-2 x
-     max(1, max|plain|)); then the vocoder CLI's shape, bf16 B=8, T=10240;
+  3. print the bf16 flow kernel's registers, spills (ptxas), dynamic
+     shared memory and blocks per SM; hold one tile's GEMM 1 of it (its
+     cp.async ring, weight image, swizzles and wgmma descriptors) against
+     torch.matmul (atol 1e-3); hold the whole-net flow kernel against
+     `wn_flow_plain`: n_half 4, 3 and 2 at B=2, T=1000, C=256, L=8 in f32
+     (atol 1e-4) and bf16 (3e-2 x max(1, max|plain|)), bf16 at a ragged
+     T=97; then the vocoder CLI's shape, bf16 B=8, T=10240;
   4. hold WaveGlow on each kernel ("layer", "flow") against its conv
      formulation (plain torch) on one short mel, f32, atol 1e-4;
   5. serve 8 seeded synthetic wavs (2-4 s, 16 kHz) as two batches of 4
@@ -37,13 +41,22 @@ Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`
 and `cli:` lines,
 a `{"kernels": ...}` line and, last, `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
+
+    python3 chip_smoke.py --time-flow CHECKOUT
+
+runs only the flow kernel of the port in CHECKOUT (another commit unpacked
+with `git archive`): builds it, holds it against its plain version at the
+CLI's shape and times it as phase 7 does; prints one JSON line.  Compare
+two versions on one card in one call, in turns: old, new, new, old.
 """
 
+import argparse
 import json
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -141,7 +154,8 @@ def check_kernel(wl):
 
 
 def build_kernels(mods):
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together; returns each
+    library's ptxas report."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.time()
@@ -152,13 +166,31 @@ def build_kernels(mods):
     for m, report in zip(mods, reports):
         log(f"{m.LIBRARY.name}: " + "\n".join(
             l for l in report.splitlines() if "registers" in l
-            or "spill" in l))
+            or "spill" in l or "Performance" in l))
+    return reports
 
 
-def flow_inputs(g, B, T, n_half, dtype, C=256, L=8):
+def ptxas_usage(report, kernel):
+    """(registers, spill store bytes) of `kernel` in a ptxas -v report."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            spill = regs = None
+            for nxt in lines[i + 1:i + 4]:
+                if "spill stores" in nxt:
+                    spill = int(nxt.split("bytes spill stores")[0]
+                                .split(",")[-1])
+                if "Used" in nxt and "registers" in nxt:
+                    regs = int(nxt.split("Used")[1].split("registers")[0])
+            return regs, spill
+    raise AssertionError(f"no ptxas entry for {kernel}")
+
+
+def flow_inputs(wf, g, B, T, n_half, dtype, C=256, L=8):
     """A random flow pack (ops/wn_flow.pack_wn_flow's layout, the last
-    layer's residual columns zero), audio (B, n_half, T) and cond
-    (B, T, L*2C) on the card."""
+    layer's residual columns zero, the bf16 kernel's weight image where
+    `wf` has one), audio (B, n_half, T) and cond (B, T, L*2C) on the
+    card."""
     f32 = torch.float32
 
     def mk(shape, s, dt=dtype):
@@ -173,6 +205,9 @@ def flow_inputs(g, B, T, n_half, dtype, C=256, L=8):
               "b_end": mk((2 * n_half,), 0.1, f32)}
     packed["w_rs"][L - 1, :, :C] = 0
     packed["b_rs"][L - 1, :C] = 0
+    # as pack_wn_flow does (a checkout from before the image has none)
+    if dtype == torch.bfloat16 and hasattr(wf, "weight_image"):
+        packed.update(wf.weight_image(packed))
     return packed, mk((B, n_half, T), 1.0), mk((B, T, L * 2 * C), 0.3)
 
 
@@ -197,23 +232,67 @@ def compare_flow(wf, packed, audio, cond, tag):
     return err
 
 
-def check_flow_kernel(wf):
-    """The flow kernel against wn_flow_plain at n_half 4, 3, 2 (B=2,
-    T=1000) in both dtypes, then at the CLI's shape (bf16 B=8, T=10240).
-    Returns the largest error of each dtype."""
+def check_gemm1_tile(wf, g):
+    """One tile's GEMM 1 of the bf16 flow kernel alone (ring, image,
+    swizzles, descriptors) against torch.matmul on the same bf16 data,
+    at the first tile (d=1) and a tail tile past T (d=128): atol 1e-3,
+    the two differ only in summation order."""
+    T, C = 1000, 256
+    x = (torch.randn((T, C), generator=g, device="cuda") * 0.3).bfloat16()
+    w_in = (torch.randn((3 * C, 2 * C), generator=g, device="cuda")
+            * 0.05).bfloat16()
+    img = wf.weight_image({"w_in": w_in[None],
+                           "w_rs": w_in.new_zeros((1, C, 2 * C))})
+    worst = 0.0
+    for t0, d in ((0, 1), (960, 128)):
+        got = wf.gemm1_tile(x, img["w_in_img"][0], t0, d)
+        torch.cuda.synchronize()
+        rows = torch.arange(t0, t0 + 64, device="cuda")
+        taps = []
+        for j in range(3):
+            t = rows + (j - 1) * d
+            ok = (t >= 0) & (t < T)
+            taps.append(torch.where(ok[:, None],
+                                    x[t.clamp(0, T - 1)].float(), 0.0))
+        err = (got - torch.matmul(torch.cat(taps, 1), w_in.float())
+               ).abs().max().item()
+        log(f"wn_flow bf16 GEMM 1 tile t0={t0} d={d}: max_abs_err "
+            f"{err:.3g} (atol 1e-3)")
+        if not err <= 1e-3:
+            raise AssertionError(f"GEMM 1 tile disagrees: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_flow_kernel(wf, report):
+    """The bf16 flow kernel's resources; its GEMM 1 tile; the flow kernel
+    against wn_flow_plain at n_half 4, 3, 2 (B=2, T=1000) in both dtypes,
+    bf16 at a ragged T=97, then at the CLI's shape (bf16 B=8, T=10240).
+    Returns the largest error of each dtype and the resources."""
+    regs, spill = ptxas_usage(report, "wn_flow_bf16_kernel")
+    blocks, smem = wf.kernel_resources()
+    res = {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
+           "blocks_per_sm": blocks}
+    log(f"wn_flow bf16 kernel: {regs} registers, {spill} bytes spilled "
+        f"(ptxas), {smem} bytes of dynamic shared memory, {blocks} block(s)"
+        f" per SM")
     g = torch.Generator("cuda").manual_seed(SEED + 4)
+    res["gemm1_tile_max_abs_err"] = check_gemm1_tile(wf, g)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for n_half in (4, 3, 2):
-            args = flow_inputs(g, 2, 1000, n_half, dtype)
+            args = flow_inputs(wf, g, 2, 1000, n_half, dtype)
             err = compare_flow(wf, *args,
                                f"{str(dtype)[6:]} B=2 T=1000 n_half={n_half}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+    args = flow_inputs(wf, g, 2, 97, 3, torch.bfloat16)
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], compare_flow(
+        wf, *args, "bfloat16 B=2 T=97 n_half=3"))
     T = MEL_FRAMES[1] * 160 // 8
-    args = flow_inputs(g, CLI_BATCH, T, 4, torch.bfloat16)
+    args = flow_inputs(wf, g, CLI_BATCH, T, 4, torch.bfloat16)
     err = compare_flow(wf, *args, f"bfloat16 B={CLI_BATCH} T={T} n_half=4")
     worst[torch.bfloat16] = max(worst[torch.bfloat16], err)
-    return worst
+    return worst, res
 
 
 def check_waveglow(wg_cfg, wg_params):
@@ -636,7 +715,7 @@ def time_flow_kernel(wf):
     n0 = wf.launches
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        args = flow_inputs(g, B, T, 4, dtype)
+        args = flow_inputs(wf, g, B, T, 4, dtype)
         ms = cuda_ms(lambda: wf.wn_flow(*args), reps=10)
         plain_ms = cuda_ms(lambda: wf.wn_flow_plain(*args), reps=5)
         flops, nbytes, bound, by = flow_bound(B, T, 4, dtype)
@@ -650,10 +729,38 @@ def time_flow_kernel(wf):
     return out
 
 
+def time_flow_at(root):
+    """`--time-flow`: the flow kernel of the port in checkout `root` alone,
+    checked and timed at the CLI's shape; one JSON line."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from fac_via_ppg_torch.ops import wn_flow as wf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    build_kernels((wf,))
+    g = torch.Generator("cuda").manual_seed(SEED + 6)
+    B, T = CLI_BATCH, MEL_FRAMES[1] * 160 // 8
+    err = compare_flow(wf, *flow_inputs(wf, g, B, T, 4, torch.bfloat16),
+                       f"bfloat16 B={B} T={T} n_half=4")
+    t = time_flow_kernel(wf)
+    log(json.dumps({"module": wf.__file__, "card": card,
+                    "ms": t[torch.bfloat16][0],
+                    "plain_ms": t[torch.bfloat16][1],
+                    "ms_f32": t[torch.float32][0], "max_abs_err": err}))
+    return 0
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--time-flow", metavar="CHECKOUT",
+                    help="only check and time the flow kernel of the port "
+                    "in CHECKOUT")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if args.time_flow:
+        return time_flow_at(args.time_flow)
     try:
         from fac_via_ppg_torch.ops import wn_flow as wf
         from fac_via_ppg_torch.ops import wn_layer as wl
@@ -666,9 +773,9 @@ def main():
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
 
-    build_kernels((wl, wf))
+    reports = build_kernels((wl, wf))
     max_err = check_kernel(wl)
-    flow_err = check_flow_kernel(wf)
+    flow_err, flow_res = check_flow_kernel(wf, reports[1])
 
     wl.launches = 0
     synth, wg_cfg, wg_params = build_synth()
@@ -723,7 +830,7 @@ def main():
         "max_abs_err_bf16": flow_err[torch.bfloat16],
         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
         "bound_by": f_bound_by, "ms_f32": flow_t[torch.float32][0],
-        "library_ms": None}]}))
+        **flow_res, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,12 +28,26 @@ block's 227 KB.  The kernel (`csrc/wn_flow.cu`) is one persistent
 cooperative launch instead: each block owns fixed (batch, 64-row) tiles; x
 lives in two (B, T, C) ping-pong buffers in device memory, separated
 between layers by a grid-wide barrier; the skip sum of a tile is touched
-only by its own block, which applies the end conv.  Per layer and tile the
-(64, 2C) pre-activation and the gate output never leave the SM (the tile
-code of `csrc/wn_tile.cuh`, shared with the WN layer kernel).  So the TPU's
+only by its own block, which applies the end conv.  So the TPU's
 overlap-save halo, guard lanes, tile padding of time and channel padding
 are not needed: this function takes unpadded audio and returns unpadded
-output.
+output.  The three (B, T, C) buffers (126 MB in bf16 at the serving shape)
+do not fit the 50 MB L2: ~0.25 GB a layer goes to device memory.
+
+The f32 form, and the bf16 form at widths other than 256 (C % 128 == 0),
+run the tile code of `csrc/wn_tile.cuh` (shared with the WN layer
+kernel).  The bf16 form at C = 256, the vocoder's, runs both GEMMs of a
+tile on wgmma with f32 accumulators in registers: each of two warpgroups
+owns all 64 rows and 128 tanh columns plus the 128 sigmoid columns that
+pair with them, so the gate is applied in registers.  A 4-stage cp.async
+ring feeds the K steps of both GEMMs; its weight slices come from a bf16
+image of W_in and W_rs that `weight_image` lays out once, in the kernel's
+column order and in wgmma's swizzled K-major layout (`pack_wn_flow` stores
+it with the pack; the kernel needs it).  The gate is exact f32 tanh and
+sigmoid, as on the TPU.  Each tile and layer streams ~1 MB of weights from
+L2 (10.2 GB a launch at the serving shape): ~2 ms a launch at an assumed
+5 TB/s of L2 even with all else hidden; sharing weight tiles across a
+cluster (TMA multicast) is the step past it.
 
 The kernel is built with nvcc for sm_90a at first use (`ops/cuda_lib.py`)
 and loaded with ctypes.  CPU tensors take `wn_flow_plain`; CUDA tensors
@@ -54,16 +68,109 @@ from fac_via_ppg_torch.ops.wn_layer import (
     wn_layer_plain,
 )
 
-_SYMBOLS = {torch.float32: "wn_flow_f32", torch.bfloat16: "wn_flow_bf16"}
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_pi = ctypes.POINTER(ctypes.c_int)
+_FLOW = [_p, _p, _ll, _ll] + [_p] * 12 + [_i] * 5 + [_p]
 _LIB = CudaLibrary("wn_flow", {
-    name: [_p, _p, _ll, _ll] + [_p] * 12 + [_i] * 5 + [_p]
-    for name in _SYMBOLS.values()})
+    "wn_flow_f32": _FLOW, "wn_flow_bf16": _FLOW, "wn_flow_bf16_tile": _FLOW,
+    "wn_flow_bf16_occupancy": [_pi, _pi],
+    "wn_flow_bf16_gemm1_tile": [_p, _i, _i, _i, _p, _p, _p]})
 LIBRARY = _LIB.library
 build = _LIB.build
 
 # Kernel launches since the last reset (the caller sets it to 0).
 launches = 0
+
+# The bf16 kernel: its channels, and the depth of one ring step.
+KERNEL_C = 256
+KC = 32
+
+
+def _swizzle(t: torch.Tensor) -> torch.Tensor:
+    """K-major rows (..., N, kc) -> wgmma's swizzled order: in row n the
+    16-byte chunk c sits at chunk c ^ (((n * 2kc) >> 7) & (2kc/16 - 1)),
+    the XOR of address bits 4.. with bits 7.. that the kernel's `swz` and
+    the descriptor's swizzle mode apply.  Its own inverse."""
+    n_rows, kc = t.shape[-2:]
+    n = torch.arange(n_rows, device=t.device)
+    f = ((n * 2 * kc) >> 7) & (2 * kc // 16 - 1)
+    idx = torch.arange(kc // 8, device=t.device)[None, :] ^ f[:, None]
+    chunks = t.unflatten(-1, (kc // 8, 8))
+    return chunks.gather(-2, idx[..., None].expand(chunks.shape)).flatten(-2)
+
+
+def gemm1_columns(C: int, device=None) -> torch.Tensor:
+    """W_in's column for each row of the kernel's GEMM 1 image: warpgroup
+    w's rows w*C.. hold tanh columns w*C/2.. then the sigmoid columns
+    C + w*C/2.. that pair with them."""
+    n = torch.arange(2 * C, device=device)
+    w, p, i = n // C, (n % C) // (C // 2), n % (C // 2)
+    return p * C + w * (C // 2) + i
+
+
+def weight_image(packed: dict) -> dict:
+    """The bf16 kernel's weight image of a pack_wn_flow pack: per layer and
+    K step of depth KC, the step's (2C, KC) weight slice K-major (one row
+    per output column) and swizzled, so the kernel copies it to shared
+    memory as it lies:
+
+        w_in_img (L, 3C/KC, 2C, KC): columns in `gemm1_columns` order;
+        w_rs_img (L, C/KC, 2C, KC):  columns in w_rs's own order."""
+    w_in, w_rs = packed["w_in"], packed["w_rs"]
+    C = w_in.shape[-1] // 2
+    if C % KC:
+        raise ValueError(f"weight_image: needs C % {KC} == 0, got C={C}")
+
+    def image(w):
+        steps = w.unflatten(1, (w.shape[1] // KC, KC)).transpose(-1, -2)
+        return _swizzle(steps.to(torch.bfloat16).contiguous()).contiguous()
+
+    return {"w_in_img": image(w_in[:, :, gemm1_columns(C, w_in.device)]),
+            "w_rs_img": image(w_rs)}
+
+
+def public_from_image(img: dict) -> dict:
+    """`weight_image`'s inverse: {"w_in": (L, 3C, 2C), "w_rs": (L, C, 2C)}."""
+
+    def rows(t):
+        return _swizzle(t).transpose(-1, -2).flatten(1, 2)
+
+    w_in_perm = rows(img["w_in_img"])
+    w_in = torch.empty_like(w_in_perm)
+    w_in[:, :, gemm1_columns(w_in.shape[-1] // 2, w_in.device)] = w_in_perm
+    return {"w_in": w_in, "w_rs": rows(img["w_rs_img"]).contiguous()}
+
+
+def kernel_resources() -> tuple:
+    """The bf16 kernel's (blocks per SM, dynamic shared memory bytes) on
+    the current card."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = _LIB.function("wn_flow_bf16_occupancy")(
+        ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"wn_flow occupancy query failed: CUDA error {err}")
+    return blocks.value, smem.value
+
+
+def gemm1_tile(x: torch.Tensor, w_in_img_layer: torch.Tensor, t0: int,
+               dilation: int) -> torch.Tensor:
+    """One tile's GEMM 1 through the bf16 kernel's ring and wgmma path
+    alone (a check of the image, swizzle and descriptors): x (T, C) bf16 on
+    the card, one layer's image (3C/KC, 2C, KC) -> (64, 2C) f32, the taps
+    [x(t-d) | x(t) | x(t+d)] of rows t0.. @ W_in, in W_in's column order."""
+    T, C = x.shape
+    if x.dtype != torch.bfloat16 or C != KERNEL_C or not x.is_contiguous():
+        raise ValueError("gemm1_tile: needs contiguous bf16 x (T, 256)")
+    check("w_in_img", w_in_img_layer, (3 * C // KC, 2 * C, KC),
+          torch.bfloat16, x.device)
+    check_dense("gemm1_tile: w_in_img", w_in_img_layer)
+    out = torch.empty((64, 2 * C), dtype=torch.float32, device=x.device)
+    err = _LIB.function("wn_flow_bf16_gemm1_tile")(
+        x.data_ptr(), T, t0, dilation, w_in_img_layer.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gemm1_tile launch failed: CUDA error {err}")
+    return out
 
 
 def pack_wn_flow(wn: dict, dtype=None) -> dict:
@@ -74,7 +181,9 @@ def pack_wn_flow(wn: dict, dtype=None) -> dict:
         b_start (C,), b_in (L, 2C), b_rs (L, 2C), b_end (2*n_half,) in f32.
 
     The last layer's skip-only (C, C) projection sits in columns [C, 2C)
-    of w_rs / b_rs with zero residual columns, as in the TPU pack."""
+    of w_rs / b_rs with zero residual columns, as in the TPU pack.  A
+    bf16 pack at the kernel's width also holds `weight_image`'s
+    w_in_img / w_rs_img, built once here."""
     dt = dtype or wn["start"]["weight"].dtype
     C = wn["start"]["weight"].shape[0]
     L = len(wn["in_layers"])
@@ -91,7 +200,7 @@ def pack_wn_flow(wn: dict, dtype=None) -> dict:
     def b(t):
         return t.float().contiguous()
 
-    return {
+    packed = {
         "w_start": w(wn["start"]["weight"][:, :, 0].T),
         "b_start": b(wn["start"]["bias"]),
         "w_in": w(torch.stack([pack_in_weight(p["weight"])
@@ -102,6 +211,9 @@ def pack_wn_flow(wn: dict, dtype=None) -> dict:
         "w_end": w(wn["end"]["weight"][:, :, 0].T),
         "b_end": b(wn["end"]["bias"]),
     }
+    if dt == torch.bfloat16 and C == KERNEL_C:
+        packed.update(weight_image(packed))
+    return packed
 
 
 def wn_flow_plain(packed: dict, audio_half: torch.Tensor,
@@ -133,13 +245,14 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
             cond: torch.Tensor) -> torch.Tensor:
     """One coupling net: audio_half (B, n_half, T) contiguous, cond
     (B, T, L*2C) with unit channel stride, `packed` from pack_wn_flow in
-    audio_half's dtype -> (B, 2*n_half, T)."""
+    audio_half's dtype -> (B, 2*n_half, T).  A bf16 pack at C = 256 must
+    hold `weight_image`'s arrays, as pack_wn_flow's does."""
     if audio_half.device.type == "cpu":
         return wn_flow_plain(packed, audio_half, cond)
     if audio_half.device.type != "cuda":
         raise ValueError(f"wn_flow: unsupported device {audio_half.device}")
     dt, dev = audio_half.dtype, audio_half.device
-    if dt not in _SYMBOLS:
+    if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"wn_flow: unsupported dtype {dt}")
     B, n_half, T = audio_half.shape
     L, _, C2 = packed["w_in"].shape
@@ -157,14 +270,29 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
         check(name, packed[name], shape, t_dt, dev)
         check_dense(f"wn_flow: {name}", packed[name])
     check_dense("wn_flow: audio_half", audio_half)
+    args = [packed[name] for name in shapes]
+    symbol = "wn_flow_f32" if dt == f32 else "wn_flow_bf16_tile"
+    if dt == torch.bfloat16 and C == KERNEL_C:
+        symbol = "wn_flow_bf16"
+        if "w_in_img" not in packed:
+            raise ValueError(f"wn_flow: a bf16 pack at C={KERNEL_C} needs "
+                             "the kernel's weight image (pack_wn_flow, or "
+                             "packed.update(weight_image(packed)))")
+        for name, shape in (("w_in_img", (L, 3 * C // KC, 2 * C, KC)),
+                            ("w_rs_img", (L, C // KC, 2 * C, KC))):
+            check(name, packed[name], shape, dt, dev)
+            check_dense(f"wn_flow: {name}", packed[name])
+        args[2], args[4] = packed["w_in_img"], packed["w_rs_img"]
+        # the kernel copies cond rows in 16-byte chunks
+        if cond.stride(0) % 8 or cond.stride(1) % 8 or cond.data_ptr() % 16:
+            cond = cond.contiguous()
     x0, x1, skip = (torch.empty((B, T, C), dtype=dt, device=dev)
                     for _ in range(3))
     out = torch.empty((B, n_out, T), dtype=dt, device=dev)
-    fn = _LIB.function(_SYMBOLS[dt])
+    fn = _LIB.function(symbol)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(audio_half.data_ptr(), cond.data_ptr(), cond.stride(0),
-             cond.stride(1),
-             *(packed[name].data_ptr() for name in shapes),
+             cond.stride(1), *(t.data_ptr() for t in args),
              x0.data_ptr(), x1.data_ptr(), skip.data_ptr(), out.data_ptr(),
              B, T, C, L, n_half, stream)
     if err != 0:

@@ -1,5 +1,7 @@
 """The WN kernels (the layer kernel, the whole-net flow kernel) against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, on the card; and one tile's GEMM 1 of the
+bf16 flow kernel (its cp.async ring, weight image, swizzle and wgmma
+descriptors) against torch.matmul.
 
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
@@ -54,7 +56,8 @@ def test_kernel_matches_plain(card, dtype, atol, dilation, last):
 
 def _flow(seed, B, T, n_half, dtype, device, C=256, L=8):
     """A random flow pack (pack_wn_flow's layout, the last layer's
-    residual columns zero), audio and cond."""
+    residual columns zero, the bf16 kernel's weight image at its width),
+    audio and cond."""
     rng = np.random.RandomState(seed)
 
     def mk(shape, s, dt=dtype):
@@ -70,6 +73,8 @@ def _flow(seed, B, T, n_half, dtype, device, C=256, L=8):
               "b_end": mk((2 * n_half,), 0.1, f32)}
     packed["w_rs"][L - 1, :, :C] = 0
     packed["b_rs"][L - 1, :C] = 0
+    if dtype == torch.bfloat16 and C == wf.KERNEL_C:
+        packed.update(wf.weight_image(packed))
     return packed, mk((B, n_half, T), 1.0), mk((B, T, L * 2 * C), 0.3)
 
 
@@ -80,13 +85,86 @@ def _flow(seed, B, T, n_half, dtype, device, C=256, L=8):
 def test_flow_kernel_matches_plain(card, dtype, atol, n_half):
     """One launch per net; f32 within 1e-4, bf16 within 3e-2 x max(1,
     max|plain|) (8 layers of bf16 rounding in another order)."""
-    packed, audio, cond = _flow(n_half, 2, 1000, n_half, dtype, card)
+    got = _flow_check(*_flow(n_half, 2, 1000, n_half, dtype, card), atol)
+    assert got.shape == (2, 2 * n_half, 1000)
+
+
+def _flow_check(packed, audio, cond, atol):
+    """One counted launch against wn_flow_plain, finite, within atol
+    (bf16: atol x max(1, max|plain|)); returns the kernel's output."""
     n0 = wf.launches
     got = wf.wn_flow(packed, audio, cond)
     torch.cuda.synchronize()
     assert wf.launches == n0 + 1
     want = wf.wn_flow_plain(packed, audio, cond).float()
-    assert got.shape == (2, 2 * n_half, 1000)
-    scale = max(1.0, want.abs().max().item()) if dtype == torch.bfloat16 \
-        else 1.0
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    scale = max(1.0, want.abs().max().item()) \
+        if audio.dtype == torch.bfloat16 else 1.0
     torch.testing.assert_close(got.float(), want, atol=atol * scale, rtol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t0,dilation", [(0, 1), (448, 64), (960, 128)])
+def test_flow_gemm1_tile_matches_matmul(card, t0, dilation):
+    """GEMM 1 of one tile (taps of rows t0.., zero outside [0, T); the
+    tile at t0=960 runs past T=1000) through the ring and wgmma, against
+    the same bf16 data in f32 torch.matmul: only the summation order
+    differs (atol 1e-3 on sums of magnitude ~1)."""
+    rng = np.random.RandomState(dilation)
+    T, C = 1000, 256
+    x = torch.tensor(rng.randn(T, C) * 0.3, dtype=torch.bfloat16,
+                     device=card)
+    w_in = torch.tensor(rng.randn(3 * C, 2 * C) * 0.05,
+                        dtype=torch.bfloat16, device=card)
+    img = wf.weight_image({"w_in": w_in[None],
+                           "w_rs": w_in.new_zeros((1, C, 2 * C))})["w_in_img"][0]
+    got = wf.gemm1_tile(x, img, t0, dilation)
+    torch.cuda.synchronize()
+    rows = torch.arange(t0, t0 + 64, device=card)
+    taps = []
+    for j in range(3):
+        t = rows + (j - 1) * dilation
+        ok = (t >= 0) & (t < T)
+        taps.append(torch.where(ok[:, None], x[t.clamp(0, T - 1)].float(),
+                                0.0))
+    want = torch.matmul(torch.cat(taps, 1), w_in.float())
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_half", [4, 2])
+@pytest.mark.parametrize("T", [97, 64 * 5 + 1])
+def test_flow_kernel_bf16_ragged_time(card, n_half, T):
+    """Ragged T: the tail tile's rows past T (zero taps, cond and skip,
+    masked stores)."""
+    _flow_check(*_flow(T, 2, T, n_half, torch.bfloat16, card), 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 3e-2)])
+def test_flow_kernel_one_batch_row(card, dtype, atol):
+    """B=1, T=1000: 16 tiles, fewer than the card's blocks."""
+    _flow_check(*_flow(11, 1, 1000, 4, dtype, card), atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 512])
+def test_flow_kernel_bf16_other_widths(card, C):
+    """bf16 at widths other than the wgmma tile's 256 (a WaveGlow config's
+    n_channels) runs wn_tile.cuh's tile, within the same tolerance."""
+    _flow_check(*_flow(C, 2, 300, 4, torch.bfloat16, card, C=C), 3e-2)
+
+
+@pytest.mark.cuda
+def test_flow_kernel_bf16_needs_the_weight_image(card):
+    """A bf16 pack at C=256 without weight_image's arrays raises; nothing
+    is launched."""
+    packed, audio, cond = _flow(5, 1, 128, 4, torch.bfloat16, card)
+    del packed["w_in_img"], packed["w_rs_img"]
+    n0 = wf.launches
+    with pytest.raises(ValueError, match="weight image"):
+        wf.wn_flow(packed, audio, cond)
+    assert wf.launches == n0

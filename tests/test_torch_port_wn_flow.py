@@ -4,7 +4,9 @@ against the JAX package on the CPU.
 
 At tests/test_wn_flow_pallas.py's config (C=64, L=4, 12 flows, so n_half
 4/3/2).  On a CPU tensor `wn_flow` takes `wn_flow_plain`; the kernel itself
-is held against it on the card by tests/test_torch_port_card.py.
+is held against it on the card by tests/test_torch_port_card.py.  The
+bf16 kernel's weight image is checked here against the pack and the JAX
+pack it comes from, exactly.
 Tolerances: f32 atol 2e-5, rtol 2e-4 on one net and atol 2e-4, rtol 1e-3 on
 the 12-flow audio (the JAX tests' own: the same arithmetic summed in
 another order); bf16 against the JAX f32 result within
@@ -151,6 +153,91 @@ def test_pack_wn_flow_places_the_last_layer_in_the_skip_columns(params):
     n_half = ours["w_start"].shape[0]
     np.testing.assert_array_equal(
         ours["w_end"].numpy(), np.asarray(theirs["w_end"])[:2 * n_half].T)
+
+
+@pytest.mark.parametrize("n_half", sorted(FLOW_OF_N_HALF))
+def test_weight_image_inverts_to_the_jax_pack(params, n_half):
+    """The bf16 kernel's weight image (per-warpgroup column order, K-major,
+    swizzled) and its inverse are exact: the inverse gives back the pack's
+    w_in and w_rs bit for bit, and those are the JAX pack's, in bf16."""
+    jparams, tparams = params
+    flow = FLOW_OF_N_HALF[n_half]
+    C, L = CFG.wn_n_channels, CFG.wn_n_layers
+    ours = twf.pack_wn_flow(tparams["wn"][flow], torch.bfloat16)
+    img = twf.weight_image(ours)
+    assert img["w_in_img"].shape == (L, 3 * C // twf.KC, 2 * C, twf.KC)
+    assert img["w_rs_img"].shape == (L, C // twf.KC, 2 * C, twf.KC)
+    back = twf.public_from_image(img)
+    assert torch.equal(back["w_in"], ours["w_in"])
+    assert torch.equal(back["w_rs"], ours["w_rs"])
+    theirs = pack_wn_flow(jparams["wn"][flow], L)
+    w_in_jax = np.asarray(theirs["w_in"]).transpose(0, 1, 3, 2).reshape(
+        L, 3 * C, 2 * C)
+    assert torch.equal(back["w_in"],
+                       torch.from_numpy(w_in_jax).to(torch.bfloat16))
+
+
+def _as_kernel_reads(img_steps):
+    """(steps, 2C, KC) image -> (steps * KC, 2C) B operand, element (n, k)
+    of a step read at the byte the kernel's descriptors address: offset
+    n * 2KC + 2k with its 16-byte chunk XORed by address bits 7.."""
+    steps, n_rows, kc = img_steps.shape
+    n = torch.arange(n_rows)[:, None]
+    k = torch.arange(kc)[None, :]
+    off = n * 2 * kc + 2 * k
+    phys = off ^ (((off >> 7) & (2 * kc // 16 - 1)) << 4)
+    flat = img_steps.reshape(steps, -1)
+    return flat[:, phys // 2].transpose(1, 2).reshape(steps * kc, n_rows)
+
+
+def test_weight_image_gemm1_deinterleaves_to_public_gemm1(params):
+    """GEMM 1 on the image as the kernel reads it, de-interleaved by the
+    warpgroups' column order, equals GEMM 1 on the public w_in (float64,
+    exact on bf16 values); each warpgroup's sigmoid column sits C/2 image
+    rows after its tanh partner (the same accumulator element of the
+    other product), C columns apart in w_in."""
+    _, tparams = params
+    C = CFG.wn_n_channels
+    pk = twf.pack_wn_flow(tparams["wn"][0], torch.bfloat16)
+    img = twf.weight_image(pk)
+    rng = np.random.RandomState(4)
+    taps = torch.tensor(rng.randn(64, 3 * C)).to(torch.bfloat16).double()
+    cols = twf.gemm1_columns(C)
+    for layer in range(CFG.wn_n_layers):
+        z_img = taps @ _as_kernel_reads(img["w_in_img"][layer]).double()
+        z = torch.empty_like(z_img)
+        z[:, cols] = z_img
+        assert torch.equal(z, taps @ pk["w_in"][layer].double())
+        w_rs = _as_kernel_reads(img["w_rs_img"][layer])
+        assert torch.equal(w_rs, pk["w_rs"][layer])
+    for w in range(2):
+        tanh_rows = torch.arange(w * C, w * C + C // 2)
+        assert torch.equal(cols[tanh_rows + C // 2], cols[tanh_rows] + C)
+        assert (cols[tanh_rows] < C).all()
+
+
+def test_pack_wn_flow_holds_the_kernel_image_at_the_kernel_width():
+    """A bf16 pack at C=256 carries weight_image's arrays, built once; an
+    f32 pack, or a bf16 one at another width, carries none."""
+    g = torch.Generator().manual_seed(0)
+    L, n_half = 2, 4
+
+    def wn(C):
+        def conv(o, i, k=1):
+            return {"weight": torch.randn(o, i, k, generator=g) * 0.05,
+                    "bias": torch.randn(o, generator=g) * 0.1}
+        return {"start": conv(C, n_half), "end": conv(2 * n_half, C),
+                "in_layers": [conv(2 * C, C, 3) for _ in range(L)],
+                "res_skip_layers": [conv(2 * C, C) for _ in range(L - 1)]
+                + [conv(C, C)]}
+
+    params = wn(twf.KERNEL_C)
+    pk = twf.pack_wn_flow(params, torch.bfloat16)
+    img = twf.weight_image(pk)
+    for k in ("w_in_img", "w_rs_img"):
+        assert torch.equal(pk[k], img[k])
+    assert "w_in_img" not in twf.pack_wn_flow(params, torch.float32)
+    assert "w_in_img" not in twf.pack_wn_flow(wn(64), torch.bfloat16)
 
 
 def _noise(B, F, seed):
