@@ -4,20 +4,23 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; there is no CPU path):
-  1. build both kernels at once (csrc/wn_layer.cu, csrc/wn_flow.cu, one
-     nvcc each for sm_90a) and print their ptxas register / spill lines;
-  2. hold the WN layer kernel against `wn_layer_plain` on the card:
-     dilations 1, 2, 8, 128 and the last layer, B=2, T=1000, C=256, in f32
-     (TF32 off, atol 1e-4) and bf16 (atol 3e-2); then all 8 layers of a
-     flow at the fused path's shapes: bf16 B=4, T=10000 (the served batch)
-     and f32 B=1, T=1760 (the denoiser's bias pass);
-  3. print the bf16 flow kernel's registers, spills (ptxas), dynamic
-     shared memory and blocks per SM; hold one tile's GEMM 1 of it (its
-     cp.async ring, weight image, swizzles and wgmma descriptors) against
-     torch.matmul (atol 1e-3); hold the whole-net flow kernel against
-     `wn_flow_plain`: n_half 4, 3 and 2 at B=2, T=1000, C=256, L=8 in f32
-     (atol 1e-4) and bf16 (3e-2 x max(1, max|plain|)), bf16 at a ragged
-     T=97; then the vocoder CLI's shape, bf16 B=8, T=10240;
+  1. build both kernels at once (csrc/wn_layer.cu, csrc/wn_flow.cu, both
+     with the shared wgmma tile csrc/wn_wgmma.cuh; one nvcc each for
+     sm_90a) and print their ptxas register / spill lines;
+  2. print the bf16 layer kernel's registers, spills (ptxas), dynamic
+     shared memory and blocks per SM; hold the WN layer kernel against
+     `wn_layer_plain` on the card: dilations 1, 2, 8, 128 and the last
+     layer, B=2, T=1000, C=256, in f32 (TF32 off, atol 1e-4) and bf16
+     (the wgmma tile with the layer's weight image, atol 3e-2); then all 8
+     layers of a flow at the fused path's shapes: bf16 B=4, T=10000 (the
+     served batch) and f32 B=1, T=1760 (the denoiser's bias pass);
+  3. print the bf16 flow kernel's registers, spills, dynamic shared
+     memory and blocks per SM; hold one tile's GEMM 1 of the wgmma tile
+     (its cp.async ring, weight image, swizzles and wgmma descriptors)
+     against torch.matmul (atol 1e-3); hold the whole-net flow kernel
+     against `wn_flow_plain`: n_half 4, 3 and 2 at B=2, T=1000, C=256, L=8
+     in f32 (atol 1e-4) and bf16 (3e-2 x max(1, max|plain|)), bf16 at a
+     ragged T=97; then the vocoder CLI's shape, bf16 B=8, T=10240;
   4. hold WaveGlow on each kernel ("layer", "flow") against its conv
      formulation (plain torch) on one short mel, f32, atol 1e-4;
   5. serve 8 seeded synthetic wavs (2-4 s, 16 kHz) as two batches of 4
@@ -43,11 +46,14 @@ a `{"kernels": ...}` line and, last, `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --time-flow CHECKOUT
+    python3 chip_smoke.py --time-layer CHECKOUT
 
-runs only the flow kernel of the port in CHECKOUT (another commit unpacked
-with `git archive`): builds it, holds it against its plain version at the
-CLI's shape and times it as phase 7 does; prints one JSON line.  Compare
-two versions on one card in one call, in turns: old, new, new, old.
+run only the flow kernel (at the CLI's shape) or only the layer kernel
+(bf16 at the fused batch's shape, B=4, T=10000, d=8) of the port in
+CHECKOUT (another commit unpacked with `git archive`): build it, hold it
+against its plain version and time it as phase 7 does; print one JSON
+line.  Compare two versions on one card in one call, in turns: old, new,
+new, old.
 """
 
 import argparse
@@ -106,9 +112,25 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def layer_image(wl, args):
+    """The layer's weight image where `wl` runs bf16 at C = 256 on the
+    wgmma tile (as pack_wn_layer stores it); a checkout from before that
+    tile takes none."""
+    x, w_in, w_rs = args[0], args[2], args[4]
+    if not hasattr(wl, "layer_images") or x.dtype != torch.bfloat16 \
+            or x.shape[2] != wl.KERNEL_C:
+        return {}
+    img = wl.layer_images([w_in], [w_rs])
+    return {"in_img": img["in_img"][0], "rs_img": img["rs_img"][0]}
+
+
 def compare(wl, args, d, last, tag):
-    a_k, s_k = wl.wn_layer(*args, dilation=d, last=last)
+    n0 = wl.launches
+    a_k, s_k = wl.wn_layer(*args, dilation=d, last=last,
+                           **layer_image(wl, args))
     torch.cuda.synchronize()
+    if wl.launches != n0 + 1:
+        raise AssertionError("wn_layer did not count its launch")
     a_p, s_p = wl.wn_layer_plain(*args, dilation=d, last=last)
     err = max((s_k.float() - s_p.float()).abs().max().item(),
               (a_k.float() - a_p.float()).abs().max().item())
@@ -118,6 +140,17 @@ def compare(wl, args, d, last, tag):
     if not err <= tol:
         raise AssertionError(f"WN kernel disagrees: {err} > {tol}")
     return err
+
+
+def kernel_resources(mod, report, kernel):
+    """A wgmma kernel's ptxas registers and spills and its dynamic shared
+    memory and blocks per SM on this card."""
+    regs, spill = ptxas_usage(report, kernel)
+    blocks, smem = mod.kernel_resources()
+    log(f"{kernel}: {regs} registers, {spill} bytes spilled (ptxas), {smem} "
+        f"bytes of dynamic shared memory, {blocks} block(s) per SM")
+    return {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
+            "blocks_per_sm": blocks}
 
 
 def check_kernel(wl):
@@ -171,8 +204,10 @@ def build_kernels(mods):
 
 
 def ptxas_usage(report, kernel):
-    """(registers, spill store bytes) of `kernel` in a ptxas -v report."""
+    """(registers, spill store bytes) of `kernel` in a ptxas -v report;
+    the most of each over its instantiations."""
     lines = report.splitlines()
+    found = []
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
             spill = regs = None
@@ -182,8 +217,10 @@ def ptxas_usage(report, kernel):
                                 .split(",")[-1])
                 if "Used" in nxt and "registers" in nxt:
                     regs = int(nxt.split("Used")[1].split("registers")[0])
-            return regs, spill
-    raise AssertionError(f"no ptxas entry for {kernel}")
+            found.append((regs, spill))
+    if not found:
+        raise AssertionError(f"no ptxas entry for {kernel}")
+    return max(r for r, _ in found), max(s for _, s in found)
 
 
 def flow_inputs(wf, g, B, T, n_half, dtype, C=256, L=8):
@@ -269,13 +306,7 @@ def check_flow_kernel(wf, report):
     against wn_flow_plain at n_half 4, 3, 2 (B=2, T=1000) in both dtypes,
     bf16 at a ragged T=97, then at the CLI's shape (bf16 B=8, T=10240).
     Returns the largest error of each dtype and the resources."""
-    regs, spill = ptxas_usage(report, "wn_flow_bf16_kernel")
-    blocks, smem = wf.kernel_resources()
-    res = {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
-           "blocks_per_sm": blocks}
-    log(f"wn_flow bf16 kernel: {regs} registers, {spill} bytes spilled "
-        f"(ptxas), {smem} bytes of dynamic shared memory, {blocks} block(s)"
-        f" per SM")
+    res = kernel_resources(wf, report, "wn_flow_bf16_kernel")
     g = torch.Generator("cuda").manual_seed(SEED + 4)
     res["gemm1_tile_max_abs_err"] = check_gemm1_tile(wf, g)
     worst = {}
@@ -551,16 +582,17 @@ def profile_cli_batch(cfg, ckpt, paths):
     return profile_run(batch)
 
 
-def time_kernel(wl, synth):
+def time_kernel(wl):
     """The kernel and its plain version at the serving shape: one batch of
-    4 at max_frames, B x T = 4 x (500 * 160 / 8), C = 256, bf16, d = 8."""
-    C = synth.wg_cfg.wn_n_channels
-    B, T = BATCH, MAX_FRAMES * synth.wg_cfg.hop_length // synth.wg_cfg.n_group
+    4 at max_frames, B x T = 4 x (500 * 160 / 8), C = 256, bf16, d = 8;
+    and the f32 kernel at the denoiser's bias pass."""
+    C, B, T = 256, BATCH, MAX_FRAMES * 160 // 8
     g = torch.Generator("cuda").manual_seed(SEED + 2)
     dt = torch.bfloat16
     args = layer_inputs(g, B, T, C, False, dt)
+    img = layer_image(wl, args)
     n0 = wl.launches
-    ms = cuda_ms(lambda: wl.wn_layer(*args, dilation=8))
+    ms = cuda_ms(lambda: wl.wn_layer(*args, dilation=8, **img))
     wl.launches = n0
     plain_ms = cuda_ms(lambda: wl.wn_layer_plain(*args, dilation=8))
     esz = 2
@@ -568,16 +600,18 @@ def time_kernel(wl, synth):
     nbytes = (B * T * (C + 2 * C + C + C) + 3 * C * 2 * C + 2 * C
               + C * 2 * C + 2 * C) * esz
     t_ops, t_bytes = flops / PEAK_FLOPS[dt] * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
     log(f"wn_layer bf16 B={B} T={T} C={C}: {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, bound {max(t_ops, t_bytes):.4f} ms ({flops} FLOP, {nbytes} B,"
-        f" {flops / ms / 1e9:.1f} TFLOP/s)")
+        f" ms, bound {bound:.4f} ms ({flops} FLOP, {nbytes} B,"
+        f" {flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.2f} % of "
+        f"bound)")
     # the denoiser's one-off f32 pass: B=1, 88 frames
     a32 = layer_inputs(g, 1, 88 * 160 // 8, C, False, torch.float32)
     ms32 = cuda_ms(lambda: wl.wn_layer(*a32, dilation=8))
     wl.launches = n0
     log(f"wn_layer f32 B=1 T=1760 C={C} (denoiser bias pass): {ms32:.4f} ms")
-    return ms, plain_ms, max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes"
+    return ms, plain_ms, bound, \
+        "operations" if t_ops >= t_bytes else "bytes", ms32
 
 
 def write_cli_inputs(tmp):
@@ -750,10 +784,34 @@ def time_flow_at(root):
     return 0
 
 
+def time_layer_at(root):
+    """`--time-layer`: the layer kernel of the port in checkout `root`
+    alone, checked and timed at the fused batch's shape (bf16 B=4,
+    T=10000, d=8); one JSON line."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from fac_via_ppg_torch.ops import wn_layer as wl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    build_kernels((wl,))
+    g = torch.Generator("cuda").manual_seed(SEED + 2)
+    B, T = BATCH, MAX_FRAMES * 160 // 8
+    err = compare(wl, layer_inputs(g, B, T, 256, False, torch.bfloat16), 8,
+                  False, f"bfloat16 B={B} T={T}")
+    ms, plain_ms, bound, _, ms32 = time_kernel(wl)
+    log(json.dumps({"module": wl.__file__, "card": card, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "ms_f32": ms32, "max_abs_err": err}))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
                     help="only check and time the flow kernel of the port "
+                    "in CHECKOUT")
+    ap.add_argument("--time-layer", metavar="CHECKOUT",
+                    help="only check and time the layer kernel of the port "
                     "in CHECKOUT")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -761,6 +819,8 @@ def main():
         return 2
     if args.time_flow:
         return time_flow_at(args.time_flow)
+    if args.time_layer:
+        return time_layer_at(args.time_layer)
     try:
         from fac_via_ppg_torch.ops import wn_flow as wf
         from fac_via_ppg_torch.ops import wn_layer as wl
@@ -774,6 +834,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
 
     reports = build_kernels((wl, wf))
+    layer_res = kernel_resources(wl, reports[0], "wn_layer_bf16_kernel")
     max_err = check_kernel(wl)
     flow_err, flow_res = check_flow_kernel(wf, reports[1])
 
@@ -789,7 +850,7 @@ def main():
         prof = profile_batch(synth, paths)
     log("stages: " + json.dumps(stages))
     log("profile: " + json.dumps(prof))
-    ms, plain_ms, bound_ms, bound_by = time_kernel(wl, synth)
+    ms, plain_ms, bound_ms, bound_by, ms32 = time_kernel(wl)
     log("timing: " + json.dumps({
         "card": card, "batches": len(launches), "batch": BATCH,
         "featurize_s_per_batch": feat_s, "device_s_per_batch": dev_s,
@@ -819,8 +880,8 @@ def main():
         "max_abs_err_f32": max_err[torch.float32],
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None}, {
+        "bound_by": bound_by, "ms_f32": ms32,
+        **layer_res, "library_ms": None}, {
         "name": "wn_flow", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_flow.cu",
         "replaces": "fac_via_ppg_tpu/ops/wn_flow_pallas.py:245",

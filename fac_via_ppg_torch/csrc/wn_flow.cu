@@ -41,44 +41,23 @@
 // in bf16; one staged K tile, a f32 staging tile for the gate).
 //
 // bf16 (wn_flow_bf16), built for C = 256: one block of two warpgroups per
-// SM.  Per tile and layer both GEMMs run on wgmma (m64n128k16, f32
-// accumulators in registers, operands in shared memory):
-//   - GEMM 1: warpgroup w owns all 64 rows and 256 of the 512 columns:
-//     tanh columns w*128.. and the sigmoid columns C + w*128.. that pair
-//     with them.  The host lays W_in's columns out in that order
-//     (ops/wn_flow.py::weight_image), so each K step's x slice (64 x KC) is
-//     loaded once for all 2C columns, and the tanh and sigmoid sums of one
-//     column sit in the same thread: the gate (+ b_in + cond, in f32) is
-//     applied in registers, with no f32 staging tile.  The gate output
-//     (64 x C bf16) goes to shared memory in wgmma's 128 B-swizzled K-major
-//     layout, as GEMM 2's A operand.
-//   - GEMM 2: warpgroup 0 computes the residual columns, warpgroup 1 the
-//     skip columns; the last layer's skip-only projection is split between
-//     them.  The epilogue rounds rs + b_rs into shared memory, and all
-//     threads then update x' and skip 16 B at a time, every old value
-//     loaded before any store.
-//   - One ring of S stages of KC-deep K steps feeds both GEMMs (3C/KC steps
-//     of x slice + W_in slice, then C/KC of W_rs slices), filled with
-//     cp.async 16 B a thread, and runs on across the gate, the epilogue and
-//     the next tile.  x rows outside [0, T) are zero-filled.  The weight
-//     images are pre-swizzled by the host, so their copies are contiguous.
-//     One wgmma group stays in flight while the next step's copies are
-//     issued.  The tile's cond rows ride along with one ring step into a
-//     tile buffer that later holds the gate output, then the rounded rs.
-// Rounding follows the TPU kernel: x after the start conv, the gate output
-// and the residual and skip adds in bf16, biases in f32, the cond add in
-// f32 before the gate, tanh and the sigmoid in full f32 precision.
+// SM runs each tile and layer on the wgmma tile of wn_wgmma.cuh (shared
+// with the layer kernel): both GEMMs on wgmma m64n128k16, fed by a
+// cp.async ring over the host's weight image, the gate in registers.  Its
+// epilogue here: x' = round(x + rs[:, :C]) into the other ping-pong
+// buffer, skip = rs[:, C:] in layer 0, else round(skip + rs[:, C:]).  The
+// start and end convs are 16 B vectors.  Rounding follows the TPU kernel:
+// x after the start conv, the gate output and the residual and skip adds
+// in bf16, biases in f32, the cond add in f32 before the gate, tanh and
+// the sigmoid in full f32 precision.
 // Ceiling of this design: every tile and layer streams ~1 MB of bf16
-// weights (W_in 768 x 512, W_rs 256 x 512) from L2 into its SM, ~58 FLOP
-// a byte; at the tensor cores' rate that would need ~17 TB/s of L2,
-// several times what L2 gives: 10.2 GB a launch at the serving shape, ~2 ms
-// at an assumed 5 TB/s of L2, against the 0.68 ms bound, even with all
-// else hidden.  Sharing each weight tile between the SMs of a cluster (TMA
-// multicast) is the step past it.
+// weights from L2 into its SM (wn_wgmma.cuh): 10.2 GB a launch at the
+// serving shape, ~2 ms at an assumed 5 TB/s of L2, against the 0.68 ms
+// bound, even with all else hidden.
 
 #include <cooperative_groups.h>
 
-#include "wn_tile.cuh"
+#include "wn_wgmma.cuh"
 
 namespace {
 
@@ -195,217 +174,26 @@ __global__ void __launch_bounds__(THREADS) wn_flow_tile_kernel(const FlowArgs<T>
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma on a full-width 64-row tile, fed by a cp.async ring
+// bf16 at C = 256: the wgmma tile of wn_wgmma.cuh
 
-using bf16 = __nv_bfloat16;
-
-// its own names: wn_tile.cuh's tile constants (KC, ...) stay the f32 form's
 namespace wg {
 
-constexpr int WC = 256;                  // the channels C the bf16 kernel is built for
-constexpr int KC = 32;                   // depth of one ring step
-constexpr int S = 4;                     // ring stages
-// Loads run AHEAD steps ahead of the wgmma; the stage they refill was read
-// two steps back, since one wgmma group stays in flight.
-constexpr int AHEAD = S - 2;
-constexpr int ROW = 2 * KC;              // bytes of one K-major row of a step (64 B swizzle)
-constexpr int IMG_N = 2 * WC;            // rows (output columns) of one weight-image step
-constexpr int A_BYTES = TT * ROW;        // x slice (64 x KC)
-constexpr int B_BYTES = IMG_N * ROW;     // weight slice (2C x KC)
-constexpr int STAGE = A_BYTES + B_BYTES;
-constexpr int STEPS1 = 3 * WC / KC, STEPS2 = WC / KC, STEPS = STEPS1 + STEPS2;
-constexpr uint64_t SW128 = 1, SW64 = 2;  // descriptor swizzle modes
-// The tile buffer after the ring holds, in turn, the tile's cond (64 x 2C,
-// row stride TILE_LD) from its ring step COND_STEP to the gate, the gate
-// output (64 x C, 128 B-swizzled K-major) until GEMM 2 ends, and the
-// rounded rs (64 x 2C, row stride TILE_LD) in the epilogue.  COND_STEP is
-// issued AHEAD steps earlier: after the previous tile's epilogue.
-constexpr int TILE_LD = 2 * WC + 8;      // padded: no bank conflicts in the gate
-constexpr int TILE_BYTES = TT * TILE_LD * 2;
-constexpr int RING_SMEM = S * STAGE + 1024;  // + slack for 1 KB alignment
-constexpr int FLOW_SMEM = RING_SMEM + TILE_BYTES;
-constexpr int COND_STEP = AHEAD;
-static_assert(STAGE % 1024 == 0 && A_BYTES % 1024 == 0, "swizzle atoms need 1 KB alignment");
-static_assert(TT * WC * 2 <= TILE_BYTES, "the gate output fits the tile buffer");
-static_assert(COND_STEP < STEPS1, "cond lands before the gate");
-
-// A swizzled K-major tile's byte offset for the unswizzled offset `off`
-// (rows of R bytes, tile base 1 KB aligned): the 16 B chunk index is
-// XORed with address bits 7.. (128 B rows: row % 8; 64 B: (row / 2) % 4).
-template <int R> __device__ __forceinline__ uint32_t swz(uint32_t off) {
-  return off ^ (((off >> 7) & (R / 16 - 1)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 B global -> shared; zero-filled (nothing read) when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// The oldest ring step in flight has landed, and every thread's copies are
-// visible to wgmma (async proxy), as are earlier ordinary shared stores.
-__device__ __forceinline__ void ring_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(AHEAD - 1) : "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-}
-
-// wgmma shared-memory matrix descriptor: start address >> 4, LBO 1 (unused
-// by swizzled K-major layouts), SBO (bytes between 8-row groups) >> 4, swizzle
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, f32) += A (64 x 16) @ B (16 x 128), both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// One K step of one warpgroup: acc[0] += A (64 x KC at a_addr) @ B rows at
-// b0 (128 x KC), and acc[1] likewise from b1 if `two`.  Returns with this
-// step's wgmma group in flight and the previous one complete (its stage may
-// be refilled after the next barrier); wgmma_wait() before reading acc.
-__device__ __forceinline__ void mma_step(float (&acc)[2][64], uint32_t a_addr, uint32_t a_sbo,
-                                         uint64_t a_layout, uint32_t b0, uint32_t b1,
-                                         bool two) {
-  fence_acc(acc[0]);
-  fence_acc(acc[1]);
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-  for (int kk = 0; kk < KC / 16; ++kk) {
-    const uint64_t da = gmma_desc(a_addr + kk * 32, a_sbo, a_layout);
-    wgmma_m64n128k16(acc[0], da, gmma_desc(b0 + kk * 32, 8 * ROW, SW64));
-    if (two) wgmma_m64n128k16(acc[1], da, gmma_desc(b1 + kk * 32, 8 * ROW, SW64));
+// layer_tile's epilogue here: residual columns x' = round(x + rs) into the
+// other ping-pong buffer; skip columns skip = rs in layer 0 (sum false),
+// else round(skip + rs).  Rows are (b * T + t), C bf16 wide.
+struct FlowEpi {
+  const bf16* x;
+  bf16* x_out;
+  bf16* skip;
+  bool sum;
+  __device__ bool adds(int n) const { return n < WC || sum; }
+  __device__ const bf16* src(size_t row, int n) const {
+    return n < WC ? x + row * WC + n : skip + row * WC + n - WC;
   }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-  fence_acc(acc[0]);
-  fence_acc(acc[1]);
-}
-
-// Every wgmma of this warpgroup has completed: acc may be read.
-__device__ __forceinline__ void wgmma_wait(float (&acc)[2][64]) {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-  fence_acc(acc[0]);
-  fence_acc(acc[1]);
-}
-
-// Issues this thread's copies of ring step s of a tile (rows t0.. of one
-// batch row) into `stage`.  s < STEPS1: GEMM 1's x slice (taps of xb (T, C)
-// at dilation d, zero outside [0, T)) and W_in image slice; step COND_STEP
-// also stages the tile's cond rows (condb, row stride cond_st; zero past T)
-// at cond_s, unless condb is null.  After that a W_rs image slice (the last
-// layer's: rows C.. only).
-__device__ __forceinline__ void issue_step(uint32_t stage, int s, const bf16* xb, int t_len,
-                                           int t0, int d, const bf16* w_in_img,
-                                           const bf16* w_rs_img, bool last, const bf16* condb,
-                                           long long cond_st, uint32_t cond_s) {
-  const bf16* w;
-  int v0 = 0;
-  if (s < STEPS1) {
-    static_assert(TT * KC / 8 == THREADS, "one x chunk per thread");
-    const int k0 = s * KC, tap = k0 / WC, c0 = k0 - tap * WC;
-    const int r = threadIdx.x / (KC / 8), c = threadIdx.x % (KC / 8);
-    const int t = t0 + r + (tap - 1) * d;
-    const bool ok = t >= 0 && t < t_len;
-    cp_async16(stage + swz<ROW>(r * ROW + c * 16),
-               xb + (ok ? static_cast<size_t>(t) * WC + c0 + c * 8 : 0), ok);
-    w = w_in_img + static_cast<size_t>(s) * IMG_N * KC;
-    if (s == COND_STEP && condb != nullptr) {
-#pragma unroll 4
-      for (int v = threadIdx.x; v < TT * (2 * WC / 8); v += THREADS) {
-        const int cr = v / (2 * WC / 8), cc = v % (2 * WC / 8), ct = t0 + cr;
-        cp_async16(cond_s + cr * TILE_LD * 2 + cc * 16,
-                   condb + (ct < t_len ? ct * cond_st + cc * 8 : 0), ct < t_len);
-      }
-    }
-  } else {
-    w = w_rs_img + static_cast<size_t>(s - STEPS1) * IMG_N * KC;
-    if (last) v0 = B_BYTES / 32;
+  __device__ bf16* dst(size_t row, int n) const {
+    return n < WC ? x_out + row * WC + n : skip + row * WC + n - WC;
   }
-  const uint32_t bs = stage + A_BYTES;
-#pragma unroll 4
-  for (int v = v0 + threadIdx.x; v < B_BYTES / 16; v += THREADS)
-    cp_async16(bs + v * 16, w + v * 8, true);
-}
-
-// GEMM 1 of one tile: ring steps g.. (issue(i) issues ring step i);
-// warpgroup w's acc[0] gets the tanh columns w*128.., acc[1] the sigmoid
-// columns C + w*128.. (image rows w*256..).
-template <typename Issue>
-__device__ __forceinline__ void gemm1(float (&acc)[2][64], uint32_t ring, int& g, Issue issue) {
-  const int w = threadIdx.x / 128;
-  for (int s = 0; s < STEPS1; ++s, ++g) {
-    ring_wait();
-    issue(g + AHEAD);
-    const uint32_t st = ring + (g % S) * STAGE, bs = st + A_BYTES;
-    mma_step(acc, st, 8 * ROW, SW64, bs + (w * 256) * ROW, bs + (w * 256 + 128) * ROW, true);
-  }
-}
-
-// This thread's accumulator element i of its warpgroup's 64 x 128 product:
-// row (warp % 4) * 16 + lane / 4 + 8 * ((i / 2) % 2), column 8 * (i / 4) +
-// 2 * (lane % 4) + i % 2; elements i, i + 1 (i even) are adjacent columns.
-__device__ __forceinline__ int acc_row(int i) {
-  const int wt = threadIdx.x % 128;
-  return (wt / 32) * 16 + (wt % 32) / 4 + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return 8 * (i >> 2) + 2 * (threadIdx.x % 4) + (i & 1);
-}
-
-__device__ __forceinline__ float lo_f(unsigned int u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_f(unsigned int u) { return __uint_as_float(u & 0xffff0000u); }
-__device__ __forceinline__ unsigned int bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned int*>(&v);
-}
-// tanh(zt) * sigmoid(zs) in full f32 precision, as wn_tile.cuh's gate
-__device__ __forceinline__ float gate(float zt, float zs) {
-  return tanhf(zt) * (1.f / (1.f + expf(-zs)));
-}
-
-__device__ __forceinline__ float ldg_bf16(const bf16* p) {
-  return __uint_as_float(static_cast<unsigned int>(
-                             __ldg(reinterpret_cast<const unsigned short*>(p)))
-                         << 16);
-}
+};
 
 // start conv, 8 channels x 8 rows a thread: x0 = round(audio^T @ w_start + b_start)
 __device__ void start_conv_bf16(const FlowArgs<bf16>& a, int n_t, int n_tiles) {
@@ -499,7 +287,6 @@ __global__ void __launch_bounds__(THREADS, 1) wn_flow_bf16_kernel(const FlowArgs
   const size_t plane = static_cast<size_t>(a.t_len) * WC;
   const int n_mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
   const int steps = n_mine * STEPS;
-  const int w = threadIdx.x / 128;
 
   start_conv_bf16(a, n_t, n_tiles);
   grid.sync();
@@ -525,97 +312,12 @@ __global__ void __launch_bounds__(THREADS, 1) wn_flow_bf16_kernel(const FlowArgs
     };
     for (int g = 0; g < AHEAD; ++g) issue(g);
 
+    const FlowEpi epi{xin, xout, a.skip, l > 0};
     int g = 0;
     for (int i = 0; i < n_mine; ++i) {
-      const int tile = blockIdx.x + i * gridDim.x, b = tile / n_t, t0 = (tile % n_t) * TT;
-#pragma unroll
-      for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.f;
-      gemm1(acc, ring, g, issue);
-      wgmma_wait(acc);
-
-      // the gate, in registers: z = acc + b_in + cond (f32) -> acts (bf16),
-      // written over cond once every thread has read its own
-      unsigned int acts[32];
-#pragma unroll
-      for (int e = 0; e < 64; e += 2) {
-        const int r = acc_row(e), k = w * 128 + acc_col(e);
-        const unsigned char* cr = tile_p + (r * TILE_LD + k) * 2;
-        const unsigned int ct = *reinterpret_cast<const unsigned int*>(cr);
-        const unsigned int cs = *reinterpret_cast<const unsigned int*>(cr + 2 * WC);
-        const float zt0 = acc[0][e] + b_in[k] + lo_f(ct);
-        const float zt1 = acc[0][e + 1] + b_in[k + 1] + hi_f(ct);
-        const float zs0 = acc[1][e] + b_in[WC + k] + lo_f(cs);
-        const float zs1 = acc[1][e + 1] + b_in[WC + k + 1] + hi_f(cs);
-        acts[e / 2] = bf16x2_bits(gate(zt0, zs0), gate(zt1, zs1));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < 64; e += 2) {
-        const int r = acc_row(e), k = w * 128 + acc_col(e);
-        *reinterpret_cast<unsigned int*>(tile_p + (k / 64) * 8192 +
-                                         swz<128>(r * 128 + (k % 64) * 2)) = acts[e / 2];
-      }
-
-      // GEMM 2: warpgroup w's image rows w*256.. (0: residual, 1: skip
-      // columns), or in the last layer the skip rows C + w*128..
-#pragma unroll
-      for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.f;
-      const int row0 = last ? WC + w * 128 : w * 256;
-      for (int s = 0; s < STEPS2; ++s, ++g) {
-        ring_wait();
-        issue(g + AHEAD);
-        const uint32_t bs = ring + (g % S) * STAGE + A_BYTES, k = s * KC;
-        mma_step(acc, tile_s + (k / 64) * 8192 + (k % 64) * 2, 1024, SW128, bs + row0 * ROW,
-                 bs + (row0 + 128) * ROW, !last);
-      }
-
-      wgmma_wait(acc);
-      // epilogue: rs = round(acc + b_rs) into the tile buffer once both
-      // warpgroups' GEMM 2 is done with acts, then 16 B a thread:
-      // x' = round(x + rs) in the residual columns, skip = rs (layer 0) or
-      // round(skip + rs)
-      __syncthreads();
-      unsigned char* const rs_p = tile_p;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        if (p == 1 && last) break;
-#pragma unroll
-        for (int e = 0; e < 64; e += 2) {
-          const int n = row0 + p * 128 + acc_col(e);
-          *reinterpret_cast<unsigned int*>(rs_p + (acc_row(e) * TILE_LD + n) * 2) =
-              bf16x2_bits(acc[p][e] + b_rs[n], acc[p][e + 1] + b_rs[n + 1]);
-        }
-      }
-      __syncthreads();
-      // rs columns [2C - ncol, 2C), 8 a chunk, 2^sh chunks a row
-      const int sh = last ? 5 : 6, n_lo = last ? WC : 0, chunks = TT << sh;
-      constexpr int Q = TT * 2 * WC / 8 / THREADS;
-      uint4 old[Q];
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int v = q * THREADS + threadIdx.x, r = v >> sh;
-        const int n = n_lo + ((v & ((1 << sh) - 1)) << 3), t = t0 + r;
-        old[q] = make_uint4(0u, 0u, 0u, 0u);
-        if (v < chunks && t < a.t_len && (n < WC || l > 0))
-          old[q] = __ldcg(reinterpret_cast<const uint4*>(
-              (n < WC ? xin : a.skip) + b * plane + static_cast<size_t>(t) * WC + n % WC));
-      }
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int v = q * THREADS + threadIdx.x, r = v >> sh;
-        const int n = n_lo + ((v & ((1 << sh) - 1)) << 3), t = t0 + r;
-        if (v >= chunks || t >= a.t_len) continue;
-        uint4 o = *reinterpret_cast<const uint4*>(rs_p + (r * TILE_LD + n) * 2);
-        if (n < WC || l > 0) {
-          unsigned int* ou = reinterpret_cast<unsigned int*>(&o);
-          const unsigned int* pu = reinterpret_cast<const unsigned int*>(&old[q]);
-#pragma unroll
-          for (int h = 0; h < 4; ++h)
-            ou[h] = bf16x2_bits(lo_f(pu[h]) + lo_f(ou[h]), hi_f(pu[h]) + hi_f(ou[h]));
-        }
-        *reinterpret_cast<uint4*>((n < WC ? xout : a.skip) + b * plane +
-                                  static_cast<size_t>(t) * WC + n % WC) = o;
-      }
+      const int tile = blockIdx.x + i * gridDim.x, b = tile / n_t;
+      layer_tile(acc, ring, tile_s, tile_p, g, issue, b_in, b_rs, 0, last, (tile % n_t) * TT,
+                 a.t_len, static_cast<size_t>(b) * a.t_len, epi);
     }
     if (!last) grid.sync();
   }
@@ -626,61 +328,22 @@ __global__ void __launch_bounds__(THREADS, 1) wn_flow_bf16_kernel(const FlowArgs
   end_conv_bf16(a, n_t, n_tiles);
 }
 
-// One tile's GEMM 1 alone, through the same ring and wgmma path: x (T, C)
-// of one batch row, taps at dilation d of rows t0.., one layer's W_in image
-// -> out (64, 2C) f32 raw sums in W_in's column order.  For card tests of
-// the image, swizzle and descriptor layout.
-__global__ void __launch_bounds__(THREADS, 1)
-    gemm1_tile_kernel(const bf16* x, int t_len, int t0, int d, const bf16* w_in_img,
-                      float* out) {
-  extern __shared__ __align__(1024) unsigned char dsmem[];
-  const uint32_t raw = smem_u32(dsmem), ring = (raw + 1023) & ~1023u;
-  auto issue = [&](int g) {
-    if (g < STEPS1)
-      issue_step(ring + (g % S) * STAGE, g, x, t_len, t0, d, w_in_img, nullptr, false,
-                 nullptr, 0, 0);
-    cp_async_commit();
-  };
-  for (int g = 0; g < AHEAD; ++g) issue(g);
-  float acc[2][64];
-#pragma unroll
-  for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.f;
-  int g = 0;
-  gemm1(acc, ring, g, issue);
-  wgmma_wait(acc);
-  const int w = threadIdx.x / 128;
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int e = 0; e < 64; ++e)
-      out[acc_row(e) * 2 * WC + p * WC + w * 128 + acc_col(e)] = acc[p][e];
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 }  // namespace wg
 
 // Cooperative launch of `kernel` on as many blocks as fit at once (every
 // block must be resident for the grid barrier), at most one per tile.
 template <typename Args>
 int launch(void (*kernel)(Args), const Args& args, size_t smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int n_tiles = args.B * ((args.t_len + TT - 1) / TT);
-  const int blocks = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
+  int blocks = 0;
+  const int err =
+      persistent_grid(kernel, smem, args.B * ((args.t_len + TT - 1) / TT), &blocks);
+  if (err != 0) return err;
   Args a = args;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
-                                    dim3(THREADS), params, smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                                    dim3(blocks), dim3(THREADS), params, smem,
+                                                    static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -742,7 +405,7 @@ WN_FLOW_TILE_ENTRY(wn_flow_f32, float)
 WN_FLOW_TILE_ENTRY(wn_flow_bf16_tile, __nv_bfloat16)
 
 // bf16 on the wgmma tile: C == 256; w_in_img (L, 3C/32, 2C, 32) and w_rs_img (L, C/32, 2C, 32)
-// are ops/wn_flow.py::weight_image's; cond 16-byte aligned with strides a
+// are ops/wn_image.py::weight_image's; cond 16-byte aligned with strides a
 // multiple of 8.
 extern "C" int wn_flow_bf16(const void* audio, const void* cond, long long cond_sb,
                             long long cond_st, const void* w_start, const void* b_start,
@@ -755,17 +418,13 @@ extern "C" int wn_flow_bf16(const void* audio, const void* cond, long long cond_
   const FlowArgs<bf16> a =
       flow_args<bf16>(audio, cond, cond_sb, cond_st, w_start, b_start, w_in_img, b_in,
                       w_rs_img, b_rs, w_end, b_end, x0, x1, skip, out, B, t_len, C, L, n_half);
-  return launch(wg::wn_flow_bf16_kernel, a, wg::FLOW_SMEM, stream);
+  return launch(wg::wn_flow_bf16_kernel, a, wg::BLOCK_SMEM, stream);
 }
 
 // The bf16 kernel's blocks per SM and dynamic shared memory.
-extern "C" int wn_flow_bf16_occupancy(int* blocks_per_sm, int* smem) {
-  *smem = wg::FLOW_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(wg::wn_flow_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, wg::wn_flow_bf16_kernel, THREADS, *smem));
+extern "C" int wn_flow_bf16_occupancy(int* per_sm, int* smem) {
+  *smem = wg::BLOCK_SMEM;
+  return blocks_per_sm(wg::wn_flow_bf16_kernel, *smem, per_sm);
 }
 
 // One tile's GEMM 1 (see gemm1_tile_kernel): x (T, 256) bf16, w_in_img one

@@ -13,23 +13,38 @@
 // outside [0, T): this is the conv's zero padding, so the caller pads
 // nothing and re-masks nothing between layers, and every dilation runs here.
 //
-// Bound on the H100: at the serving shapes (C = 256, bf16) the layer does
-// 2*(3C*2C + C*2C) = 1 MFLOP per time row against (C + 2C + 2C) * 2 B =
-// 2.5 KB moved, ~410 FLOP/byte, above the card's ~295 FLOP/byte ridge: it
-// is bound by tensor-core operations.  Design (wn_tile.cuh): the (TT, 2C)
-// pre-activation and the (TT, C) gate output never leave the SM; GEMM 2's
-// epilogue adds the residual and writes skip.  Simple first, fast later.
+// Bound on the H100: at the fused serving shape (B = 4, T = 10000, C = 256,
+// bf16) the layer does 2*(3C*2C + C*2C) = 1 MFLOP per time row, 41.9 GFLOP
+// (0.0424 ms at 989 TFLOP/s), against (C + 2C + C + C) * 2 B = 2.5 KB per
+// row that must move, 0.10 GB (0.031 ms at 3.35 TB/s): bound by tensor-core
+// operations.
+//
+// bf16 at C = 256 (wn_layer_bf16), the served path: the wgmma tile of
+// wn_wgmma.cuh, shared with the flow kernel.  One persistent block of two
+// warpgroups per SM walks the tiles blockIdx.x + i * gridDim.x; both GEMMs
+// of a tile run on wgmma m64n128k16 with f32 accumulators in registers, fed
+// by one cp.async ring (over the host's pre-swizzled weight image,
+// ops/wn_image.py) that runs on across the tiles, and the gate is applied
+// in registers.  The epilogue writes audio = round(x + round(rs[:, :C] +
+// b_rs)) and skip = round(rs[:, C:] + b_rs) 16 B a thread; in the last
+// layer only skip.  What holds it: every tile streams ~1 MB of weights
+// (W_in and W_rs) from L2 into its SM, ~0.63 GB a launch at the serving
+// shape, against 0.10 GB of its own traffic.
+//
+// f32 (wn_layer_f32, the denoiser's one-off bias pass) and bf16 at other
+// widths (wn_layer_bf16_tile, C % 128 == 0): the tile code of wn_tile.cuh,
+// one block per (batch, 64-row) tile.
 
-#include "wn_tile.cuh"
+#include "wn_wgmma.cuh"
 
 namespace {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-wn_layer_kernel(const T* __restrict__ x, const T* __restrict__ cond, long long cond_sb,
-                long long cond_st, const T* __restrict__ w_in, const T* __restrict__ b_in,
-                const T* __restrict__ w_rs, const T* __restrict__ b_rs, T* __restrict__ audio,
-                T* __restrict__ skip, int t_len, int C, int R, int d, int last) {
+wn_layer_tile_kernel(const T* __restrict__ x, const T* __restrict__ cond, long long cond_sb,
+                     long long cond_st, const T* __restrict__ w_in, const T* __restrict__ b_in,
+                     const T* __restrict__ w_rs, const T* __restrict__ b_rs, T* __restrict__ audio,
+                     T* __restrict__ skip, int t_len, int C, int R, int d, int last) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem<T> s(smem, C);
   const int b = blockIdx.y, t0 = blockIdx.x * TT;
@@ -50,16 +65,17 @@ wn_layer_kernel(const T* __restrict__ x, const T* __restrict__ cond, long long c
 }
 
 template <typename T>
-int launch(const void* x, const void* cond, long long cond_sb, long long cond_st,
-           const void* w_in, const void* b_in, const void* w_rs, const void* b_rs,
-           void* audio, void* skip, int B, int t_len, int C, int R, int d, int last,
-           void* stream) {
+int launch_tile(const void* x, const void* cond, long long cond_sb, long long cond_st,
+                const void* w_in, const void* b_in, const void* w_rs, const void* b_rs,
+                void* audio, void* skip, int B, int t_len, int C, int R, int d, int last,
+                void* stream) {
   const size_t smem = smem_bytes<T>(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      wn_layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = cudaFuncSetAttribute(wn_layer_tile_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t_len + TT - 1) / TT, B);
-  wn_layer_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  wn_layer_tile_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(cond), cond_sb, cond_st,
       static_cast<const T*>(w_in), static_cast<const T*>(b_in), static_cast<const T*>(w_rs),
       static_cast<const T*>(b_rs), static_cast<T*>(audio), static_cast<T*>(skip), t_len, C,
@@ -67,24 +83,134 @@ int launch(const void* x, const void* cond, long long cond_sb, long long cond_st
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// bf16 at C = 256: the wgmma tile of wn_wgmma.cuh
 
-// Plain C interface (loaded with ctypes).  Shapes: x, audio, skip (B, T, C)
-// contiguous; cond (B, T, 2C) with unit channel stride and the given batch /
-// time strides; w_in (3C, 2C), w_rs (C, R) row-major; C % 128 == 0.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int wn_layer_f32(const void* x, const void* cond, long long cond_sb,
-                            long long cond_st, const void* w_in, const void* b_in,
-                            const void* w_rs, const void* b_rs, void* audio, void* skip,
-                            int B, int t_len, int C, int R, int d, int last, void* stream) {
-  return launch<float>(x, cond, cond_sb, cond_st, w_in, b_in, w_rs, b_rs, audio, skip, B,
-                       t_len, C, R, d, last, stream);
+namespace wg {
+
+struct LayerArgs {
+  const bf16* x;                     // (B, T, C)
+  const bf16* cond;                  // (B, T, 2C), unit channel stride
+  long long cond_sb, cond_st;        // its batch and time strides
+  const bf16* in_img;                // (3C/KC, 2C, KC): weight_image of W_in
+  const bf16* b_in;                  // (2C)
+  const bf16* rs_img;                // (C/KC, 2C, KC): of W_rs, last layer's skip in [C, 2C)
+  const bf16* b_rs;                  // (2C), or (C) in the last layer
+  bf16* audio;                       // (B, T, C), not written in the last layer
+  bf16* skip;                        // (B, T, C)
+  int B, t_len, d;
+};
+
+// layer_tile's epilogue here: residual columns audio = round(x + rs), skip
+// columns skip = rs.  Rows are (b * T + t), C bf16 wide.
+struct LayerEpi {
+  const bf16* x;
+  bf16* audio;
+  bf16* skip;
+  __device__ bool adds(int n) const { return n < WC; }
+  __device__ const bf16* src(size_t row, int n) const { return x + row * WC + n; }
+  __device__ bf16* dst(size_t row, int n) const {
+    return n < WC ? audio + row * WC + n : skip + row * WC + n - WC;
+  }
+};
+
+// kLast: the last layer (skip-only W_rs); a template parameter, so that
+// each form drops the other's branches in GEMM 2 and the epilogue
+template <bool kLast>
+__global__ void __launch_bounds__(THREADS, 1) wn_layer_bf16_kernel(const LayerArgs a) {
+  extern __shared__ __align__(1024) unsigned char dsmem[];
+  const uint32_t raw = smem_u32(dsmem), ring = (raw + 1023) & ~1023u;
+  const uint32_t tile_s = ring + S * STAGE;
+  unsigned char* const tile_p = dsmem + (tile_s - raw);
+  const int n_t = (a.t_len + TT - 1) / TT, n_tiles = a.B * n_t;
+  const size_t plane = static_cast<size_t>(a.t_len) * WC;
+  const int n_mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  const int steps = n_mine * STEPS;
+
+  auto issue = [&](int g) {
+    if (g < steps) {
+      const int tile = blockIdx.x + (g / STEPS) * gridDim.x, b = tile / n_t;
+      issue_step(ring + (g % S) * STAGE, g % STEPS, a.x + b * plane, a.t_len, (tile % n_t) * TT,
+                 a.d, a.in_img, a.rs_img, kLast, a.cond + b * a.cond_sb, a.cond_st, tile_s);
+    }
+    cp_async_commit();
+  };
+  for (int g = 0; g < AHEAD; ++g) issue(g);
+
+  const LayerEpi epi{a.x, a.audio, a.skip};
+  float acc[2][64];
+  int g = 0;
+  for (int i = 0; i < n_mine; ++i) {
+    const int tile = blockIdx.x + i * gridDim.x, b = tile / n_t;
+    layer_tile(acc, ring, tile_s, tile_p, g, issue, a.b_in, a.b_rs, kLast ? WC : 0, kLast,
+               (tile % n_t) * TT, a.t_len, static_cast<size_t>(b) * a.t_len, epi);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+}  // namespace wg
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes).  Each returns the first CUDA error
+// of the launch (0 on success).  Shapes: x, audio, skip (B, T, C)
+// contiguous; cond (B, T, 2C) with unit channel stride and the given batch /
+// time strides; biases in x's type, b_in (2C), b_rs (R); R = C in the last
+// layer, else 2C.
+//
+// f32 (wn_layer_f32) and bf16 at any width (wn_layer_bf16_tile), on
+// wn_tile.cuh's tile: w_in (3C, 2C), w_rs (C, R) row-major; C % 128 == 0.
+#define WN_LAYER_TILE_ENTRY(NAME, TYPE)                                                     \
+  extern "C" int NAME(const void* x, const void* cond, long long cond_sb, long long cond_st, \
+                      const void* w_in, const void* b_in, const void* w_rs, const void* b_rs, \
+                      void* audio, void* skip, int B, int t_len, int C, int R, int d,       \
+                      int last, void* stream) {                                             \
+    return launch_tile<TYPE>(x, cond, cond_sb, cond_st, w_in, b_in, w_rs, b_rs, audio, skip, \
+                             B, t_len, C, R, d, last, stream);                              \
+  }
+
+WN_LAYER_TILE_ENTRY(wn_layer_f32, float)
+WN_LAYER_TILE_ENTRY(wn_layer_bf16_tile, __nv_bfloat16)
+
+// bf16 on the wgmma tile: C == 256; in_img (3C/32, 2C, 32) and rs_img
+// (C/32, 2C, 32) are ops/wn_image.py::weight_image's for one layer (the
+// last layer's (C, C) W_rs in the skip columns [C, 2C)); cond 16-byte
+// aligned with strides a multiple of 8.  A persistent (not cooperative)
+// launch of as many blocks as are resident at once, at most one per
+// tile; each block walks its tiles.
 extern "C" int wn_layer_bf16(const void* x, const void* cond, long long cond_sb,
-                             long long cond_st, const void* w_in, const void* b_in,
-                             const void* w_rs, const void* b_rs, void* audio, void* skip,
+                             long long cond_st, const void* in_img, const void* b_in,
+                             const void* rs_img, const void* b_rs, void* audio, void* skip,
                              int B, int t_len, int C, int R, int d, int last, void* stream) {
-  return launch<__nv_bfloat16>(x, cond, cond_sb, cond_st, w_in, b_in, w_rs, b_rs, audio,
-                               skip, B, t_len, C, R, d, last, stream);
+  if (C != wg::WC || R != (last ? C : 2 * C) || (cond_sb | cond_st) % 8 ||
+      reinterpret_cast<uintptr_t>(cond) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(wg::LayerArgs) =
+      last ? wg::wn_layer_bf16_kernel<true> : wg::wn_layer_bf16_kernel<false>;
+  int blocks = 0;
+  const int err = persistent_grid(kernel, wg::BLOCK_SMEM, B * ((t_len + TT - 1) / TT), &blocks);
+  if (err != 0) return err;
+  wg::LayerArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.cond = static_cast<const bf16*>(cond);
+  a.cond_sb = cond_sb;
+  a.cond_st = cond_st;
+  a.in_img = static_cast<const bf16*>(in_img);
+  a.b_in = static_cast<const bf16*>(b_in);
+  a.rs_img = static_cast<const bf16*>(rs_img);
+  a.b_rs = static_cast<const bf16*>(b_rs);
+  a.audio = static_cast<bf16*>(audio);
+  a.skip = static_cast<bf16*>(skip);
+  a.B = B;
+  a.t_len = t_len;
+  a.d = d;
+  kernel<<<blocks, THREADS, wg::BLOCK_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 wgmma kernel's blocks per SM and dynamic shared memory (its
+// form for the layers before the last).
+extern "C" int wn_layer_bf16_occupancy(int* per_sm, int* smem) {
+  *smem = wg::BLOCK_SMEM;
+  return blocks_per_sm(wg::wn_layer_bf16_kernel<false>, *smem, per_sm);
 }

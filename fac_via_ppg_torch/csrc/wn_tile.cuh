@@ -156,6 +156,32 @@ __device__ void load_w_tile(T* bs, int ldb, const T* w, int ldw, int k0, int lo,
 
 __host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) / 128 * 128; }
 
+// Sets `kernel`'s dynamic shared memory to `smem` bytes; *per_sm gets how
+// many of its blocks of THREADS threads fit on one SM.  Returns the first
+// CUDA error (0 on success).
+template <typename Kernel> int blocks_per_sm(Kernel kernel, size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, THREADS, smem);
+  return static_cast<int>(err);
+}
+
+// A persistent grid for `kernel`: *blocks gets as many blocks as are
+// resident on the card at once, at most n_tiles.  Returns the first CUDA
+// error (0 on success).
+template <typename Kernel> int persistent_grid(Kernel kernel, size_t smem, int n_tiles, int* blocks) {
+  int per_sm = 0, dev = 0, sms = 0;
+  const int err = blocks_per_sm(kernel, smem, &per_sm);
+  if (err != 0) return err;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *blocks = n_tiles < per_sm * sms ? n_tiles : per_sm * sms;
+  return 0;
+}
+
 template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int C) {
   return round128(sizeof(T) * TT * (KC + Pad<T>::v)) +

@@ -10,7 +10,8 @@ JAX package: channels-first (B, C, T).
 Three coupling-net implementations:
   * `wn_apply` -- the conv formulation (the JAX package's wn_impl="xla").
   * `wn_apply_layer` -- channels-last on the hand-written WN layer kernel
-    (ops/wn_layer.py; the JAX package's wn_impl="pallas").  The start
+    (ops/wn_layer.py; the JAX package's wn_impl="pallas"); a bf16 pack at
+    C = 256 carries the kernel's weight image.  The start
     conv, the stacked cond projection and the end conv are plain matmuls,
     as the JAX package computes them outside its kernel.
   * `wn_apply_flow` -- one launch of the whole-net kernel per flow
@@ -33,7 +34,12 @@ import torch.nn.functional as F
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 from fac_via_ppg_torch.ops.layers import conv1d
 from fac_via_ppg_torch.ops.wn_flow import pack_wn_flow, wn_flow
-from fac_via_ppg_torch.ops.wn_layer import pack_in_weight, wn_layer
+from fac_via_ppg_torch.ops.wn_image import KERNEL_C
+from fac_via_ppg_torch.ops.wn_layer import (
+    layer_images,
+    pack_in_weight,
+    wn_layer,
+)
 
 
 def flow_channels(cfg: WaveGlowConfig) -> List[int]:
@@ -267,9 +273,12 @@ def wn_apply(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
 
 
 def pack_wn_layer(wn: dict) -> dict:
-    """One flow's WN params -> the channels-last form of wn_apply_layer."""
+    """One flow's WN params -> the channels-last form of wn_apply_layer.
+    A bf16 pack at the wgmma tile's width (C = 256) also holds the layer
+    kernel's weight image, `in_img` (L, 3C/KC, 2C, KC) and `rs_img`
+    (L, C/KC, 2C, KC) (ops/wn_layer.layer_images), built once here."""
     c = lambda t: t.contiguous()  # noqa: E731
-    return {
+    packed = {
         "start_w": c(wn["start"]["weight"][:, :, 0].T),
         "start_b": wn["start"]["bias"],
         "cond_w": c(torch.cat([p["weight"] for p in wn["cond_layers"]],
@@ -282,6 +291,10 @@ def pack_wn_layer(wn: dict) -> dict:
         "end_w": c(wn["end"]["weight"][:, :, 0].T),
         "end_b": wn["end"]["bias"],
     }
+    w_in = packed["in_w"][0]
+    if w_in.dtype == torch.bfloat16 and w_in.shape[1] // 2 == KERNEL_C:
+        packed.update(layer_images(packed["in_w"], packed["rs_w"]))
+    return packed
 
 
 def pack_waveglow_layer(cfg: WaveGlowConfig, params: dict) -> list:
@@ -305,6 +318,7 @@ def wn_apply_layer(cfg: WaveGlowConfig, packed: dict,
                packed["start_b"], dt).contiguous()
     cond = _dense(spect_grouped.transpose(1, 2), packed["cond_w"],
                   packed["cond_b"], dt)                     # (B, T, L*2C)
+    img = "in_img" in packed
     skip_sum = None
     for i in range(L):
         x, skip = wn_layer(
@@ -312,6 +326,8 @@ def wn_apply_layer(cfg: WaveGlowConfig, packed: dict,
             packed["in_w"][i], packed["in_b"][i],
             packed["rs_w"][i], packed["rs_b"][i],
             dilation=2 ** i, last=(i == L - 1),
+            in_img=packed["in_img"][i] if img else None,
+            rs_img=packed["rs_img"][i] if img else None,
         )
         skip_sum = skip if skip_sum is None else skip_sum + skip
     out = _dense(skip_sum, packed["end_w"], packed["end_b"], dt)

@@ -57,6 +57,15 @@ class CudaLibrary:
                      for p in (self.source, *CSRC.glob("*.cuh")))
         return self.library.stat().st_mtime < newest
 
+    def occupancy(self, symbol: str) -> tuple:
+        """(blocks per SM, dynamic shared memory bytes) of a kernel on the
+        current card, from its C query `symbol(int* per_sm, int* smem)`."""
+        blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+        err = self.function(symbol)(ctypes.byref(blocks), ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+        return blocks.value, smem.value
+
     def function(self, symbol: str):
         """The loaded C function, building the library first if needed."""
         with self._lock:

@@ -36,14 +36,16 @@ do not fit the 50 MB L2: ~0.25 GB a layer goes to device memory.
 
 The f32 form, and the bf16 form at widths other than 256 (C % 128 == 0),
 run the tile code of `csrc/wn_tile.cuh` (shared with the WN layer
-kernel).  The bf16 form at C = 256, the vocoder's, runs both GEMMs of a
-tile on wgmma with f32 accumulators in registers: each of two warpgroups
-owns all 64 rows and 128 tanh columns plus the 128 sigmoid columns that
-pair with them, so the gate is applied in registers.  A 4-stage cp.async
-ring feeds the K steps of both GEMMs; its weight slices come from a bf16
-image of W_in and W_rs that `weight_image` lays out once, in the kernel's
-column order and in wgmma's swizzled K-major layout (`pack_wn_flow` stores
-it with the pack; the kernel needs it).  The gate is exact f32 tanh and
+kernel).  The bf16 form at C = 256, the vocoder's, runs each tile and
+layer on the wgmma tile of `csrc/wn_wgmma.cuh`, shared with the WN layer
+kernel: both GEMMs on wgmma with f32 accumulators in registers; each of
+two warpgroups owns all 64 rows and 128 tanh columns plus the 128 sigmoid
+columns that pair with them, so the gate is applied in registers.  A
+4-stage cp.async ring feeds the K steps of both GEMMs; its weight slices
+come from a bf16 image of W_in and W_rs that `ops/wn_image.py::
+weight_image` lays out once, in the kernel's column order and in wgmma's
+swizzled K-major layout (`pack_wn_flow` stores it with the pack; the
+kernel needs it).  The gate is exact f32 tanh and
 sigmoid, as on the TPU.  Each tile and layer streams ~1 MB of weights from
 L2 (10.2 GB a launch at the serving shape): ~2 ms a launch at an assumed
 5 TB/s of L2 even with all else hidden; sharing weight tiles across a
@@ -61,6 +63,7 @@ import ctypes
 import torch
 
 from fac_via_ppg_torch.ops.cuda_lib import CudaLibrary
+from fac_via_ppg_torch.ops.wn_image import KC, KERNEL_C, weight_image
 from fac_via_ppg_torch.ops.wn_layer import (
     check,
     check_dense,
@@ -81,75 +84,10 @@ build = _LIB.build
 # Kernel launches since the last reset (the caller sets it to 0).
 launches = 0
 
-# The bf16 kernel: its channels, and the depth of one ring step.
-KERNEL_C = 256
-KC = 32
-
-
-def _swizzle(t: torch.Tensor) -> torch.Tensor:
-    """K-major rows (..., N, kc) -> wgmma's swizzled order: in row n the
-    16-byte chunk c sits at chunk c ^ (((n * 2kc) >> 7) & (2kc/16 - 1)),
-    the XOR of address bits 4.. with bits 7.. that the kernel's `swz` and
-    the descriptor's swizzle mode apply.  Its own inverse."""
-    n_rows, kc = t.shape[-2:]
-    n = torch.arange(n_rows, device=t.device)
-    f = ((n * 2 * kc) >> 7) & (2 * kc // 16 - 1)
-    idx = torch.arange(kc // 8, device=t.device)[None, :] ^ f[:, None]
-    chunks = t.unflatten(-1, (kc // 8, 8))
-    return chunks.gather(-2, idx[..., None].expand(chunks.shape)).flatten(-2)
-
-
-def gemm1_columns(C: int, device=None) -> torch.Tensor:
-    """W_in's column for each row of the kernel's GEMM 1 image: warpgroup
-    w's rows w*C.. hold tanh columns w*C/2.. then the sigmoid columns
-    C + w*C/2.. that pair with them."""
-    n = torch.arange(2 * C, device=device)
-    w, p, i = n // C, (n % C) // (C // 2), n % (C // 2)
-    return p * C + w * (C // 2) + i
-
-
-def weight_image(packed: dict) -> dict:
-    """The bf16 kernel's weight image of a pack_wn_flow pack: per layer and
-    K step of depth KC, the step's (2C, KC) weight slice K-major (one row
-    per output column) and swizzled, so the kernel copies it to shared
-    memory as it lies:
-
-        w_in_img (L, 3C/KC, 2C, KC): columns in `gemm1_columns` order;
-        w_rs_img (L, C/KC, 2C, KC):  columns in w_rs's own order."""
-    w_in, w_rs = packed["w_in"], packed["w_rs"]
-    C = w_in.shape[-1] // 2
-    if C % KC:
-        raise ValueError(f"weight_image: needs C % {KC} == 0, got C={C}")
-
-    def image(w):
-        steps = w.unflatten(1, (w.shape[1] // KC, KC)).transpose(-1, -2)
-        return _swizzle(steps.to(torch.bfloat16).contiguous()).contiguous()
-
-    return {"w_in_img": image(w_in[:, :, gemm1_columns(C, w_in.device)]),
-            "w_rs_img": image(w_rs)}
-
-
-def public_from_image(img: dict) -> dict:
-    """`weight_image`'s inverse: {"w_in": (L, 3C, 2C), "w_rs": (L, C, 2C)}."""
-
-    def rows(t):
-        return _swizzle(t).transpose(-1, -2).flatten(1, 2)
-
-    w_in_perm = rows(img["w_in_img"])
-    w_in = torch.empty_like(w_in_perm)
-    w_in[:, :, gemm1_columns(w_in.shape[-1] // 2, w_in.device)] = w_in_perm
-    return {"w_in": w_in, "w_rs": rows(img["w_rs_img"]).contiguous()}
-
-
 def kernel_resources() -> tuple:
     """The bf16 kernel's (blocks per SM, dynamic shared memory bytes) on
     the current card."""
-    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-    err = _LIB.function("wn_flow_bf16_occupancy")(
-        ctypes.byref(blocks), ctypes.byref(smem))
-    if err != 0:
-        raise RuntimeError(f"wn_flow occupancy query failed: CUDA error {err}")
-    return blocks.value, smem.value
+    return _LIB.occupancy("wn_flow_bf16_occupancy")
 
 
 def gemm1_tile(x: torch.Tensor, w_in_img_layer: torch.Tensor, t0: int,

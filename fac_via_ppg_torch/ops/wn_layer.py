@@ -9,21 +9,29 @@ wn_layer_pallas`.  One layer, channels-last (B, T, C):
     audio = x + rs[..., :C],  skip = rs[..., C:]
     last layer (W_rs (C, C)): skip = rs, audio = x
 
-Bound on the H100 at the serving shapes (C = 256, bf16): 2*(3C*2C + C*2C)
-FLOP per time row against (C + 2C + 2C) * 2 bytes moved, ~410 FLOP/byte,
-above the card's ~295 FLOP/byte ridge, so the tensor cores bound it (989
-TFLOP/s bf16).  The kernel (`csrc/wn_layer.cu`, tile code in
-`csrc/wn_tile.cuh`) keeps the (T, 2C) pre-activation and the gate output on
-the SM: one block per (batch, 64-row time tile); GEMM 1 in chunks of 64
-tanh + 64 sigmoid columns with the gate applied from a f32 staging tile;
-the gate output stays in shared memory as the A operand of GEMM 2, whose
-epilogue writes audio and skip.  Taps read zero outside [0, T), which is
-the conv's zero padding, so every dilation runs in the kernel and the
-caller pads and re-masks nothing.  bf16 uses the tensor cores (wmma); f32
-uses full-f32 FMAs.
+Bound on the H100 at the fused serving shape (B = 4, T = 10000, C = 256,
+bf16): 2*(3C*2C + C*2C) FLOP per time row, 41.9 GFLOP, 0.0424 ms at 989
+TFLOP/s, against (C + 2C + C + C) * 2 bytes per row moved, 0.031 ms at 3.35
+TB/s: the tensor cores bound it.
 
-The kernel is built with nvcc for sm_90a from the repository's source at
-first use (`ops/cuda_lib.py`) and loaded with ctypes.  CPU tensors take
+bf16 at C = 256, the served path (`csrc/wn_layer.cu` on the wgmma tile of
+`csrc/wn_wgmma.cuh`, shared with the flow kernel): one persistent block of
+two warpgroups per SM walks (batch, 64-row) tiles; both GEMMs of a tile run
+on wgmma with f32 accumulators in registers, fed by a cp.async ring that
+runs on across the tiles; the gate is applied in registers and the
+epilogue writes audio and skip 16 bytes a thread.  Its weight slices come
+from the bf16 image of `ops/wn_image.py::weight_image` (`layer_images`;
+`pack_wn_layer` stores it with the pack, and the kernel needs it).  What
+holds it: every tile streams ~1 MB of weights from L2 into its SM (~0.63
+GB a launch at the serving shape).  f32 (the denoiser's one-off bias pass)
+and bf16 at other widths (C % 128 == 0) run the older tile of
+`csrc/wn_tile.cuh`: one block per tile, CUDA-core FMAs in f32, wmma in
+bf16.  Taps read zero outside [0, T), which is the conv's zero padding, so
+every dilation runs in the kernel and the caller pads and re-masks
+nothing.
+
+The kernels are built with nvcc for sm_90a from the repository's sources
+at first use (`ops/cuda_lib.py`) and loaded with ctypes.  CPU tensors take
 `wn_layer_plain`; CUDA tensors launch the kernel or raise.
 """
 
@@ -35,12 +43,14 @@ import torch
 import torch.nn.functional as F
 
 from fac_via_ppg_torch.ops.cuda_lib import CudaLibrary
+from fac_via_ppg_torch.ops.wn_image import KC, KERNEL_C, weight_image
 
-_SYMBOLS = {torch.float32: "wn_layer_f32", torch.bfloat16: "wn_layer_bf16"}
 _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_pi = ctypes.POINTER(ctypes.c_int)
+_LAYER = [_p, _p, _ll, _ll, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p]
 _LIB = CudaLibrary("wn_layer", {
-    name: [_p, _p, _ll, _ll, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
-           _p] for name in _SYMBOLS.values()})
+    "wn_layer_f32": _LAYER, "wn_layer_bf16_tile": _LAYER,
+    "wn_layer_bf16": _LAYER, "wn_layer_bf16_occupancy": [_pi, _pi]})
 LIBRARY = _LIB.library
 build = _LIB.build
 
@@ -53,6 +63,27 @@ def pack_in_weight(conv_weight: torch.Tensor) -> torch.Tensor:
     tap j multiplies x[t + (j-1)*d]."""
     return torch.cat([conv_weight[:, :, j].T
                       for j in range(conv_weight.shape[2])], dim=0)
+
+
+def layer_images(in_w, rs_w) -> dict:
+    """The bf16 wgmma tile's weight image of L layers: in_w L tap-stacked
+    (3C, 2C) weights, rs_w L res/skip weights (C, 2C), of which the last
+    may be the skip-only (C, C): it goes to the skip columns [C, 2C), with
+    zero residual columns, as in the flow pack.  -> {"in_img":
+    (L, 3C/KC, 2C, KC), "rs_img": (L, C/KC, 2C, KC)} in bf16."""
+    w_in = torch.stack(list(in_w))
+    C = w_in.shape[-1] // 2
+    w_rs = w_in.new_zeros((len(rs_w), C, 2 * C))
+    for i, w in enumerate(rs_w):
+        w_rs[i, :, 2 * C - w.shape[1]:] = w
+    img = weight_image({"w_in": w_in, "w_rs": w_rs})
+    return {"in_img": img["w_in_img"], "rs_img": img["w_rs_img"]}
+
+
+def kernel_resources() -> tuple:
+    """The bf16 wgmma kernel's (blocks per SM, dynamic shared memory bytes)
+    on the current card."""
+    return _LIB.occupancy("wn_layer_bf16_occupancy")
 
 
 def wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
@@ -89,26 +120,30 @@ def check_dense(name, t):
 
 
 def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
-             last: bool = False):
+             last: bool = False, in_img=None, rs_img=None):
     """Returns (audio, skip), each (B, T, C) in x.dtype.
 
     x (B, T, C) contiguous; cond (B, T, 2C), a view with unit channel
     stride is fine (the per-layer slice of the stacked cond projection);
     w_in (3C, 2C) tap-stacked [W(t-d); W(t); W(t+d)]; w_rs (C, 2C), or
-    (C, C) with last=True.
+    (C, C) with last=True.  On the card, bf16 at C = 256 runs the wgmma
+    tile: it needs this layer's weight image, in_img (3C/KC, 2C, KC) and
+    rs_img (C/KC, 2C, KC) (`layer_images`; `pack_wn_layer` stores it), and
+    cond with batch and time strides a multiple of 8 and a 16-byte aligned
+    address.
     """
     if x.device.type == "cpu":
         return wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation, last)
     if x.device.type != "cuda":
         raise ValueError(f"wn_layer: unsupported device {x.device}")
-    if x.dtype not in _SYMBOLS:
-        raise ValueError(f"wn_layer: unsupported dtype {x.dtype}")
+    dt, dev = x.dtype, x.device
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"wn_layer: unsupported dtype {dt}")
     B, T, C = x.shape
     R = C if last else 2 * C
     if C % 128 or dilation < 1:
         raise ValueError(f"wn_layer: needs C % 128 == 0 and dilation >= 1, "
                          f"got C={C}, dilation={dilation}")
-    dt, dev = x.dtype, x.device
     check("cond", cond, (B, T, 2 * C), dt, dev)
     check("w_in", w_in, (3 * C, 2 * C), dt, dev)
     check("b_in", b_in, (2 * C,), dt, dev)
@@ -119,7 +154,23 @@ def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
     for name, t in (("x", x), ("w_in", w_in), ("b_in", b_in),
                     ("w_rs", w_rs), ("b_rs", b_rs)):
         check_dense(f"wn_layer: {name}", t)
-    fn = _LIB.function(_SYMBOLS[dt])
+    symbol = "wn_layer_f32" if dt == torch.float32 else "wn_layer_bf16_tile"
+    if dt == torch.bfloat16 and C == KERNEL_C:
+        symbol = "wn_layer_bf16"
+        if in_img is None or rs_img is None:
+            raise ValueError(f"wn_layer: bf16 at C={KERNEL_C} needs the "
+                             "kernel's weight image (pack_wn_layer's "
+                             "in_img / rs_img, or layer_images)")
+        check("in_img", in_img, (3 * C // KC, 2 * C, KC), dt, dev)
+        check("rs_img", rs_img, (C // KC, 2 * C, KC), dt, dev)
+        check_dense("wn_layer: in_img", in_img)
+        check_dense("wn_layer: rs_img", rs_img)
+        # the kernel copies cond rows in 16-byte chunks
+        if cond.stride(0) % 8 or cond.stride(1) % 8 or cond.data_ptr() % 16:
+            raise ValueError("wn_layer: cond needs batch and time strides a "
+                             "multiple of 8 and a 16-byte aligned address")
+        w_in, w_rs = in_img, rs_img
+    fn = _LIB.function(symbol)
     skip = torch.empty((B, T, C), dtype=dt, device=dev)
     audio = x if last else torch.empty_like(x)
     stream = torch.cuda.current_stream(dev).cuda_stream

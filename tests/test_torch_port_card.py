@@ -1,7 +1,8 @@
 """The WN kernels (the layer kernel, the whole-net flow kernel) against
 their plain PyTorch versions, on the card; and one tile's GEMM 1 of the
-bf16 flow kernel (its cp.async ring, weight image, swizzle and wgmma
-descriptors) against torch.matmul.
+bf16 wgmma tile (its cp.async ring, weight image, swizzle and wgmma
+descriptors) against torch.matmul.  bf16 at C = 256 runs both kernels on
+that tile (csrc/wn_wgmma.cuh); f32 and other widths on wn_tile.cuh's.
 
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
@@ -37,6 +38,28 @@ def _layer(seed, B, T, C, last, dtype, device):
             mk((2 * C,), 0.1), mk((C, R), 0.05), mk((R,), 0.1))
 
 
+def _image(args):
+    """The layer's weight image where the wgmma tile runs it (bf16 at
+    C = 256), as pack_wn_layer stores it; else nothing."""
+    x, w_in, w_rs = args[0], args[2], args[4]
+    if x.dtype != torch.bfloat16 or x.shape[2] != wl.KERNEL_C:
+        return {}
+    img = wl.layer_images([w_in], [w_rs])
+    return {"in_img": img["in_img"][0], "rs_img": img["rs_img"][0]}
+
+
+def _layer_check(args, dilation, last, atol):
+    """One counted launch of the layer kernel against wn_layer_plain."""
+    n0 = wl.launches
+    a_k, s_k = wl.wn_layer(*args, dilation=dilation, last=last,
+                           **_image(args))
+    torch.cuda.synchronize()
+    assert wl.launches == n0 + 1
+    a_p, s_p = wl.wn_layer_plain(*args, dilation=dilation, last=last)
+    torch.testing.assert_close(s_k.float(), s_p.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(a_k.float(), a_p.float(), atol=atol, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 3e-2)])
@@ -44,14 +67,66 @@ def _layer(seed, B, T, C, last, dtype, device):
                                            (8, False), (128, False),
                                            (64, True)])
 def test_kernel_matches_plain(card, dtype, atol, dilation, last):
-    args = _layer(dilation, 2, 1000, 256, last, dtype, card)
+    _layer_check(_layer(dilation, 2, 1000, 256, last, dtype, card), dilation,
+                 last, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("last", [False, True])
+def test_layer_kernel_bf16_one_batch_row(card, last):
+    """B=1, T=1000: 16 tiles, fewer than the card's blocks."""
+    _layer_check(_layer(3, 1, 1000, 256, last, torch.bfloat16, card), 8, last,
+                 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("T", [97, 64 * 5 + 1])
+def test_layer_kernel_bf16_ragged_time(card, T, last):
+    """Ragged T: the tail tile's rows past T (zero taps and cond, masked
+    stores), at a dilation that reaches past both ends."""
+    _layer_check(_layer(T, 2, T, 256, last, torch.bfloat16, card), 64, last,
+                 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 3, 7])
+def test_layer_kernel_bf16_strided_cond(card, layer):
+    """cond as the per-layer slice of the stacked (B, T, L*2C) projection,
+    as wn_apply_layer passes it (time stride L*2C, offset 2C*layer)."""
+    C, L, B, T = 256, 8, 2, 700
+    args = list(_layer(layer, B, T, C, layer == L - 1, torch.bfloat16, card))
+    cond_all = torch.tensor(np.random.RandomState(layer).randn(B, T, L * 2 * C)
+                            * 0.3, dtype=torch.bfloat16, device=card)
+    args[1] = cond_all[:, :, 2 * C * layer: 2 * C * (layer + 1)]
+    assert not args[1].is_contiguous()
+    _layer_check(tuple(args), 2 ** layer, layer == L - 1, 3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 512])
+def test_layer_kernel_bf16_other_widths(card, C):
+    """bf16 at widths other than the wgmma tile's 256 runs wn_tile.cuh's
+    tile (no image), within the same tolerance."""
+    args = _layer(C, 2, 300, C, False, torch.bfloat16, card)
+    assert _image(args) == {}
+    _layer_check(args, 4, False, 3e-2)
+
+
+@pytest.mark.cuda
+def test_layer_kernel_bf16_needs_the_weight_image(card):
+    """bf16 at C=256 without the weight image raises, and so does a cond
+    whose time stride the kernel's 16-byte copies cannot take; nothing is
+    launched."""
+    args = _layer(5, 1, 128, 256, False, torch.bfloat16, card)
     n0 = wl.launches
-    a_k, s_k = wl.wn_layer(*args, dilation=dilation, last=last)
-    torch.cuda.synchronize()
-    assert wl.launches == n0 + 1
-    a_p, s_p = wl.wn_layer_plain(*args, dilation=dilation, last=last)
-    torch.testing.assert_close(s_k.float(), s_p.float(), atol=atol, rtol=0)
-    torch.testing.assert_close(a_k.float(), a_p.float(), atol=atol, rtol=0)
+    with pytest.raises(ValueError, match="weight image"):
+        wl.wn_layer(*args, dilation=1)
+    odd = torch.zeros((1, 128, 2 * 256 + 1), dtype=torch.bfloat16,
+                      device=card)[:, :, :2 * 256]
+    with pytest.raises(ValueError, match="strides"):
+        wl.wn_layer(args[0], odd, *args[2:], dilation=1, **_image(args))
+    assert wl.launches == n0
 
 
 def _flow(seed, B, T, n_half, dtype, device, C=256, L=8):

@@ -26,6 +26,7 @@ from fac_via_ppg_torch.configs.hparams import WaveGlowConfig as TWaveGlowConfig
 from fac_via_ppg_torch.eval import int8_snr as t_snr
 from fac_via_ppg_torch.models import waveglow as twg
 from fac_via_ppg_torch.ops import wn_flow as twf
+from fac_via_ppg_torch.ops import wn_image as wimg
 from fac_via_ppg_tpu.configs.hparams import WaveGlowConfig
 from fac_via_ppg_tpu.eval import int8_snr as j_snr
 from fac_via_ppg_tpu.models import waveglow as jwg
@@ -167,7 +168,7 @@ def test_weight_image_inverts_to_the_jax_pack(params, n_half):
     img = twf.weight_image(ours)
     assert img["w_in_img"].shape == (L, 3 * C // twf.KC, 2 * C, twf.KC)
     assert img["w_rs_img"].shape == (L, C // twf.KC, 2 * C, twf.KC)
-    back = twf.public_from_image(img)
+    back = wimg.public_from_image(img)
     assert torch.equal(back["w_in"], ours["w_in"])
     assert torch.equal(back["w_rs"], ours["w_rs"])
     theirs = pack_wn_flow(jparams["wn"][flow], L)
@@ -202,7 +203,7 @@ def test_weight_image_gemm1_deinterleaves_to_public_gemm1(params):
     img = twf.weight_image(pk)
     rng = np.random.RandomState(4)
     taps = torch.tensor(rng.randn(64, 3 * C)).to(torch.bfloat16).double()
-    cols = twf.gemm1_columns(C)
+    cols = wimg.gemm1_columns(C)
     for layer in range(CFG.wn_n_layers):
         z_img = taps @ _as_kernel_reads(img["w_in_img"][layer]).double()
         z = torch.empty_like(z_img)
