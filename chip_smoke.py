@@ -39,9 +39,25 @@ Phases (any failure exits nonzero; there is no CPU path):
      batch's device work; check torch._int_mm against the exact int32 CPU
      product, bit for bit;
   7. time both kernels and their plain versions at their main path's
-     shapes, with each one's bound.
-Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`
-and `cli:` lines,
+     shapes, with each one's bound; and both f32 forms, held against their
+     plain versions, at the synthesis CLI's shape (B=8, T=20000: 8
+     requests x 1000 frames), with their f32 bounds;
+  8. the synthesis CLI (scripts/generate_synthesis.main) at full width:
+     write the substitute bundle (5816 senones, 3 x 256) and a binary copy
+     of its AM (frontend/nnet3_binary.write_nnet3_binary), and hold the
+     binary AM's arrays and PPGs on the card equal to the text AM's; write
+     a seeded Tacotron2 in the reference's .pt format
+     (save_reference_tacotron2_checkpoint; gate bias -10, so every request
+     decodes all 1000 steps) and a WaveGlow .pt state dict; run the CLI
+     in-process on the binary AM with the hparams' defaults (f32
+     WaveGlow): (a) one wav staged, (b) the same wav --fused, (c) 8 wavs
+     as a directory, --batch_size 8, (d) (c) with --cond_impl int8, (e)
+     (c) with --cond_impl auto; check every wav (16 kHz int16, finite, not
+     constant, 1000 * hop long), >= 96 layer kernel launches per dense
+     batch and 12 flow kernel launches per int8 batch; profile one batch
+     of (c).
+Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
+`cli:`, `synth profile:` and `synth:` lines,
 a `{"kernels": ...}` line and, last, `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
 
@@ -74,6 +90,9 @@ PEAK_BYTES = 3.35e12
 N_WAVS, BATCH, MAX_FRAMES, SEED = 8, 4, 500, 1234
 # the vocoder CLI's run: mels, their frame range, its batch
 N_MELS, MEL_FRAMES, CLI_BATCH = 16, (449, 512), 8
+# the synthesis CLI's batch (--batch_size 8) and its frames per request
+# (max_decoder_steps; the gate is held off)
+SYNTH_BATCH, SYNTH_FRAMES = 8, 1000
 
 
 def log(*a):
@@ -595,12 +614,7 @@ def time_kernel(wl):
     ms = cuda_ms(lambda: wl.wn_layer(*args, dilation=8, **img))
     wl.launches = n0
     plain_ms = cuda_ms(lambda: wl.wn_layer_plain(*args, dilation=8))
-    esz = 2
-    flops = 2 * B * T * (3 * C * 2 * C + C * 2 * C)
-    nbytes = (B * T * (C + 2 * C + C + C) + 3 * C * 2 * C + 2 * C
-              + C * 2 * C + 2 * C) * esz
-    t_ops, t_bytes = flops / PEAK_FLOPS[dt] * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound = max(t_ops, t_bytes)
+    flops, nbytes, bound, by = layer_bound(B, T, dt)
     log(f"wn_layer bf16 B={B} T={T} C={C}: {ms:.4f} ms, plain {plain_ms:.4f}"
         f" ms, bound {bound:.4f} ms ({flops} FLOP, {nbytes} B,"
         f" {flops / ms / 1e9:.1f} TFLOP/s, {100 * bound / ms:.2f} % of "
@@ -610,28 +624,84 @@ def time_kernel(wl):
     ms32 = cuda_ms(lambda: wl.wn_layer(*a32, dilation=8))
     wl.launches = n0
     log(f"wn_layer f32 B=1 T=1760 C={C} (denoiser bias pass): {ms32:.4f} ms")
-    return ms, plain_ms, bound, \
-        "operations" if t_ops >= t_bytes else "bytes", ms32
+    return ms, plain_ms, bound, by, ms32
 
 
-def write_cli_inputs(tmp):
+def layer_bound(B, T, dtype, C=256):
+    """The least time of one (non-last) layer: FLOP 2*B*T*(3C*2C + C*2C);
+    bytes: x, cond, both outputs once and the weights and biases once, in
+    the layer pack's dtype."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    flops = 2 * B * T * (3 * C * 2 * C + C * 2 * C)
+    nbytes = (B * T * (C + 2 * C + C + C) + 3 * C * 2 * C + 2 * C
+              + C * 2 * C + 2 * C) * esz
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, \
+        nbytes / PEAK_BYTES * 1e3
+    return flops, nbytes, max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_f32_at_synth(wl, wf):
+    """Both kernels' f32 forms at the synthesis CLI's shape, B=8 x
+    T=20000 (8 requests x 1000 frames; the layer kernel at d=8, the flow
+    kernel at n_half=4): held against their plain versions (atol 1e-4,
+    TF32 off), then timed beside the plain versions, with the f32 bound."""
+    g = torch.Generator("cuda").manual_seed(SEED + 8)
+    B, T, C, f32 = SYNTH_BATCH, SYNTH_FRAMES * 160 // 8, 256, torch.float32
+    n_l, n_f = wl.launches, wf.launches
+    args = layer_inputs(g, B, T, C, False, f32)
+    out = {"wn_layer": {"max_abs_err_f32_synth": compare(
+        wl, args, 8, False, f"float32 B={B} T={T}")}}
+    ms = cuda_ms(lambda: wl.wn_layer(*args, dilation=8), reps=10)
+    plain_ms = cuda_ms(lambda: wl.wn_layer_plain(*args, dilation=8), reps=5)
+    out["wn_layer"].update(zip(
+        ("ms_f32_synth", "plain_ms_f32_synth", "bound_ms_f32",
+         "bound_by_f32"), (ms, plain_ms, *layer_bound(B, T, f32)[2:])))
+    del args
+    fargs = flow_inputs(wf, g, B, T, 4, f32)
+    out["wn_flow"] = {"max_abs_err_f32_synth": compare_flow(
+        wf, *fargs, f"float32 B={B} T={T} n_half=4")}
+    fms = cuda_ms(lambda: wf.wn_flow(*fargs), reps=5)
+    fplain = cuda_ms(lambda: wf.wn_flow_plain(*fargs), reps=3)
+    out["wn_flow"].update(zip(
+        ("ms_f32_synth", "plain_ms_f32_synth", "bound_ms_f32",
+         "bound_by_f32"), (fms, fplain, *flow_bound(B, T, 4, f32)[2:])))
+    del fargs
+    wl.launches, wf.launches = n_l, n_f
+    for name, t in out.items():
+        log(f"{name} f32 B={B} T={T} (synthesis CLI): "
+            f"{t['ms_f32_synth']:.4f} ms, plain "
+            f"{t['plain_ms_f32_synth']:.4f} ms, f32 bound "
+            f"{t['bound_ms_f32']:.4f} ms ({t['bound_by_f32']}, "
+            f"{100 * t['bound_ms_f32'] / t['ms_f32_synth']:.2f} % of bound)")
+    return out
+
+
+def write_waveglow_pt(path, seed):
     """A seeded full-width WaveGlow written as a .pt state dict by the
-    port's exporter, and N_MELS seeded mel .npy files."""
+    port's exporter, its end convs randomised."""
     from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
     from fac_via_ppg_torch.models import init_waveglow
     from fac_via_ppg_torch.train.export_torch import \
         export_waveglow_state_dict
 
     cfg = WaveGlowConfig()
-    g = torch.Generator().manual_seed(SEED + 3)
+    g = torch.Generator().manual_seed(seed)
     params = init_waveglow(cfg, g)
     # the end convs are zero at init; small weights let the kernel's
     # output reach the audio
     for wn in params["wn"]:
         w = wn["end"]["weight"]
         wn["end"]["weight"] = torch.randn(w.shape, generator=g) * 1e-2
+    torch.save(export_waveglow_state_dict(params, cfg), path)
+    return cfg
+
+
+def write_cli_inputs(tmp):
+    """A seeded full-width WaveGlow .pt state dict, and N_MELS seeded mel
+    .npy files."""
     ckpt = f"{tmp}/waveglow.pt"
-    torch.save(export_waveglow_state_dict(params, cfg), ckpt)
+    cfg = write_waveglow_pt(ckpt, SEED + 3)
     rng = np.random.RandomState(SEED)
     frames = rng.randint(MEL_FRAMES[0], MEL_FRAMES[1] + 1, size=N_MELS)
     paths = []
@@ -721,6 +791,178 @@ def check_int_mm(cfg, ckpt):
     if got.dtype != torch.int32 or not same:
         raise AssertionError("torch._int_mm disagrees with the exact product")
     return len(idx)
+
+
+def write_synth_inputs(tmp):
+    """Phase 8's inputs: the full-width substitute bundle, its AM also in
+    Kaldi's binary format; a seeded full-width Tacotron2 as the
+    reference's .pt, gate bias -10 (every request decodes all
+    max_decoder_steps); a seeded WaveGlow .pt; 8 seeded wavs."""
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        create_hparams_stage,
+    )
+    from fac_via_ppg_torch.frontend.nnet3 import load_nnet3
+    from fac_via_ppg_torch.frontend.nnet3_binary import write_nnet3_binary
+    from fac_via_ppg_torch.models import init_tacotron2
+    from fac_via_ppg_torch.scripts.make_substitute_am import make_bundle
+    from fac_via_ppg_torch.train.export_torch import \
+        save_reference_tacotron2_checkpoint
+
+    t0 = time.time()
+    make_bundle(f"{tmp}/bundle")
+    write_nnet3_binary(load_nnet3(f"{tmp}/bundle/am/final.raw.txt"),
+                       f"{tmp}/bundle/am/final.raw")
+    cfg = Tacotron2Config.from_hparams(create_hparams_stage())
+    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(
+        SEED + 7))
+    params["decoder"]["gate_layer"]["bias"].fill_(-10.0)
+    save_reference_tacotron2_checkpoint(f"{tmp}/tacotron2.pt", params,
+                                        state, cfg)
+    write_waveglow_pt(f"{tmp}/waveglow.pt", SEED + 9)
+    Path(f"{tmp}/wavs").mkdir()
+    wavs = write_wavs(f"{tmp}/wavs")
+    log(f"synthesis inputs written in {time.time() - t0:.2f} s")
+    return f"{tmp}/tacotron2.pt", f"{tmp}/waveglow.pt", wavs
+
+
+def check_binary_am(tmp, wav):
+    """The binary AM against the text AM it was written from: the same
+    arrays, and equal PPGs on the card for one wav.  Returns the
+    dependencies on the binary AM."""
+    from fac_via_ppg_torch.frontend import ppg as ppg_mod
+
+    feats = {k: f"{tmp}/bundle/feats/{v}" for k, v in (
+        ("lda_path", "final.mat"), ("reduce_dim_path", "reduce_dim.mat"),
+        ("splice_opts_path", "splice_opts"))}
+    text = ppg_mod.DependenciesPPG(
+        nnet_path=f"{tmp}/bundle/am/final.raw.txt", **feats)
+    binary = ppg_mod.DependenciesPPG(
+        nnet_path=f"{tmp}/bundle/am/final.raw", **feats)
+    n_arrays = 0
+    for name, comp in text.nnet.components.items():
+        other = binary.nnet.components[name].attrs
+        for key, val in comp.attrs.items():
+            if isinstance(val, np.ndarray):
+                n_arrays += 1
+                if not np.array_equal(other[key], val):
+                    raise AssertionError(f"binary AM differs at {name}.{key}")
+    a = ppg_mod.get_ppg(wav, text, device="cuda")
+    b = ppg_mod.get_ppg(wav, binary, device="cuda")
+    if a.shape[1] != 5816 or not np.isfinite(a).all() \
+            or not np.array_equal(a, b):
+        raise AssertionError("binary and text AMs give different PPGs")
+    log(f"binary AM: {n_arrays} arrays equal to the text AM's; PPGs "
+        f"{a.shape} on the card equal")
+    return binary
+
+
+def check_synth_wavs(paths, hop):
+    from scipy.io import wavfile
+
+    for path in paths:
+        sr, wav = wavfile.read(path)
+        if sr != 16000 or wav.dtype != np.int16 \
+                or len(wav) != SYNTH_FRAMES * hop:
+            raise AssertionError(f"bad wav {path}: {sr} Hz {wav.dtype} "
+                                 f"{len(wav)} vs {SYNTH_FRAMES} * {hop}")
+        if wav.std() == 0:
+            raise AssertionError(f"constant wav {path}")
+
+
+def run_synthesis(wl, wf, tmp):
+    """The synthesis CLI in-process, as a user runs it, on the binary AM
+    (supplied in place of the default bundle, as the CLI's tests do):
+    runs (a)-(e).  Every kernel count is set to 0 just before each run and
+    read just after."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.scripts import generate_synthesis as gs
+
+    wg_cfg = WaveGlowConfig()
+    n_layers = wg_cfg.n_flows * wg_cfg.wn_n_layers    # 96
+    t2_pt, wg_pt, wavs = write_synth_inputs(tmp)
+    deps = check_binary_am(tmp, wavs[0])
+    base = ["--ppg2mel_model", t2_pt, "--waveglow_model", wg_pt]
+    wav_dir = str(Path(wavs[0]).parent)
+    runs = {"a_staged": [wavs[0]], "b_fused": [wavs[0], "--fused"],
+            "c_batch": [wav_dir, "--batch_size", str(SYNTH_BATCH)],
+            "d_int8": [wav_dir, "--batch_size", str(SYNTH_BATCH),
+                       "--cond_impl", "int8"],
+            "e_auto": [wav_dir, "--batch_size", str(SYNTH_BATCH),
+                       "--cond_impl", "auto"]}
+    default_deps = gs.ppg_mod.DependenciesPPG
+    gs.ppg_mod.DependenciesPPG = lambda: deps
+    out = {}
+    try:
+        for name, extra in runs.items():
+            wl.launches = wf.launches = 0
+            t0 = time.time()
+            summary = gs.main(base + ["--output_dir", f"{tmp}/{name}",
+                                      "--teacher_utterance_path"] + extra)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            res = {"wall_s": wall, "wavs": len(summary["outputs"]),
+                   "cond_impl": summary["cond_impl"],
+                   "wn_layer_launches": wl.launches,
+                   "wn_flow_launches": wf.launches,
+                   "batches": summary["batches"]}
+            want = 1 if name[0] in "ab" else len(wavs)
+            if res["wavs"] != want:
+                raise AssertionError(f"{name}: {res['wavs']} wavs, not "
+                                     f"{want}")
+            # every route decodes all 1000 steps; the staged route's
+            # denoiser keeps the length too
+            check_synth_wavs(summary["outputs"], 160)
+            for b in summary["batches"]:
+                if summary["cond_impl"] == "int8":
+                    ok = (b["wn_flow_launches"] == wg_cfg.n_flows
+                          and b["wn_layer_launches"] == 0)
+                else:
+                    ok = b["wn_layer_launches"] >= n_layers
+                if not ok:
+                    raise AssertionError(f"{name}: kernel launches {b}")
+            if name == "e_auto":
+                res["calibration_snr_db"] = summary["calibration_snr_db"]
+                if res["calibration_snr_db"] is None:
+                    raise AssertionError("auto printed no decision")
+            if name == "c_batch":
+                res["audio_s_per_wall_s"] = summary["audio_s"] / wall
+            log(f"synth {name}: {json.dumps(res)}")
+            out[name] = res
+        prof = profile_synth_batch(t2_pt, wg_pt, deps, wavs)
+    finally:
+        gs.ppg_mod.DependenciesPPG = default_deps
+    return out, prof
+
+
+def profile_synth_batch(t2_pt, wg_pt, deps, wavs):
+    """One batch of run (c) under the profiler: FusedSynthesizer as the
+    CLI builds it (f32 WaveGlow, max_frames 1000), after one warm-up."""
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        WaveGlowConfig,
+        create_hparams_stage,
+    )
+    from fac_via_ppg_torch.eval.fused import FusedSynthesizer
+    from fac_via_ppg_torch.utils.inference import (
+        load_tacotron2_model,
+        load_waveglow_model,
+    )
+
+    cfg, wg_cfg = Tacotron2Config.from_hparams(create_hparams_stage()), \
+        WaveGlowConfig()
+    synth = FusedSynthesizer(
+        cfg, *load_tacotron2_model(t2_pt, cfg), wg_cfg,
+        load_waveglow_model(wg_pt, wg_cfg), deps=deps, serving_dtype=None,
+        max_frames=cfg.max_decoder_steps, device="cuda")
+    pairs = [synth.featurize(p) for p in wavs[:SYNTH_BATCH]]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+
+    def batch():
+        synth.collect_feature_pairs(synth.launch_feature_pairs(pairs, gen))
+
+    batch()
+    return profile_run(batch)
 
 
 def flow_bound(B, T, n_half, dtype, C=256, L=8):
@@ -871,6 +1113,26 @@ def main():
         "int_mm_rows_bit_equal": int_mm_rows}))
     flow_t = time_flow_kernel(wf)
     f_ms, f_plain_ms, f_bound_ms, f_bound_by = flow_t[torch.bfloat16]
+    f32_synth = time_f32_at_synth(wl, wf)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        synth_runs, synth_prof = run_synthesis(wl, wf, tmp)
+    log("synth profile: " + json.dumps(synth_prof))
+    c = synth_runs["c_batch"]
+    log("synth: " + json.dumps({
+        "card": card, "batch": SYNTH_BATCH, "frames": SYNTH_FRAMES,
+        "wall_s": {k: r["wall_s"] for k, r in synth_runs.items()},
+        "c_audio_s_per_wall_s": c["audio_s_per_wall_s"],
+        "c_device_s_per_batch": [b["device_s"] for b in c["batches"]],
+        "d_device_s_per_batch": [b["device_s"] for b in
+                                 synth_runs["d_int8"]["batches"]],
+        "e_cond_impl": synth_runs["e_auto"]["cond_impl"],
+        "e_calibration_snr_db": synth_runs["e_auto"]["calibration_snr_db"],
+        "launches": {k: [r["wn_layer_launches"], r["wn_flow_launches"]]
+                     for k, r in synth_runs.items()}}))
+    synth_launches = {
+        name: sum(r[f"{name}_launches"] for r in synth_runs.values())
+        for name in ("wn_layer", "wn_flow")}
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
@@ -881,6 +1143,8 @@ def main():
         "max_abs_err_bf16": max_err[torch.bfloat16],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "ms_f32": ms32,
+        **f32_synth["wn_layer"],
+        "launches_synth": synth_launches["wn_layer"],
         **layer_res, "library_ms": None}, {
         "name": "wn_flow", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_flow.cu",
@@ -891,6 +1155,8 @@ def main():
         "max_abs_err_bf16": flow_err[torch.bfloat16],
         "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": f_bound_ms,
         "bound_by": f_bound_by, "ms_f32": flow_t[torch.float32][0],
+        **f32_synth["wn_flow"],
+        "launches_synth": synth_launches["wn_flow"],
         **flow_res, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

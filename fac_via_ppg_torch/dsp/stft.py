@@ -1,4 +1,5 @@
-"""STFT / iSTFT (torch), the port of fac_via_ppg_tpu/dsp/stft.py.
+"""STFT / iSTFT and the mel-spectrogram front end (torch), the port of
+fac_via_ppg_tpu/dsp/stft.py.
 
 Numerics follow the reference (src/common/stft.py:44-143), which computes
 the STFT as a conv1d against a windowed Fourier basis on a reflect-padded
@@ -8,13 +9,20 @@ signal; here as framing + a real FFT, which is the same arithmetic:
   inverse:    y = OLA_k(window * irfft(mag_k * e^{i phase_k})) / wss
               trimmed by n_fft//2 on both sides, wss = window sum-square
               envelope (reference src/common/audio_processing.py:39-88).
+  mel:        log(clip(mel_basis @ |S|, 1e-5)), the projection one matmul
+              (reference src/common/layers.py:74-112).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fac_via_ppg_torch.dsp.mel import mel_filterbank
 
 _TINY_F32 = float(np.finfo(np.float32).tiny)
 
@@ -76,17 +84,26 @@ class STFT:
         return torch.as_tensor(self.padded_window, dtype=torch.float32,
                                device=like.device)
 
-    def transform(self, x: torch.Tensor):
-        """(B, T) waveform -> (magnitude, phase), each (B, n_bins, n_frames)."""
+    def _spectrum(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T) -> (B, n_frames, n_bins) complex, on the reflect-padded
+        signal."""
         half = self.filter_length // 2
         x = F.pad(x[:, None, :], (half, half), mode="reflect")[:, 0]
         frames = x.unfold(-1, self.filter_length, self.hop_length)
-        spec = torch.fft.rfft(frames * self._window(x), n=self.filter_length,
+        return torch.fft.rfft(frames * self._window(x), n=self.filter_length,
                               dim=-1)
+
+    def transform(self, x: torch.Tensor):
+        """(B, T) waveform -> (magnitude, phase), each (B, n_bins, n_frames)."""
+        spec = self._spectrum(x)
         real, imag = spec.real.float(), spec.imag.float()
         magnitude = torch.sqrt(real ** 2 + imag ** 2)
         phase = torch.atan2(imag, real)
         return magnitude.transpose(1, 2), phase.transpose(1, 2)
+
+    def magnitude(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T) waveform -> magnitude (B, n_bins, n_frames), no phase."""
+        return torch.abs(self._spectrum(x)).float().transpose(1, 2)
 
     def inverse(self, magnitude: torch.Tensor,
                 phase: torch.Tensor) -> torch.Tensor:
@@ -109,3 +126,59 @@ class STFT:
             out = torch.where(safe, out / torch.where(safe, wss, 1.0), out)
         half = self.filter_length // 2
         return out[:, None, half:-half]
+
+
+def dynamic_range_compression(x: torch.Tensor, C: float = 1.0,
+                              clip_val: float = 1e-5) -> torch.Tensor:
+    """log(clip(x) * C)  (reference audio_processing.py:110-116)."""
+    return torch.log(torch.clamp(x, min=clip_val) * C)
+
+
+def dynamic_range_decompression(x: torch.Tensor,
+                                C: float = 1.0) -> torch.Tensor:
+    return torch.exp(x) / C
+
+
+class TacotronSTFT:
+    """Waveform -> log-mel spectrogram (reference src/common/layers.py:74-112):
+    reflect pad -> frame -> rFFT -> |.| -> mel matmul -> log compression."""
+
+    def __init__(self, filter_length: int = 1024, hop_length: int = 256,
+                 win_length: int = 1024, n_mel_channels: int = 80,
+                 sampling_rate: int = 22050, mel_fmin: float = 0.0,
+                 mel_fmax: float = 8000.0):
+        self.n_mel_channels = n_mel_channels
+        self.sampling_rate = sampling_rate
+        self.stft_fn = STFT(filter_length, hop_length, win_length, "hann")
+        self.mel_basis = mel_filterbank(sampling_rate, filter_length,
+                                        n_mel_channels, mel_fmin, mel_fmax)
+
+    def spectral_normalize(self, magnitudes):
+        return dynamic_range_compression(magnitudes)
+
+    def spectral_de_normalize(self, magnitudes):
+        return dynamic_range_decompression(magnitudes)
+
+    def mel_spectrogram(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, T) in [-1, 1] -> (B, n_mel_channels, n_frames) log-mel, on
+        y's device."""
+        mag = self.stft_fn.magnitude(y)
+        basis = torch.as_tensor(self.mel_basis, device=y.device)
+        return dynamic_range_compression(torch.matmul(basis, mag))
+
+
+def griffin_lim(magnitudes: torch.Tensor, stft_fn: STFT, n_iters: int = 30,
+                generator: Optional[torch.Generator] = None,
+                angles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Griffin-Lim phase reconstruction (reference audio_processing.py:91-107).
+
+    The initial phases are uniform in [-pi, pi) from `generator`, or the
+    given `angles` (B, n_bins, n_frames)."""
+    if angles is None:
+        angles = (torch.rand(magnitudes.shape, generator=generator,
+                             device=magnitudes.device) * 2 - 1) * math.pi
+    signal = stft_fn.inverse(magnitudes, angles)[:, 0, :]
+    for _ in range(n_iters):
+        _, angles = stft_fn.transform(signal)
+        signal = stft_fn.inverse(magnitudes, angles)[:, 0, :]
+    return signal

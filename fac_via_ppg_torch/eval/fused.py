@@ -6,7 +6,7 @@ round trip between stages:
 
     nnet3 AM forward -> batched autoregressive Tacotron2 decode (per-sequence
     gate stop) -> log(1e-5) silence after each stop -> WaveGlow inverse (WN
-    layers on the hand-written kernel) -> STFT bias denoiser -> int16 PCM
+    layers on a hand-written kernel) -> STFT bias denoiser -> int16 PCM
 
 Host featurization (MFCC -> CMN -> splice +-3 -> LDA, numpy) is `featurize`.
 The decoder's stop is the only value the host reads mid-program (once per
@@ -16,6 +16,11 @@ step, to end the loop); everything else stays on the card until
 Only WaveGlow runs in `serving_dtype`, with its 1x1 inverses kept f32; the
 AM and Tacotron2 stay f32.  The denoiser's bias spectrum comes from the
 un-cast (f32) vocoder, as in the JAX package.
+
+WaveGlow's coupling nets run on the WN layer kernel (`wn_layer`, one
+launch per layer) with the dense cond projection.  With
+`cond_impl="int8"` they run on the whole-net flow kernel (`wn_flow`, one
+launch per flow), the kernel that takes the int8 cond projection.
 
 Randomness comes from a torch.Generator (the JAX package's `key`).  Two
 hooks replace it with given draws, for tests against the JAX package:
@@ -39,6 +44,8 @@ from fac_via_ppg_torch.models.denoiser import Denoiser
 from fac_via_ppg_torch.models.tacotron2 import tacotron2_inference_batched
 from fac_via_ppg_torch.models.waveglow import (
     cast_params,
+    pack_waveglow_flow,
+    pack_waveglow_int8cond,
     pack_waveglow_layer,
     waveglow_infer,
 )
@@ -64,14 +71,60 @@ class FusedSynthesizer:
         max_frames: int = 1000,
         feat_bucket: int = 64,
         pad_to_grid: bool = True,
+        cond_impl: str = "dense",
+        calibration_mel=None,
+        snr_budget_db: Optional[float] = None,
         device=None,
     ):
         """Parameters are the port's (`weights.py` converts the JAX
         package's); they are moved to `device` (None means "cuda").
 
         `deps` needs `.nnet` (an Nnet3) and `.lda`; the default
-        DependenciesPPG() generates the substitute bundle on first use."""
+        DependenciesPPG() generates the substitute bundle on first use.
+
+        `cond_impl="int8"` runs the vocoder's stacked cond projections as
+        int8 matmuls (models/waveglow.py pack_waveglow_int8cond), on the
+        flow kernel.  Lossy.
+
+        `cond_impl="auto"` gates the lossy mode: at start-up the bf16+int8
+        path's worst-utterance SNR against f32-dense is measured on
+        `calibration_mel`, a small (B, n_mel, F) batch from the
+        deployment's own corpus (eval/int8_snr.calibration_mel_from_wavs),
+        and serving proceeds as "int8" only if it meets `snr_budget_db`
+        (default eval/int8_snr.DEFAULT_SNR_BUDGET_DB), else as "dense".
+        The decision and the SNR are `.cond_impl` / `.calibration_snr_db`
+        (`.requested_cond_impl` keeps what was asked)."""
         self.device = dev = resolve_device(device)
+        wg_params = move(waveglow_params, dev)
+        self.requested_cond_impl = cond_impl
+        self.calibration_snr_db = None
+        self.snr_budget_db = None
+        if cond_impl == "auto":
+            from fac_via_ppg_torch.eval.int8_snr import (
+                DEFAULT_SNR_BUDGET_DB,
+                select_cond_impl,
+            )
+
+            if calibration_mel is None:
+                raise ValueError(
+                    "cond_impl='auto' needs calibration_mel: a small "
+                    "(B, n_mel, F) mel batch from the deployment's own "
+                    "corpus (eval/int8_snr.calibration_mel_from_wavs)")
+            budget = (DEFAULT_SNR_BUDGET_DB if snr_budget_db is None
+                      else float(snr_budget_db))
+            # gate on the un-cast params, before the serving cast below,
+            # on the flow kernel that serves int8
+            cond_impl, worst = select_cond_impl(
+                wg_cfg, wg_params, torch.as_tensor(calibration_mel), budget,
+                sigma=float(sigma), wn_impl="flow")
+            self.calibration_snr_db = worst
+            self.snr_budget_db = budget
+            print(f"cond_impl=auto: bf16+int8 worst-utterance SNR "
+                  f"{worst:.1f} dB vs budget {budget:.1f} dB -> serving "
+                  f"cond_impl='{cond_impl}'")
+        if cond_impl not in ("dense", "int8"):
+            raise ValueError(f"unknown cond_impl {cond_impl!r}")
+        self.cond_impl = cond_impl
         self.deps = deps or ppg_mod.DependenciesPPG()
         self.nnet = self.deps.nnet.to(dev)
         self.t2_cfg = dataclasses.replace(t2_cfg, max_decoder_steps=max_frames)
@@ -88,7 +141,9 @@ class FusedSynthesizer:
         # measured on the card
         self.pad_to_grid = bool(pad_to_grid)
 
-        wg_params = move(waveglow_params, dev)
+        # int8 weights from the un-cast params, as in the JAX package
+        self._packed_cond = (pack_waveglow_int8cond(wg_cfg, wg_params)
+                             if cond_impl == "int8" else None)
         # bias spectrum once, from the f32 vocoder
         den = Denoiser(wg_cfg, wg_params)
         self._stft = den.stft
@@ -96,7 +151,10 @@ class FusedSynthesizer:
         if serving_dtype is not None:
             wg_params = cast_params(wg_params, serving_dtype)
         self.wg_params = wg_params
-        self._packed_wn = pack_waveglow_layer(wg_cfg, wg_params)
+        self._wn_impl = "flow" if cond_impl == "int8" else "layer"
+        pack = (pack_waveglow_flow if self._wn_impl == "flow"
+                else pack_waveglow_layer)
+        self._packed_wn = pack(wg_cfg, wg_params)
 
     def _device_program_batch(self, feats, n_frames, generator,
                               dropout_masks=None, noise=None):
@@ -114,7 +172,9 @@ class FusedSynthesizer:
         audio = waveglow_infer(
             self.wg_cfg, self.wg_params,
             mel_in.to(self.serving_dtype or torch.float32), self.sigma,
-            generator, noise=noise, packed_wn=self._packed_wn,
+            generator, noise=noise, wn_impl=self._wn_impl,
+            packed_wn=self._packed_wn, cond_impl=self.cond_impl,
+            packed_cond=self._packed_cond,
         ).float()                                        # (B, M*hop)
         spec, angles = self._stft.transform(audio)
         spec = torch.clamp(spec - self._bias * self.strength, min=0.0)

@@ -5,21 +5,35 @@ helpers).
 `select_cond_impl` runs the vocoder twice on a calibration batch with the
 same noise, f32 with dense cond (the reference) and bf16 with int8 cond
 (the serving mode), and keeps int8 only when the worst utterance's SNR
-meets the budget.  The ladder tool of the JAX package (`run_ladder`, its
-CLI) is not ported yet.
+meets the budget.  `calibration_mel_from_wavs` makes that batch from a
+deployment's own wavs.  The ladder tool of the JAX package (`run_ladder`,
+its CLI) is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+from typing import Optional
+
 import numpy as np
 import torch
+from scipy.io import wavfile
 
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+from fac_via_ppg_torch.dsp.stft import TacotronSTFT
 from fac_via_ppg_torch.models.waveglow import (
     flow_channels,
     pack_waveglow_int8cond,
     waveglow_infer,
 )
+from fac_via_ppg_torch.utils.inference import get_mel
+
+
+def waveglow_config_from_json(path: str) -> WaveGlowConfig:
+    """config.json (reference waveglow/config.json schema) -> WaveGlowConfig."""
+    with open(path) as fh:
+        return WaveGlowConfig.from_dict(json.load(fh)["waveglow_config"])
+
 
 # Default worst-utterance SNR budget (dB, bf16+int8 against f32-dense) of
 # the cond_impl='auto' gate, the JAX package's value.
@@ -37,6 +51,29 @@ def stack_calibration_mels(mels, max_frames: int = 400) -> torch.Tensor:
     F = min(min(int(m.shape[-1]) for m in mels), int(max_frames))
     return torch.as_tensor(
         np.stack([np.asarray(m, np.float32)[:, :F] for m in mels]))
+
+
+def calibration_mel_from_wavs(wav_paths, cfg: WaveGlowConfig,
+                              max_utts: int = 4, max_frames: int = 400,
+                              device: Optional[torch.device] = None
+                              ) -> torch.Tensor:
+    """Calibration batch for cond_impl='auto' from deployment wavs: the
+    TacotronSTFT analysis mel of the first `max_utts` inputs (computed on
+    `device`, None meaning the CUDA card), the mel family the vocoder
+    trains on (reference mel2samp.py:61-72), so the gate measures the
+    deployment's own amplitude statistics.  Returns a CPU tensor."""
+    stft = TacotronSTFT(filter_length=1024, hop_length=cfg.hop_length,
+                        win_length=1024, sampling_rate=16000,
+                        n_mel_channels=cfg.n_mel_channels,
+                        mel_fmin=0.0, mel_fmax=8000.0)
+    mels = []
+    for p in list(wav_paths)[:max_utts]:
+        _, wav = wavfile.read(p)
+        mels.append(get_mel(wav, stft, device)[0])
+    if not mels:
+        raise ValueError("cond_impl='auto' needs at least one input wav "
+                         "to calibrate on")
+    return stack_calibration_mels(mels, max_frames)
 
 
 def matched_noise(cfg: WaveGlowConfig, batch: int, n_frames: int,

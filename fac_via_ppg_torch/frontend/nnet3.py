@@ -6,7 +6,7 @@ torch tensors on a device) and a whole utterance, or a batch of them, is
 evaluated at once: every Offset() is a clamped row-gather along time, every
 Append() a concat, every affine one matmul.
 
-Format: the nnet3 text format (what `nnet3-copy --binary=false` emits):
+Formats: the nnet3 text format (what `nnet3-copy --binary=false` emits),
 
     <Nnet3>
     input-node name=input dim=40
@@ -17,7 +17,9 @@ Format: the nnet3 text format (what `nnet3-copy --binary=false` emits):
     <NumComponents> N
     <ComponentName> l1.affine <NaturalGradientAffineComponent> ... </...>
 
-The binary format is not read by the port yet.
+and Kaldi's binary format (the reference's `final.raw`), which
+`load_nnet3` recognises by its "\\0B" header and hands to
+`nnet3_binary.read_nnet3_binary`.
 
 Descriptor grammar: node names, Offset, Append, Sum, Scale, Round, Const.
 Edge semantics match DecodableNnetSimple: context beyond the utterance is
@@ -570,23 +572,26 @@ def _read_bracket_array(ts: _TokenStream) -> np.ndarray:
 
 
 def load_nnet3(path: str) -> Nnet3:
-    """Load an nnet3 model file in the text format.
+    """Load an nnet3 model file, text or binary format.
 
-    A malformed or corrupt file raises ValueError naming the path.  A
-    binary model raises ValueError too: convert it with
-    `nnet3-copy --binary=false`."""
+    A malformed or corrupt file raises ValueError naming the path, never a
+    bare struct.error / IndexError / KeyError from inside the parse."""
     try:
         with open(path, "rb") as f:
             head = f.read(2)
-        if head == b"\x00B":
-            raise ValueError(
-                f"{path}: binary nnet3 models are not read by the port yet; "
-                "convert with `nnet3-copy --binary=false`"
-            )
-        if head.startswith(b"\x00") or not head:
-            raise ValueError(
-                f"{path}: truncated or corrupt nnet3 file (header {head!r})"
-            )
+            if head == b"\x00B":
+                from fac_via_ppg_torch.frontend.nnet3_binary import (
+                    read_nnet3_binary,
+                )
+
+                return read_nnet3_binary(f)
+            if head.startswith(b"\x00") or not head:
+                # a lone \x00 (a truncated binary header) or an empty file
+                # is not a text model: do not parse it as one
+                raise ValueError(
+                    f"{path}: truncated or corrupt nnet3 file "
+                    f"(header {head!r})"
+                )
         with open(path, "r") as f:
             # a non-UTF-8 byte raises UnicodeDecodeError, a ValueError
             net = parse_nnet3_text(f.read())

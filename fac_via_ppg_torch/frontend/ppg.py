@@ -8,8 +8,11 @@ The reference's acoustic model `data/am/final.raw` is a missing large blob;
 `DependenciesPPG` therefore points at this repo's `data/` directory, where
 a structurally identical substitute TDNN is generated on first use
 (`fac_via_ppg_torch.scripts.make_substitute_am`, the same draws as the JAX
-package's generator).  Point `nnet_path` at a real exported model
-(`nnet3-copy --binary=false`) for production use.
+package's generator).  Point `nnet_path` at a real model, the reference's
+binary `final.raw` or its text form, for production use.
+
+The TDNN forward runs on `device` (None means the CUDA card, and raises
+without one); tests pass device="cpu".
 """
 
 from __future__ import annotations
@@ -99,6 +102,48 @@ def compute_full_ppg(nnet: nnet3_mod.Nnet3, feats: np.ndarray,
     return out.cpu().numpy()[:t]
 
 
+def reduce_ppg_dim(ppgs: np.ndarray, transform: np.ndarray) -> np.ndarray:
+    """Full (T, D) PPGs -> monophone (T, d) via a dense matmul
+    (reference compute_ppg.py:73-95 densifies the sparse map the same way)."""
+    return ppgs @ transform.T
+
+
+def compute_monophone_ppg(
+    wav: np.ndarray,
+    fs: float,
+    nnet: nnet3_mod.Nnet3,
+    lda: np.ndarray,
+    transform: np.ndarray,
+    shift: float = 10,
+    dither: float = 1.0,
+    seed: int = 0,
+    device: Optional[torch.device] = None,
+) -> np.ndarray:
+    """One-stop monophone-PPG interface (reference compute_ppg.py:165-183)."""
+    feats = compute_feat_for_nnet_internal(
+        wav, fs, lda, frame_shift=shift, dither=dither, seed=seed
+    )
+    raw = compute_full_ppg(nnet, feats, device=device)
+    return reduce_ppg_dim(raw, transform)
+
+
+def compute_full_ppg_wrapper(
+    wav: np.ndarray,
+    fs: float,
+    nnet: nnet3_mod.Nnet3,
+    lda: np.ndarray,
+    shift: float = 10,
+    dither: float = 1.0,
+    seed: int = 0,
+    device: Optional[torch.device] = None,
+) -> np.ndarray:
+    """One-stop full-PPG interface (reference compute_ppg.py:186-202)."""
+    feats = compute_feat_for_nnet_internal(
+        wav, fs, lda, frame_shift=shift, dither=dither, seed=seed
+    )
+    return compute_full_ppg(nnet, feats, device=device)
+
+
 class DependenciesPPG:
     """Loads the AM / LDA / monophone-map / splice-opts resource bundle
     (reference compute_ppg.py:205-257)."""
@@ -147,3 +192,14 @@ class DependenciesPPG:
             self.left_context, self.right_context = context.groups()
         else:
             self.left_context = self.right_context = None
+
+
+def get_ppg(wav_path: str, deps: DependenciesPPG, dither: float = 1.0,
+            seed: int = 0,
+            device: Optional[torch.device] = None) -> np.ndarray:
+    """wav file -> full PPG (reference data_utils.py:55-59)."""
+    fs, wav = feat_mod.read_wav(wav_path)
+    return compute_full_ppg_wrapper(
+        wav, fs, deps.nnet, deps.lda, 10, dither=dither, seed=seed,
+        device=device,
+    )

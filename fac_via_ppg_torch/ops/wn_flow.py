@@ -183,8 +183,10 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
             cond: torch.Tensor) -> torch.Tensor:
     """One coupling net: audio_half (B, n_half, T) contiguous, cond
     (B, T, L*2C) with unit channel stride, `packed` from pack_wn_flow in
-    audio_half's dtype -> (B, 2*n_half, T).  A bf16 pack at C = 256 must
-    hold `weight_image`'s arrays, as pack_wn_flow's does."""
+    audio_half's dtype -> (B, 2*n_half, T).  On the card, bf16 at C = 256
+    runs the wgmma tile: its pack must hold `weight_image`'s arrays, as
+    pack_wn_flow's does, and cond needs batch and time strides a multiple
+    of 8 and a 16-byte aligned address."""
     if audio_half.device.type == "cpu":
         return wn_flow_plain(packed, audio_half, cond)
     if audio_half.device.type != "cuda":
@@ -223,7 +225,8 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
         args[2], args[4] = packed["w_in_img"], packed["w_rs_img"]
         # the kernel copies cond rows in 16-byte chunks
         if cond.stride(0) % 8 or cond.stride(1) % 8 or cond.data_ptr() % 16:
-            cond = cond.contiguous()
+            raise ValueError("wn_flow: cond needs batch and time strides a "
+                             "multiple of 8 and a 16-byte aligned address")
     x0, x1, skip = (torch.empty((B, T, C), dtype=dt, device=dev)
                     for _ in range(3))
     out = torch.empty((B, n_out, T), dtype=dt, device=dev)

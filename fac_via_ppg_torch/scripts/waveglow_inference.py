@@ -26,7 +26,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import time
 import warnings
@@ -37,6 +36,7 @@ from scipy.io import wavfile
 
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 from fac_via_ppg_torch.data.mel2samp import MAX_WAV_VALUE, files_to_list
+from fac_via_ppg_torch.eval.int8_snr import waveglow_config_from_json
 from fac_via_ppg_torch.models.denoiser import Denoiser
 from fac_via_ppg_torch.models.waveglow import (
     cast_params,
@@ -112,11 +112,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     if compute_dtype not in DTYPES:
         raise SystemExit(f"--compute_dtype must be one of {list(DTYPES)}")
     dev = resolve_device(device)
-    if config_path is not None:
-        with open(config_path) as fh:
-            cfg = WaveGlowConfig.from_dict(json.load(fh)["waveglow_config"])
-    else:
-        cfg = WaveGlowConfig()
+    cfg = (waveglow_config_from_json(config_path) if config_path is not None
+           else WaveGlowConfig())
     params = move(load_waveglow_model(waveglow_path, cfg), dev)
     denoiser = Denoiser(cfg, params) if denoiser_strength > 0 else None
 

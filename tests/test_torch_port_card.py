@@ -243,3 +243,48 @@ def test_flow_kernel_bf16_needs_the_weight_image(card):
     with pytest.raises(ValueError, match="weight image"):
         wf.wn_flow(packed, audio, cond)
     assert wf.launches == n0
+
+
+@pytest.mark.cuda
+def test_flow_kernel_bf16_cond_strides(card):
+    """A cond view whose strides and address the 16-byte copies can take
+    runs and matches; a time stride that is not a multiple of 8, or an
+    address off 16 bytes, raises as wn_layer does, with no copy and
+    nothing launched."""
+    packed, audio, cond = _flow(6, 2, 300, 4, torch.bfloat16, card)
+    B, T, W = cond.shape
+    wide = torch.zeros((B, T, W + 8), dtype=cond.dtype, device=card)
+    wide[:, :, :W] = cond
+    _flow_check(packed, audio, wide[:, :, :W], 3e-2)
+    odd = torch.zeros((B, T, W + 1), dtype=cond.dtype, device=card)[:, :, :W]
+    shifted = torch.zeros(B * T * W + 1, dtype=cond.dtype,
+                          device=card)[1:].view(B, T, W)
+    n0 = wf.launches
+    for bad in (odd, shifted):
+        with pytest.raises(ValueError, match="strides a multiple of 8"):
+            wf.wn_flow(packed, audio, bad)
+    assert wf.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["layer", "flow"])
+def test_f32_kernels_at_the_synthesis_length(card, kernel):
+    """f32 at B=2, T=20,000 (the synthesis CLI's 1000 frames): the flow
+    kernel's persistent grid and ping-pong buffers, and the layer kernel
+    at dilation 128, against their plain versions within 1e-4."""
+    B, T, C, L = 2, 20000, 256, 8
+    g = torch.Generator(card).manual_seed(20000)
+
+    def mk(shape, s):
+        return torch.randn(shape, generator=g, device=card) * s
+
+    if kernel == "flow":
+        packed, _, _ = _flow(7, 1, 1, 4, torch.float32, card)
+        out = _flow_check(packed, mk((B, 4, T), 1.0),
+                          mk((B, T, L * 2 * C), 0.3), 1e-4)
+        assert out.shape == (B, 8, T)
+        return
+    args = (mk((B, T, C), 0.3), mk((B, T, 2 * C), 0.3),
+            mk((3 * C, 2 * C), 0.05), mk((2 * C,), 0.1),
+            mk((C, 2 * C), 0.05), mk((2 * C,), 0.1))
+    _layer_check(args, 128, False, 1e-4)
