@@ -5,19 +5,21 @@
 
 Phases (any failure exits nonzero; there is no CPU path):
   1. build both kernels at once (csrc/wn_layer.cu, csrc/wn_flow.cu, both
-     with the shared wgmma tile csrc/wn_wgmma.cuh; one nvcc each for
-     sm_90a) and print their ptxas register / spill lines;
-  2. print the bf16 layer kernel's registers, spills (ptxas), dynamic
-     shared memory and blocks per SM; hold the WN layer kernel against
+     with the shared bf16 wgmma tile csrc/wn_wgmma.cuh and f32 SIMT tile
+     csrc/wn_simt.cuh; one nvcc each for sm_90a) and print their ptxas
+     register / spill lines;
+  2. print the bf16 and f32 layer kernels' registers, spills (ptxas),
+     dynamic shared memory and blocks per SM; hold the WN layer kernel against
      `wn_layer_plain` on the card: dilations 1, 2, 8, 128 and the last
      layer, B=2, T=1000, C=256, in f32 (TF32 off, atol 1e-4) and bf16
      (the wgmma tile with the layer's weight image, atol 3e-2); then all 8
      layers of a flow at the fused path's shapes: bf16 B=4, T=10000 (the
      served batch) and f32 B=1, T=1760 (the denoiser's bias pass);
-  3. print the bf16 flow kernel's registers, spills, dynamic shared
-     memory and blocks per SM; hold one tile's GEMM 1 of the wgmma tile
-     (its cp.async ring, weight image, swizzles and wgmma descriptors)
-     against torch.matmul (atol 1e-3); hold the whole-net flow kernel
+  3. print the bf16 and f32 flow kernels' registers, spills, dynamic
+     shared memory and blocks per SM; hold one tile's GEMM 1 of the wgmma
+     tile (its cp.async ring, weight image, swizzles and wgmma
+     descriptors) against torch.matmul (atol 1e-3), and of the f32 SIMT
+     tile (ring, ownership; atol 1e-4); hold the whole-net flow kernel
      against `wn_flow_plain`: n_half 4, 3 and 2 at B=2, T=1000, C=256, L=8
      in f32 (atol 1e-4) and bf16 (3e-2 x max(1, max|plain|)), bf16 at a
      ragged T=97; then the vocoder CLI's shape, bf16 B=8, T=10240;
@@ -41,7 +43,8 @@ Phases (any failure exits nonzero; there is no CPU path):
   7. time both kernels and their plain versions at their main path's
      shapes, with each one's bound; and both f32 forms, held against their
      plain versions, at the synthesis CLI's shape (B=8, T=20000: 8
-     requests x 1000 frames), with their f32 bounds;
+     requests x 1000 frames), with their f32 bounds and the SM clock and
+     power draw while each runs;
   8. the synthesis CLI (scripts/generate_synthesis.main) at full width:
      write the substitute bundle (5816 senones, 3 x 256) and a binary copy
      of its AM (frontend/nnet3_binary.write_nnet3_binary), and hold the
@@ -63,13 +66,15 @@ Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --time-flow CHECKOUT
     python3 chip_smoke.py --time-layer CHECKOUT
+    python3 chip_smoke.py --time-f32 CHECKOUT
 
-run only the flow kernel (at the CLI's shape) or only the layer kernel
-(bf16 at the fused batch's shape, B=4, T=10000, d=8) of the port in
-CHECKOUT (another commit unpacked with `git archive`): build it, hold it
-against its plain version and time it as phase 7 does; print one JSON
-line.  Compare two versions on one card in one call, in turns: old, new,
-new, old.
+run only the flow kernel (at the CLI's shape), only the layer kernel
+(bf16 at the fused batch's shape, B=4, T=10000, d=8), or both kernels'
+f32 forms (at the synthesis CLI's shape, B=8, T=20000; TF32 off, atol
+1e-4) of the port in CHECKOUT (another commit unpacked with `git
+archive`): build, hold against the plain versions and time as phase 7
+does; print one JSON line.  Compare two versions on one card in one
+call, in turns: old, new, new, old.
 """
 
 import argparse
@@ -131,6 +136,38 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def clock_during(fn, seconds=1.0):
+    """The card's SM clock (MHz) and power draw (W), each the median of
+    nvidia-smi's readings while `fn` runs back to back for ~`seconds`."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=60).stdout.splitlines()
+            try:
+                samples.append([float(v) for v in
+                                out[torch.cuda.current_device()].split(",")])
+            except (ValueError, IndexError):
+                pass
+
+    n = max(1, int(seconds * 1e3 / cuda_ms(fn, reps=2, warmup=1)))
+    thread = threading.Thread(target=poll)
+    thread.start()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    stop.set()
+    thread.join()
+    if not samples:
+        return "not measured", "not measured"
+    return tuple(float(np.median([s[k] for s in samples])) for k in (0, 1))
+
+
 def layer_image(wl, args):
     """The layer's weight image where `wl` runs bf16 at C = 256 on the
     wgmma tile (as pack_wn_layer stores it); a checkout from before that
@@ -161,15 +198,17 @@ def compare(wl, args, d, last, tag):
     return err
 
 
-def kernel_resources(mod, report, kernel):
-    """A wgmma kernel's ptxas registers and spills and its dynamic shared
-    memory and blocks per SM on this card."""
+def kernel_resources(mod, report, kernel, dtype=torch.bfloat16):
+    """A C = 256 kernel's ptxas registers and spills and its dynamic shared
+    memory and blocks per SM on this card: the bf16 wgmma kernel, or the
+    f32 SIMT kernel (its keys then end in _f32)."""
     regs, spill = ptxas_usage(report, kernel)
-    blocks, smem = mod.kernel_resources()
+    blocks, smem = mod.kernel_resources(dtype)
     log(f"{kernel}: {regs} registers, {spill} bytes spilled (ptxas), {smem} "
         f"bytes of dynamic shared memory, {blocks} block(s) per SM")
-    return {"registers": regs, "spill_bytes": spill, "smem_bytes": smem,
-            "blocks_per_sm": blocks}
+    sfx = "_f32" if dtype == torch.float32 else ""
+    return {f"registers{sfx}": regs, f"spill_bytes{sfx}": spill,
+            f"smem_bytes{sfx}": smem, f"blocks_per_sm{sfx}": blocks}
 
 
 def check_kernel(wl):
@@ -216,19 +255,23 @@ def build_kernels(mods):
     log(f"built {', '.join(m.LIBRARY.name for m in mods)} in "
         f"{time.time() - t0:.2f} s")
     for m, report in zip(mods, reports):
-        log(f"{m.LIBRARY.name}: " + "\n".join(
-            l for l in report.splitlines() if "registers" in l
-            or "spill" in l or "Performance" in l))
+        log(f"{m.LIBRARY.name}:")
+        for name, regs, spill in ptxas_entries(report):
+            log(f"  {name}: {regs} registers, {spill} bytes spilled")
+        for line in report.splitlines():
+            if "Performance" in line:
+                log(f"  {line.strip()}")
     return reports
 
 
-def ptxas_usage(report, kernel):
-    """(registers, spill store bytes) of `kernel` in a ptxas -v report;
-    the most of each over its instantiations."""
+def ptxas_entries(report):
+    """(mangled name, registers, spill store bytes) of every entry
+    function in a ptxas -v report."""
     lines = report.splitlines()
     found = []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
             spill = regs = None
             for nxt in lines[i + 1:i + 4]:
                 if "spill stores" in nxt:
@@ -236,7 +279,14 @@ def ptxas_usage(report, kernel):
                                 .split(",")[-1])
                 if "Used" in nxt and "registers" in nxt:
                     regs = int(nxt.split("Used")[1].split("registers")[0])
-            found.append((regs, spill))
+            found.append((name, regs, spill))
+    return found
+
+
+def ptxas_usage(report, kernel):
+    """(registers, spill store bytes) of `kernel` in a ptxas -v report;
+    the most of each over its instantiations."""
+    found = [(r, s) for name, r, s in ptxas_entries(report) if kernel in name]
     if not found:
         raise AssertionError(f"no ptxas entry for {kernel}")
     return max(r for r, _ in found), max(s for _, s in found)
@@ -288,20 +338,23 @@ def compare_flow(wf, packed, audio, cond, tag):
     return err
 
 
-def check_gemm1_tile(wf, g):
-    """One tile's GEMM 1 of the bf16 flow kernel alone (ring, image,
-    swizzles, descriptors) against torch.matmul on the same bf16 data,
-    at the first tile (d=1) and a tail tile past T (d=128): atol 1e-3,
-    the two differ only in summation order."""
+def check_gemm1_tile(wf, g, dtype=torch.bfloat16):
+    """One tile's GEMM 1 of a C = 256 flow kernel alone against
+    torch.matmul (TF32 off) on the same data, at the first tile (d=1) and
+    a tail tile past T (d=128): the bf16 wgmma tile (ring, image,
+    swizzles, descriptors; atol 1e-3) or the f32 SIMT tile (ring,
+    ownership; atol 1e-4); the two differ only in summation order."""
     T, C = 1000, 256
-    x = (torch.randn((T, C), generator=g, device="cuda") * 0.3).bfloat16()
+    tol = 1e-3 if dtype == torch.bfloat16 else 1e-4
+    x = (torch.randn((T, C), generator=g, device="cuda") * 0.3).to(dtype)
     w_in = (torch.randn((3 * C, 2 * C), generator=g, device="cuda")
-            * 0.05).bfloat16()
-    img = wf.weight_image({"w_in": w_in[None],
-                           "w_rs": w_in.new_zeros((1, C, 2 * C))})
+            * 0.05).to(dtype)
+    w = w_in if dtype == torch.float32 else wf.weight_image(
+        {"w_in": w_in[None], "w_rs": w_in.new_zeros((1, C, 2 * C))}
+    )["w_in_img"][0]
     worst = 0.0
     for t0, d in ((0, 1), (960, 128)):
-        got = wf.gemm1_tile(x, img["w_in_img"][0], t0, d)
+        got = wf.gemm1_tile(x, w, t0, d)
         torch.cuda.synchronize()
         rows = torch.arange(t0, t0 + 64, device="cuda")
         taps = []
@@ -312,22 +365,27 @@ def check_gemm1_tile(wf, g):
                                     x[t.clamp(0, T - 1)].float(), 0.0))
         err = (got - torch.matmul(torch.cat(taps, 1), w_in.float())
                ).abs().max().item()
-        log(f"wn_flow bf16 GEMM 1 tile t0={t0} d={d}: max_abs_err "
-            f"{err:.3g} (atol 1e-3)")
-        if not err <= 1e-3:
+        log(f"wn_flow {str(dtype)[6:]} GEMM 1 tile t0={t0} d={d}: "
+            f"max_abs_err {err:.3g} (atol {tol})")
+        if not err <= tol:
             raise AssertionError(f"GEMM 1 tile disagrees: {err}")
         worst = max(worst, err)
     return worst
 
 
 def check_flow_kernel(wf, report):
-    """The bf16 flow kernel's resources; its GEMM 1 tile; the flow kernel
+    """The bf16 and f32 flow kernels' resources; their GEMM 1 tiles; the
+    flow kernel
     against wn_flow_plain at n_half 4, 3, 2 (B=2, T=1000) in both dtypes,
     bf16 at a ragged T=97, then at the CLI's shape (bf16 B=8, T=10240).
     Returns the largest error of each dtype and the resources."""
     res = kernel_resources(wf, report, "wn_flow_bf16_kernel")
+    res.update(kernel_resources(wf, report, "wn_flow_f32_kernel",
+                                torch.float32))
     g = torch.Generator("cuda").manual_seed(SEED + 4)
     res["gemm1_tile_max_abs_err"] = check_gemm1_tile(wf, g)
+    res["gemm1_tile_max_abs_err_f32"] = check_gemm1_tile(wf, g,
+                                                         torch.float32)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for n_half in (4, 3, 2):
@@ -656,7 +714,9 @@ def time_f32_at_synth(wl, wf):
     plain_ms = cuda_ms(lambda: wl.wn_layer_plain(*args, dilation=8), reps=5)
     out["wn_layer"].update(zip(
         ("ms_f32_synth", "plain_ms_f32_synth", "bound_ms_f32",
-         "bound_by_f32"), (ms, plain_ms, *layer_bound(B, T, f32)[2:])))
+         "bound_by_f32", "sm_mhz_f32", "power_w_f32"),
+        (ms, plain_ms, *layer_bound(B, T, f32)[2:],
+         *clock_during(lambda: wl.wn_layer(*args, dilation=8)))))
     del args
     fargs = flow_inputs(wf, g, B, T, 4, f32)
     out["wn_flow"] = {"max_abs_err_f32_synth": compare_flow(
@@ -665,7 +725,9 @@ def time_f32_at_synth(wl, wf):
     fplain = cuda_ms(lambda: wf.wn_flow_plain(*fargs), reps=3)
     out["wn_flow"].update(zip(
         ("ms_f32_synth", "plain_ms_f32_synth", "bound_ms_f32",
-         "bound_by_f32"), (fms, fplain, *flow_bound(B, T, 4, f32)[2:])))
+         "bound_by_f32", "sm_mhz_f32", "power_w_f32"),
+        (fms, fplain, *flow_bound(B, T, 4, f32)[2:],
+         *clock_during(lambda: wf.wn_flow(*fargs)))))
     del fargs
     wl.launches, wf.launches = n_l, n_f
     for name, t in out.items():
@@ -673,7 +735,9 @@ def time_f32_at_synth(wl, wf):
             f"{t['ms_f32_synth']:.4f} ms, plain "
             f"{t['plain_ms_f32_synth']:.4f} ms, f32 bound "
             f"{t['bound_ms_f32']:.4f} ms ({t['bound_by_f32']}, "
-            f"{100 * t['bound_ms_f32'] / t['ms_f32_synth']:.2f} % of bound)")
+            f"{100 * t['bound_ms_f32'] / t['ms_f32_synth']:.2f} % of bound; "
+            f"SM clock {t['sm_mhz_f32']} MHz, {t['power_w_f32']} W while it "
+            f"runs)")
     return out
 
 
@@ -1047,6 +1111,23 @@ def time_layer_at(root):
     return 0
 
 
+def time_f32_at(root):
+    """`--time-f32`: both kernels' f32 forms of the port in checkout
+    `root`, checked against their plain versions and timed at the
+    synthesis CLI's shape (B=8, T=20000); one JSON line."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    from fac_via_ppg_torch.ops import wn_flow as wf
+    from fac_via_ppg_torch.ops import wn_layer as wl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    build_kernels((wl, wf))
+    log(json.dumps({"root": str(root), "card": card,
+                    **time_f32_at_synth(wl, wf)}))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
@@ -1055,6 +1136,9 @@ def main():
     ap.add_argument("--time-layer", metavar="CHECKOUT",
                     help="only check and time the layer kernel of the port "
                     "in CHECKOUT")
+    ap.add_argument("--time-f32", metavar="CHECKOUT",
+                    help="only check and time both kernels' f32 forms of "
+                    "the port in CHECKOUT at the synthesis CLI's shape")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1063,6 +1147,8 @@ def main():
         return time_flow_at(args.time_flow)
     if args.time_layer:
         return time_layer_at(args.time_layer)
+    if args.time_f32:
+        return time_f32_at(args.time_f32)
     try:
         from fac_via_ppg_torch.ops import wn_flow as wf
         from fac_via_ppg_torch.ops import wn_layer as wl
@@ -1077,6 +1163,8 @@ def main():
 
     reports = build_kernels((wl, wf))
     layer_res = kernel_resources(wl, reports[0], "wn_layer_bf16_kernel")
+    layer_res.update(kernel_resources(wl, reports[0], "wn_layer_f32_kernel",
+                                      torch.float32))
     max_err = check_kernel(wl)
     flow_err, flow_res = check_flow_kernel(wf, reports[1])
 

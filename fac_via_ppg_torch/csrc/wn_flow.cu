@@ -36,9 +36,25 @@
 // residual) and written once and skip read and written once, ~0.25 GB, ~75
 // us at 3.35 TB/s, ~0.6 ms per launch, under the GEMMs' time.
 //
-// f32 (wn_flow_f32), and bf16 at widths other than 256 (wn_flow_bf16_tile,
-// C % 128 == 0): the tile code of wn_tile.cuh (CUDA-core FMAs in f32, wmma
-// in bf16; one staged K tile, a f32 staging tile for the gate).
+// f32 at C = 256 (wn_flow_f32), the synthesis CLI's int8 path (12
+// launches a batch): each tile and layer on the f32 SIMT tile of
+// wn_simt.cuh (shared with the layer kernel): one pass over all 2C
+// columns, 128 f32 accumulators a thread, the gate in registers, fed by a
+// 2-stage ring (weights by cp.async, x read through L2 into registers and
+// stored K-major) that runs on across the block's tiles of a layer; the
+// last layer is a template parameter.  Its epilogue here: x' = x +
+// rs[:, :C] into the other ping-pong buffer, skip = rs[:, C:] in layer 0,
+// else skip + rs[:, C:], 16 B a thread.  At the CLI's shape (B = 8,
+// T = 20000, n_half = 4) a net does 1.32 TFLOP, 19.7 ms at 67 TFLOP/s
+// f32, against ~2.7 GB that must move (0.8 ms at 3.35 TB/s): the FMA rate
+// bounds it; every tile and layer streams ~2.1 MB of f32 weights from L2.
+// On an H100 it runs at ~57 % of that bound, held as the layer kernel is
+// (wn_simt.cuh).
+//
+// f32 and bf16 at widths other than 256 (wn_flow_f32_tile,
+// wn_flow_bf16_tile; C % 128 == 0): the tile code of wn_tile.cuh
+// (CUDA-core FMAs in f32, wmma in bf16; one staged K tile, a f32 staging
+// tile for the gate).
 //
 // bf16 (wn_flow_bf16), built for C = 256: one block of two warpgroups per
 // SM runs each tile and layer on the wgmma tile of wn_wgmma.cuh (shared
@@ -57,7 +73,7 @@
 
 #include <cooperative_groups.h>
 
-#include "wn_wgmma.cuh"
+#include "wn_simt.cuh"
 
 namespace {
 
@@ -330,6 +346,76 @@ __global__ void __launch_bounds__(THREADS, 1) wn_flow_bf16_kernel(const FlowArgs
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// f32 at C = 256: the SIMT tile of wn_simt.cuh
+
+namespace simt {
+
+// layer_tile's epilogue here: residual columns x' = x + rs into the other
+// ping-pong buffer; skip columns skip = rs in layer 0 (sum false), else
+// skip + rs.  Old values are read through L2 (other blocks wrote x).
+struct FlowEpi {
+  const float* x;
+  float* x_out;
+  float* skip;
+  bool sum;
+  __device__ bool adds(int n) const { return n < WC || sum; }
+  __device__ float4 old(size_t row, int n) const {
+    return __ldcg(reinterpret_cast<const float4*>(n < WC ? x + row * WC + n
+                                                         : skip + row * WC + n - WC));
+  }
+  __device__ float* dst(size_t row, int n) const {
+    return n < WC ? x_out + row * WC + n : skip + row * WC + n - WC;
+  }
+};
+
+// Layer l of the net over the block's tiles, on a ring started afresh.
+template <bool kLast>
+__device__ __forceinline__ void flow_layer(const FlowArgs<float>& a, int l, float (&acc)[2][8][8],
+                                           float* ring, float* acts, int n_t, int n_mine) {
+  const float* xin = (l & 1) ? a.x1 : a.x0;
+  float* xout = (l & 1) ? a.x0 : a.x1;
+  const float* w_in = a.w_in + static_cast<size_t>(l) * 3 * WC * NW;
+  // the last layer's skip-only projection sits in columns [C, 2C)
+  const float* w_rs = a.w_rs + static_cast<size_t>(l) * WC * NW + (kLast ? WC : 0);
+  Feed<kLast> feed{ring, xin, w_in, w_rs, NW, n_mine * STEPS, n_t, a.t_len, 0, 1 << l};
+  feed.start();
+  const FlowEpi epi{xin, xout, a.skip, l > 0};
+  int g = 0;
+  for (int i = 0; i < n_mine; ++i) {
+    const int tile = blockIdx.x + i * gridDim.x, b = tile / n_t;
+    layer_tile<kLast>(acc, ring, acts, g, feed, a.b_in + static_cast<size_t>(l) * NW,
+                      a.cond + b * a.cond_sb + static_cast<size_t>(l) * NW, a.cond_st,
+                      a.b_rs + static_cast<size_t>(l) * NW, 0, (tile % n_t) * TT, a.t_len,
+                      static_cast<size_t>(b) * a.t_len, epi);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) wn_flow_f32_kernel(const FlowArgs<float> a) {
+  extern __shared__ __align__(16) float smem_f[];
+  float* const ring = smem_f;
+  float* const acts = smem_f + S * STAGE;
+  cg::grid_group grid = cg::this_grid();
+  const int n_t = (a.t_len + TT - 1) / TT, n_tiles = a.B * n_t;
+  const int n_mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+
+  start_conv(a, n_t, n_tiles);
+  grid.sync();
+  float acc[2][8][8];
+  for (int l = 0; l + 1 < a.L; ++l) {
+    flow_layer<false>(a, l, acc, ring, acts, n_t, n_mine);
+    grid.sync();
+  }
+  flow_layer<true>(a, a.L - 1, acc, ring, acts, n_t, n_mine);
+
+  // the end conv stages skip rows (64 x C) in acts, which GEMM 2 read last
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  end_conv(a, n_t, n_tiles, acts, WC);
+}
+
+}  // namespace simt
+
 // Cooperative launch of `kernel` on as many blocks as fit at once (every
 // block must be resident for the grid barrier), at most one per tile.
 template <typename Args>
@@ -386,7 +472,7 @@ FlowArgs<T> flow_args(const void* audio, const void* cond, long long cond_sb, lo
 // channel stride and the given batch / time strides; biases f32, shapes as
 // in FlowArgs.
 //
-// f32 (wn_flow_f32) and bf16 at any width (wn_flow_bf16_tile), on
+// f32 (wn_flow_f32_tile) and bf16 (wn_flow_bf16_tile) at any width, on
 // wn_tile.cuh's tile: weights row-major as in FlowArgs; C % 128 == 0.
 #define WN_FLOW_TILE_ENTRY(NAME, TYPE)                                                       \
   extern "C" int NAME(const void* audio, const void* cond, long long cond_sb,               \
@@ -401,7 +487,7 @@ FlowArgs<T> flow_args(const void* audio, const void* cond, long long cond_sb, lo
     return launch(wn_flow_tile_kernel<TYPE>, a, smem_bytes<TYPE>(C), stream);               \
   }
 
-WN_FLOW_TILE_ENTRY(wn_flow_f32, float)
+WN_FLOW_TILE_ENTRY(wn_flow_f32_tile, float)
 WN_FLOW_TILE_ENTRY(wn_flow_bf16_tile, __nv_bfloat16)
 
 // bf16 on the wgmma tile: C == 256; w_in_img (L, 3C/32, 2C, 32) and w_rs_img (L, C/32, 2C, 32)
@@ -436,6 +522,43 @@ extern "C" int wn_flow_bf16_gemm1_tile(const void* x, int t_len, int t0, int d,
   if (err != cudaSuccess) return static_cast<int>(err);
   wg::gemm1_tile_kernel<<<1, THREADS, wg::RING_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), t_len, t0, d, static_cast<const bf16*>(w_in_img),
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32 on the SIMT tile: C == 256, L >= 1; weights row-major as in
+// FlowArgs; cond 16-byte aligned with strides a multiple of 4.
+extern "C" int wn_flow_f32(const void* audio, const void* cond, long long cond_sb,
+                           long long cond_st, const void* w_start, const void* b_start,
+                           const void* w_in, const void* b_in, const void* w_rs,
+                           const void* b_rs, const void* w_end, const void* b_end, void* x0,
+                           void* x1, void* skip, void* out, int B, int t_len, int C, int L,
+                           int n_half, void* stream) {
+  if (C != simt::WC || L < 1 || (cond_sb | cond_st) % 4 ||
+      reinterpret_cast<uintptr_t>(cond) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FlowArgs<float> a =
+      flow_args<float>(audio, cond, cond_sb, cond_st, w_start, b_start, w_in, b_in, w_rs, b_rs,
+                       w_end, b_end, x0, x1, skip, out, B, t_len, C, L, n_half);
+  return launch(simt::wn_flow_f32_kernel, a, simt::BLOCK_SMEM, stream);
+}
+
+// The f32 kernel's blocks per SM and dynamic shared memory.
+extern "C" int wn_flow_f32_occupancy(int* per_sm, int* smem) {
+  *smem = simt::BLOCK_SMEM;
+  return blocks_per_sm(simt::wn_flow_f32_kernel, *smem, per_sm);
+}
+
+// One tile's GEMM 1 of the f32 SIMT tile (see simt::gemm1_tile_kernel): x
+// (T, 256) f32, w_in (3C, 2C) one layer's, out (64, 512) f32.
+extern "C" int wn_flow_f32_gemm1_tile(const void* x, int t_len, int t0, int d,
+                                      const void* w_in, void* out, void* stream) {
+  constexpr int smem = simt::S * simt::STAGE * 4;
+  cudaError_t err = cudaFuncSetAttribute(simt::gemm1_tile_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  simt::gemm1_tile_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), t_len, t0, d, static_cast<const float*>(w_in),
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

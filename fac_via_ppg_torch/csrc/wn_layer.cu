@@ -31,11 +31,25 @@
 // (W_in and W_rs) from L2 into its SM, ~0.63 GB a launch at the serving
 // shape, against 0.10 GB of its own traffic.
 //
-// f32 (wn_layer_f32, the denoiser's one-off bias pass) and bf16 at other
-// widths (wn_layer_bf16_tile, C % 128 == 0): the tile code of wn_tile.cuh,
-// one block per (batch, 64-row) tile.
+// f32 at C = 256 (wn_layer_f32), the synthesis CLI's default path (96
+// launches a dense batch): the f32 SIMT tile of wn_simt.cuh, shared with
+// the flow kernel.  At the CLI's shape (B = 8, T = 20000) the layer does
+// 168 GFLOP (2.50 ms at 67 TFLOP/s f32) against 0.82 GB (0.25 ms at 3.35
+// TB/s): the FMA rate bounds it.  One persistent block of 8 warps per SM
+// walks the tiles; each tile runs both GEMMs in one pass over all 2C
+// columns, 128 f32 accumulators a thread, fed by a 2-stage ring (weights
+// by cp.async, x through registers into K-major slices) that runs on
+// across the tiles, the gate in registers, and writes audio and skip 16 B
+// a thread; the last layer is a template parameter.  Every tile streams
+// ~2.1 MB of f32 weights from L2 (5.2 GB a launch at the CLI's shape); on
+// an H100 it runs at ~62 % of the FMA bound, held by the instruction
+// stream around its accumulators, not by L2 (wn_simt.cuh).
+//
+// f32 at other widths (wn_layer_f32_tile) and bf16 at other widths
+// (wn_layer_bf16_tile), C % 128 == 0: the tile code of wn_tile.cuh, one
+// block per (batch, 64-row) tile.
 
-#include "wn_wgmma.cuh"
+#include "wn_simt.cuh"
 
 namespace {
 
@@ -150,6 +164,65 @@ __global__ void __launch_bounds__(THREADS, 1) wn_layer_bf16_kernel(const LayerAr
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// f32 at C = 256: the SIMT tile of wn_simt.cuh
+
+namespace simt {
+
+struct LayerArgs {
+  const float* x;                    // (B, T, C)
+  const float* cond;                 // (B, T, 2C), unit channel stride
+  long long cond_sb, cond_st;        // its batch and time strides
+  const float* w_in;                 // (3C, 2C) tap-stacked
+  const float* b_in;                 // (2C)
+  const float* w_rs;                 // (C, 2C), or (C, C) in the last layer
+  const float* b_rs;                 // (2C), or (C) in the last layer
+  float* audio;                      // (B, T, C), not written in the last layer
+  float* skip;                       // (B, T, C)
+  int B, t_len, d;
+};
+
+// layer_tile's epilogue here: residual columns audio = x + rs, skip
+// columns skip = rs.  Rows are (b * T + t), C floats wide.
+struct LayerEpi {
+  const float* x;
+  float* audio;
+  float* skip;
+  __device__ bool adds(int n) const { return n < WC; }
+  __device__ float4 old(size_t row, int n) const {
+    return __ldg(reinterpret_cast<const float4*>(x + row * WC + n));
+  }
+  __device__ float* dst(size_t row, int n) const {
+    return n < WC ? audio + row * WC + n : skip + row * WC + n - WC;
+  }
+};
+
+// kLast: the last layer (skip-only W_rs (C, C))
+template <bool kLast>
+__global__ void __launch_bounds__(THREADS, 1) wn_layer_f32_kernel(const LayerArgs a) {
+  extern __shared__ __align__(16) float smem_f[];
+  float* const ring = smem_f;
+  float* const acts = smem_f + S * STAGE;
+  const int n_t = (a.t_len + TT - 1) / TT, n_tiles = a.B * n_t;
+  const int n_mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+  Feed<kLast> feed{ring, a.x, a.w_in, a.w_rs, kLast ? WC : NW, n_mine * STEPS, n_t, a.t_len,
+                   0, a.d};
+  feed.start();
+
+  const LayerEpi epi{a.x, a.audio, a.skip};
+  float acc[2][8][8];
+  int g = 0;
+  for (int i = 0; i < n_mine; ++i) {
+    const int tile = blockIdx.x + i * gridDim.x, b = tile / n_t;
+    layer_tile<kLast>(acc, ring, acts, g, feed, a.b_in, a.cond + b * a.cond_sb, a.cond_st,
+                      a.b_rs, kLast ? WC : 0, (tile % n_t) * TT, a.t_len,
+                      static_cast<size_t>(b) * a.t_len, epi);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+}  // namespace simt
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each returns the first CUDA error
@@ -158,7 +231,7 @@ __global__ void __launch_bounds__(THREADS, 1) wn_layer_bf16_kernel(const LayerAr
 // time strides; biases in x's type, b_in (2C), b_rs (R); R = C in the last
 // layer, else 2C.
 //
-// f32 (wn_layer_f32) and bf16 at any width (wn_layer_bf16_tile), on
+// f32 (wn_layer_f32_tile) and bf16 (wn_layer_bf16_tile) at any width, on
 // wn_tile.cuh's tile: w_in (3C, 2C), w_rs (C, R) row-major; C % 128 == 0.
 #define WN_LAYER_TILE_ENTRY(NAME, TYPE)                                                     \
   extern "C" int NAME(const void* x, const void* cond, long long cond_sb, long long cond_st, \
@@ -169,7 +242,7 @@ __global__ void __launch_bounds__(THREADS, 1) wn_layer_bf16_kernel(const LayerAr
                              B, t_len, C, R, d, last, stream);                              \
   }
 
-WN_LAYER_TILE_ENTRY(wn_layer_f32, float)
+WN_LAYER_TILE_ENTRY(wn_layer_f32_tile, float)
 WN_LAYER_TILE_ENTRY(wn_layer_bf16_tile, __nv_bfloat16)
 
 // bf16 on the wgmma tile: C == 256; in_img (3C/32, 2C, 32) and rs_img
@@ -213,4 +286,46 @@ extern "C" int wn_layer_bf16(const void* x, const void* cond, long long cond_sb,
 extern "C" int wn_layer_bf16_occupancy(int* per_sm, int* smem) {
   *smem = wg::BLOCK_SMEM;
   return blocks_per_sm(wg::wn_layer_bf16_kernel<false>, *smem, per_sm);
+}
+
+// f32 on the SIMT tile: C == 256; w_in (3C, 2C), w_rs (C, R) row-major;
+// cond 16-byte aligned with strides a multiple of 4.  A persistent (not
+// cooperative) launch of as many blocks as are resident at once, at most
+// one per tile; each block walks its tiles.
+extern "C" int wn_layer_f32(const void* x, const void* cond, long long cond_sb,
+                            long long cond_st, const void* w_in, const void* b_in,
+                            const void* w_rs, const void* b_rs, void* audio, void* skip, int B,
+                            int t_len, int C, int R, int d, int last, void* stream) {
+  if (C != simt::WC || R != (last ? C : 2 * C) || (cond_sb | cond_st) % 4 ||
+      reinterpret_cast<uintptr_t>(cond) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(simt::LayerArgs) =
+      last ? simt::wn_layer_f32_kernel<true> : simt::wn_layer_f32_kernel<false>;
+  int blocks = 0;
+  const int err =
+      persistent_grid(kernel, simt::BLOCK_SMEM, B * ((t_len + TT - 1) / TT), &blocks);
+  if (err != 0) return err;
+  simt::LayerArgs a;
+  a.x = static_cast<const float*>(x);
+  a.cond = static_cast<const float*>(cond);
+  a.cond_sb = cond_sb;
+  a.cond_st = cond_st;
+  a.w_in = static_cast<const float*>(w_in);
+  a.b_in = static_cast<const float*>(b_in);
+  a.w_rs = static_cast<const float*>(w_rs);
+  a.b_rs = static_cast<const float*>(b_rs);
+  a.audio = static_cast<float*>(audio);
+  a.skip = static_cast<float*>(skip);
+  a.B = B;
+  a.t_len = t_len;
+  a.d = d;
+  kernel<<<blocks, THREADS, simt::BLOCK_SMEM, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 SIMT kernel's blocks per SM and dynamic shared memory (its form
+// for the layers before the last).
+extern "C" int wn_layer_f32_occupancy(int* per_sm, int* smem) {
+  *smem = simt::BLOCK_SMEM;
+  return blocks_per_sm(simt::wn_layer_f32_kernel<false>, *smem, per_sm);
 }

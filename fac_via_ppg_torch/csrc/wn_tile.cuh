@@ -1,4 +1,8 @@
-// Tile machinery shared by the WN kernels (wn_layer.cu, wn_flow.cu).
+// Tile machinery shared by the WN kernels (wn_layer.cu, wn_flow.cu): at
+// C = 256 bf16 runs wn_wgmma.cuh's tile and f32 wn_simt.cuh's; this tile
+// runs both types at the other widths (C % 128 == 0).  Its host helpers
+// (blocks_per_sm, persistent_grid) and the constants TT and THREADS serve
+// all three.
 //
 // One block of THREADS threads computes one WN layer for a tile of TT time
 // rows, channels-last:

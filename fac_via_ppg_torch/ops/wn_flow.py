@@ -34,9 +34,17 @@ are not needed: this function takes unpadded audio and returns unpadded
 output.  The three (B, T, C) buffers (126 MB in bf16 at the serving shape)
 do not fit the 50 MB L2: ~0.25 GB a layer goes to device memory.
 
-The f32 form, and the bf16 form at widths other than 256 (C % 128 == 0),
-run the tile code of `csrc/wn_tile.cuh` (shared with the WN layer
-kernel).  The bf16 form at C = 256, the vocoder's, runs each tile and
+The f32 form at C = 256, the synthesis CLI's int8 path (12 launches a
+batch at B = 8, T = 20000: 1.32 TFLOP, 19.7 ms at 67 TFLOP/s f32, bound by
+the FMA rate), runs each tile and layer on the f32 SIMT tile of
+`csrc/wn_simt.cuh`, shared with the WN layer kernel: 128 f32 accumulators
+a thread over all 2C columns in one pass, the gate in registers, a
+2-stage ring over the plain row-major weights (cp.async) and x (through
+registers, K-major), the last layer a template parameter (~57 % of its
+FMA bound on an H100); cond needs batch and time strides a multiple of 4 and
+a 16-byte aligned address.  f32 and bf16 at widths other than 256
+(C % 128 == 0) run the tile code of `csrc/wn_tile.cuh` (shared with the
+WN layer kernel).  The bf16 form at C = 256, the vocoder's, runs each tile and
 layer on the wgmma tile of `csrc/wn_wgmma.cuh`, shared with the WN layer
 kernel: both GEMMs on wgmma with f32 accumulators in registers; each of
 two warpgroups owns all 64 rows and 128 tanh columns plus the 128 sigmoid
@@ -66,6 +74,7 @@ from fac_via_ppg_torch.ops.cuda_lib import CudaLibrary
 from fac_via_ppg_torch.ops.wn_image import KC, KERNEL_C, weight_image
 from fac_via_ppg_torch.ops.wn_layer import (
     check,
+    check_cond_chunks,
     check_dense,
     pack_in_weight,
     wn_layer_plain,
@@ -75,8 +84,10 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _pi = ctypes.POINTER(ctypes.c_int)
 _FLOW = [_p, _p, _ll, _ll] + [_p] * 12 + [_i] * 5 + [_p]
 _LIB = CudaLibrary("wn_flow", {
-    "wn_flow_f32": _FLOW, "wn_flow_bf16": _FLOW, "wn_flow_bf16_tile": _FLOW,
+    "wn_flow_f32": _FLOW, "wn_flow_f32_tile": _FLOW, "wn_flow_bf16": _FLOW,
+    "wn_flow_bf16_tile": _FLOW, "wn_flow_f32_occupancy": [_pi, _pi],
     "wn_flow_bf16_occupancy": [_pi, _pi],
+    "wn_flow_f32_gemm1_tile": [_p, _i, _i, _i, _p, _p, _p],
     "wn_flow_bf16_gemm1_tile": [_p, _i, _i, _i, _p, _p, _p]})
 LIBRARY = _LIB.library
 build = _LIB.build
@@ -84,28 +95,37 @@ build = _LIB.build
 # Kernel launches since the last reset (the caller sets it to 0).
 launches = 0
 
-def kernel_resources() -> tuple:
-    """The bf16 kernel's (blocks per SM, dynamic shared memory bytes) on
-    the current card."""
-    return _LIB.occupancy("wn_flow_bf16_occupancy")
+def kernel_resources(dtype=torch.bfloat16) -> tuple:
+    """The C = 256 kernel's (blocks per SM, dynamic shared memory bytes) on
+    the current card: the bf16 wgmma kernel, or with dtype=torch.float32
+    the f32 SIMT kernel."""
+    name = "f32" if dtype == torch.float32 else "bf16"
+    return _LIB.occupancy(f"wn_flow_{name}_occupancy")
 
 
-def gemm1_tile(x: torch.Tensor, w_in_img_layer: torch.Tensor, t0: int,
+def gemm1_tile(x: torch.Tensor, w: torch.Tensor, t0: int,
                dilation: int) -> torch.Tensor:
-    """One tile's GEMM 1 through the bf16 kernel's ring and wgmma path
-    alone (a check of the image, swizzle and descriptors): x (T, C) bf16 on
-    the card, one layer's image (3C/KC, 2C, KC) -> (64, 2C) f32, the taps
-    [x(t-d) | x(t) | x(t+d)] of rows t0.. @ W_in, in W_in's column order."""
+    """One tile's GEMM 1 through a C = 256 kernel's ring and product path
+    alone: x (T, C) on the card, contiguous; bf16: w one layer's image
+    (3C/KC, 2C, KC) (a check of the image, swizzle and wgmma descriptors);
+    f32: w that layer's W_in (3C, 2C) (a check of the SIMT tile's ring and
+    ownership) -> (64, 2C) f32, the taps [x(t-d) | x(t) | x(t+d)] of rows
+    t0.. @ W_in, in W_in's column order."""
     T, C = x.shape
-    if x.dtype != torch.bfloat16 or C != KERNEL_C or not x.is_contiguous():
-        raise ValueError("gemm1_tile: needs contiguous bf16 x (T, 256)")
-    check("w_in_img", w_in_img_layer, (3 * C // KC, 2 * C, KC),
-          torch.bfloat16, x.device)
-    check_dense("gemm1_tile: w_in_img", w_in_img_layer)
+    if x.dtype not in (torch.float32, torch.bfloat16) or C != KERNEL_C \
+            or not x.is_contiguous():
+        raise ValueError("gemm1_tile: needs contiguous f32 or bf16 x "
+                         "(T, 256)")
+    if x.dtype == torch.bfloat16:
+        check("w_in_img", w, (3 * C // KC, 2 * C, KC), x.dtype, x.device)
+    else:
+        check("w_in", w, (3 * C, 2 * C), x.dtype, x.device)
+    check_dense("gemm1_tile: w", w)
     out = torch.empty((64, 2 * C), dtype=torch.float32, device=x.device)
-    err = _LIB.function("wn_flow_bf16_gemm1_tile")(
-        x.data_ptr(), T, t0, dilation, w_in_img_layer.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    name = "f32" if x.dtype == torch.float32 else "bf16"
+    err = _LIB.function(f"wn_flow_{name}_gemm1_tile")(
+        x.data_ptr(), T, t0, dilation, w.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemm1_tile launch failed: CUDA error {err}")
     return out
@@ -183,10 +203,10 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
             cond: torch.Tensor) -> torch.Tensor:
     """One coupling net: audio_half (B, n_half, T) contiguous, cond
     (B, T, L*2C) with unit channel stride, `packed` from pack_wn_flow in
-    audio_half's dtype -> (B, 2*n_half, T).  On the card, bf16 at C = 256
-    runs the wgmma tile: its pack must hold `weight_image`'s arrays, as
-    pack_wn_flow's does, and cond needs batch and time strides a multiple
-    of 8 and a 16-byte aligned address."""
+    audio_half's dtype -> (B, 2*n_half, T).  On the card at C = 256, cond
+    needs batch and time strides a multiple of 16 bytes and a 16-byte
+    aligned address, and bf16 runs the wgmma tile: its pack must hold
+    `weight_image`'s arrays, as pack_wn_flow's does."""
     if audio_half.device.type == "cpu":
         return wn_flow_plain(packed, audio_half, cond)
     if audio_half.device.type != "cuda":
@@ -211,9 +231,12 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
         check_dense(f"wn_flow: {name}", packed[name])
     check_dense("wn_flow: audio_half", audio_half)
     args = [packed[name] for name in shapes]
-    symbol = "wn_flow_f32" if dt == f32 else "wn_flow_bf16_tile"
-    if dt == torch.bfloat16 and C == KERNEL_C:
-        symbol = "wn_flow_bf16"
+    name = "f32" if dt == f32 else "bf16"
+    symbol = f"wn_flow_{name}_tile"
+    if C == KERNEL_C:
+        symbol = f"wn_flow_{name}"
+        check_cond_chunks("wn_flow", cond)
+    if symbol == "wn_flow_bf16":
         if "w_in_img" not in packed:
             raise ValueError(f"wn_flow: a bf16 pack at C={KERNEL_C} needs "
                              "the kernel's weight image (pack_wn_flow, or "
@@ -223,10 +246,6 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
             check(name, packed[name], shape, dt, dev)
             check_dense(f"wn_flow: {name}", packed[name])
         args[2], args[4] = packed["w_in_img"], packed["w_rs_img"]
-        # the kernel copies cond rows in 16-byte chunks
-        if cond.stride(0) % 8 or cond.stride(1) % 8 or cond.data_ptr() % 16:
-            raise ValueError("wn_flow: cond needs batch and time strides a "
-                             "multiple of 8 and a 16-byte aligned address")
     x0, x1, skip = (torch.empty((B, T, C), dtype=dt, device=dev)
                     for _ in range(3))
     out = torch.empty((B, n_out, T), dtype=dt, device=dev)

@@ -23,9 +23,23 @@ epilogue writes audio and skip 16 bytes a thread.  Its weight slices come
 from the bf16 image of `ops/wn_image.py::weight_image` (`layer_images`;
 `pack_wn_layer` stores it with the pack, and the kernel needs it).  What
 holds it: every tile streams ~1 MB of weights from L2 into its SM (~0.63
-GB a launch at the serving shape).  f32 (the denoiser's one-off bias pass)
-and bf16 at other widths (C % 128 == 0) run the older tile of
-`csrc/wn_tile.cuh`: one block per tile, CUDA-core FMAs in f32, wmma in
+GB a launch at the serving shape).
+
+f32 at C = 256, the synthesis CLI's default path (96 launches a dense
+batch at B = 8, T = 20000: 168 GFLOP, 2.50 ms at 67 TFLOP/s f32, bound by
+the FMA rate): the f32 SIMT tile of `csrc/wn_simt.cuh`, shared with the
+flow kernel.  One persistent block of 8 warps per SM walks the tiles; each
+thread owns 8 rows x 8 tanh columns and the 8 sigmoid columns that pair
+with them (128 f32 accumulators), so both GEMMs run in one pass over all
+2C columns and the gate runs in registers; a 2-stage ring feeds the K
+steps (weights by 16-byte cp.async, x 16 bytes a thread through registers
+into K-major slices) and runs on across the tiles; operand fragments are
+16-byte shared loads; the last layer is a template parameter.  On an H100
+it runs at ~62 % of its FMA bound.  The FMA arithmetic is the plain version's, with the biases
+and cond added first (only the order of the f32 sums differs).  cond must
+have batch and time strides a multiple of 4 and a 16-byte aligned
+address.  f32 and bf16 at other widths (C % 128 == 0) run the older tile
+of `csrc/wn_tile.cuh`: one block per tile, CUDA-core FMAs in f32, wmma in
 bf16.  Taps read zero outside [0, T), which is the conv's zero padding, so
 every dilation runs in the kernel and the caller pads and re-masks
 nothing.
@@ -49,8 +63,10 @@ _p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _pi = ctypes.POINTER(ctypes.c_int)
 _LAYER = [_p, _p, _ll, _ll, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p]
 _LIB = CudaLibrary("wn_layer", {
-    "wn_layer_f32": _LAYER, "wn_layer_bf16_tile": _LAYER,
-    "wn_layer_bf16": _LAYER, "wn_layer_bf16_occupancy": [_pi, _pi]})
+    "wn_layer_f32": _LAYER, "wn_layer_f32_tile": _LAYER,
+    "wn_layer_bf16_tile": _LAYER, "wn_layer_bf16": _LAYER,
+    "wn_layer_f32_occupancy": [_pi, _pi],
+    "wn_layer_bf16_occupancy": [_pi, _pi]})
 LIBRARY = _LIB.library
 build = _LIB.build
 
@@ -80,10 +96,12 @@ def layer_images(in_w, rs_w) -> dict:
     return {"in_img": img["w_in_img"], "rs_img": img["w_rs_img"]}
 
 
-def kernel_resources() -> tuple:
-    """The bf16 wgmma kernel's (blocks per SM, dynamic shared memory bytes)
-    on the current card."""
-    return _LIB.occupancy("wn_layer_bf16_occupancy")
+def kernel_resources(dtype=torch.bfloat16) -> tuple:
+    """The C = 256 kernel's (blocks per SM, dynamic shared memory bytes) on
+    the current card: the bf16 wgmma kernel, or with dtype=torch.float32
+    the f32 SIMT kernel."""
+    name = "f32" if dtype == torch.float32 else "bf16"
+    return _LIB.occupancy(f"wn_layer_{name}_occupancy")
 
 
 def wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
@@ -119,6 +137,16 @@ def check_dense(name, t):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def check_cond_chunks(name, cond):
+    """Raises unless the kernels' 16-byte copies of cond rows can take
+    `cond`: batch and time strides a multiple of 16 bytes and a 16-byte
+    aligned address."""
+    n = 16 // cond.element_size()
+    if cond.stride(0) % n or cond.stride(1) % n or cond.data_ptr() % 16:
+        raise ValueError(f"{name}: cond needs batch and time strides a "
+                         f"multiple of {n} and a 16-byte aligned address")
+
+
 def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
              last: bool = False, in_img=None, rs_img=None):
     """Returns (audio, skip), each (B, T, C) in x.dtype.
@@ -126,11 +154,11 @@ def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
     x (B, T, C) contiguous; cond (B, T, 2C), a view with unit channel
     stride is fine (the per-layer slice of the stacked cond projection);
     w_in (3C, 2C) tap-stacked [W(t-d); W(t); W(t+d)]; w_rs (C, 2C), or
-    (C, C) with last=True.  On the card, bf16 at C = 256 runs the wgmma
-    tile: it needs this layer's weight image, in_img (3C/KC, 2C, KC) and
-    rs_img (C/KC, 2C, KC) (`layer_images`; `pack_wn_layer` stores it), and
-    cond with batch and time strides a multiple of 8 and a 16-byte aligned
-    address.
+    (C, C) with last=True.  On the card at C = 256, cond needs batch and
+    time strides a multiple of 16 bytes and a 16-byte aligned address, and
+    bf16 runs the wgmma tile: it needs this layer's weight image, in_img
+    (3C/KC, 2C, KC) and rs_img (C/KC, 2C, KC) (`layer_images`;
+    `pack_wn_layer` stores it).
     """
     if x.device.type == "cpu":
         return wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, dilation, last)
@@ -154,9 +182,12 @@ def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
     for name, t in (("x", x), ("w_in", w_in), ("b_in", b_in),
                     ("w_rs", w_rs), ("b_rs", b_rs)):
         check_dense(f"wn_layer: {name}", t)
-    symbol = "wn_layer_f32" if dt == torch.float32 else "wn_layer_bf16_tile"
-    if dt == torch.bfloat16 and C == KERNEL_C:
-        symbol = "wn_layer_bf16"
+    name = "f32" if dt == torch.float32 else "bf16"
+    symbol = f"wn_layer_{name}_tile"
+    if C == KERNEL_C:
+        symbol = f"wn_layer_{name}"
+        check_cond_chunks("wn_layer", cond)
+    if symbol == "wn_layer_bf16":
         if in_img is None or rs_img is None:
             raise ValueError(f"wn_layer: bf16 at C={KERNEL_C} needs the "
                              "kernel's weight image (pack_wn_layer's "
@@ -165,10 +196,6 @@ def wn_layer(x, cond, w_in, b_in, w_rs, b_rs, dilation: int,
         check("rs_img", rs_img, (C // KC, 2 * C, KC), dt, dev)
         check_dense("wn_layer: in_img", in_img)
         check_dense("wn_layer: rs_img", rs_img)
-        # the kernel copies cond rows in 16-byte chunks
-        if cond.stride(0) % 8 or cond.stride(1) % 8 or cond.data_ptr() % 16:
-            raise ValueError("wn_layer: cond needs batch and time strides a "
-                             "multiple of 8 and a 16-byte aligned address")
         w_in, w_rs = in_img, rs_img
     fn = _LIB.function(symbol)
     skip = torch.empty((B, T, C), dtype=dt, device=dev)

@@ -1,8 +1,11 @@
 """The WN kernels (the layer kernel, the whole-net flow kernel) against
 their plain PyTorch versions, on the card; and one tile's GEMM 1 of the
 bf16 wgmma tile (its cp.async ring, weight image, swizzle and wgmma
-descriptors) against torch.matmul.  bf16 at C = 256 runs both kernels on
-that tile (csrc/wn_wgmma.cuh); f32 and other widths on wn_tile.cuh's.
+descriptors) against torch.matmul, and the same for the f32 SIMT tile.
+At C = 256 bf16 runs both kernels on the wgmma tile (csrc/wn_wgmma.cuh)
+and f32 on the SIMT tile (csrc/wn_simt.cuh); other widths on
+wn_tile.cuh's.  Tolerances: f32 atol 1e-4 (TF32 off; the same arithmetic
+summed in another order), bf16 3e-2 (x max(1, max|plain|) for a net).
 
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
@@ -288,3 +291,122 @@ def test_f32_kernels_at_the_synthesis_length(card, kernel):
             mk((3 * C, 2 * C), 0.05), mk((2 * C,), 0.1),
             mk((C, 2 * C), 0.05), mk((2 * C,), 0.1))
     _layer_check(args, 128, False, 1e-4)
+
+
+# f32: the SIMT tile at C = 256 (the synthesis CLI's default path), the
+# old tile at other widths; all within 1e-4 of the plain versions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("last", [False, True])
+@pytest.mark.parametrize("T", [65, 97])
+def test_layer_kernel_f32_ragged_time(card, T, last):
+    """Ragged T: the tail tile's rows past T (zero taps, masked stores), at
+    a dilation of 128, past both ends of the sequence."""
+    _layer_check(_layer(T + 1, 2, T, 256, last, torch.float32, card), 128,
+                 last, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("last", [False, True])
+def test_layer_kernel_f32_one_batch_row(card, last):
+    """B=1, T=1000: 16 tiles, fewer than the card's blocks."""
+    _layer_check(_layer(4, 1, 1000, 256, last, torch.float32, card), 8, last,
+                 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 3, 7])
+def test_layer_kernel_f32_strided_cond(card, layer):
+    """cond as the per-layer slice of the stacked (B, T, L*2C) projection,
+    as wn_apply_layer passes it (time stride L*2C, offset 2C*layer)."""
+    C, L, B, T = 256, 8, 2, 700
+    args = list(_layer(layer + 20, B, T, C, layer == L - 1, torch.float32,
+                       card))
+    cond_all = torch.tensor(np.random.RandomState(layer).randn(B, T, L * 2 * C)
+                            * 0.3, dtype=torch.float32, device=card)
+    args[1] = cond_all[:, :, 2 * C * layer: 2 * C * (layer + 1)]
+    assert not args[1].is_contiguous()
+    _layer_check(tuple(args), 2 ** layer, layer == L - 1, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 512])
+def test_layer_kernel_f32_other_widths(card, C):
+    """f32 at widths other than the SIMT tile's 256 runs wn_tile.cuh's
+    tile, within the same tolerance."""
+    for last in (False, True):
+        _layer_check(_layer(C + last, 2, 300, C, last, torch.float32, card),
+                     4, last, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [65, 97])
+def test_flow_kernel_f32_ragged_time(card, T):
+    """Ragged T: the tail tile's rows past T, and dilations up to 128 >= T
+    in the net's later layers."""
+    _flow_check(*_flow(T + 1, 2, T, 4, torch.float32, card), 1e-4)
+
+
+@pytest.mark.cuda
+def test_flow_kernel_f32_strided_cond(card):
+    """The net's (B, T, L*2C) cond as a view of a wider projection (time
+    stride L*2C + 4), as a caller may slice it."""
+    packed, audio, cond = _flow(12, 2, 300, 4, torch.float32, card)
+    B, T, W = cond.shape
+    wide = torch.zeros((B, T, W + 4), dtype=cond.dtype, device=card)
+    wide[:, :, 4:] = cond
+    view = wide[:, :, 4:]
+    assert not view.is_contiguous()
+    _flow_check(packed, audio, view, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 512])
+def test_flow_kernel_f32_other_widths(card, C):
+    """f32 at widths other than 256 runs wn_tile.cuh's tile."""
+    _flow_check(*_flow(C + 1, 2, 300, 4, torch.float32, card, C=C), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t0,dilation", [(0, 1), (448, 64), (960, 128)])
+def test_flow_gemm1_tile_f32_matches_matmul(card, t0, dilation):
+    """GEMM 1 of one tile of the f32 SIMT tile (its ring, the taps' zero
+    fill, the thread ownership of rows and columns) against torch.matmul
+    in f32, TF32 off: only the summation order differs (atol 1e-4)."""
+    rng = np.random.RandomState(dilation + 1)
+    T, C = 1000, 256
+    x = torch.tensor(rng.randn(T, C) * 0.3, dtype=torch.float32, device=card)
+    w_in = torch.tensor(rng.randn(3 * C, 2 * C) * 0.05, dtype=torch.float32,
+                        device=card)
+    got = wf.gemm1_tile(x, w_in, t0, dilation)
+    torch.cuda.synchronize()
+    rows = torch.arange(t0, t0 + 64, device=card)
+    taps = []
+    for j in range(3):
+        t = rows + (j - 1) * dilation
+        ok = (t >= 0) & (t < T)
+        taps.append(torch.where(ok[:, None], x[t.clamp(0, T - 1)], 0.0))
+    want = torch.matmul(torch.cat(taps, 1), w_in)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_f32_kernels_reject_cond_strides(card):
+    """An f32 cond whose time stride is not a multiple of 4, or whose
+    address is off 16 bytes, raises in both wrappers; nothing is
+    launched."""
+    args = _layer(6, 1, 128, 256, False, torch.float32, card)
+    packed, audio, cond = _flow(6, 1, 128, 4, torch.float32, card)
+    n_l, n_f = wl.launches, wf.launches
+    for width, call in ((2 * 256, lambda c: wl.wn_layer(
+            args[0], c, *args[2:], dilation=1)),
+                        (cond.shape[2], lambda c: wf.wn_flow(packed, audio,
+                                                             c))):
+        odd = torch.zeros((1, 128, width + 1), device=card)[:, :, :width]
+        shifted = torch.zeros(128 * width + 1, device=card)[1:].view(
+            1, 128, width)
+        for bad in (odd, shifted):
+            with pytest.raises(ValueError, match="strides a multiple of 4"):
+                call(bad)
+    assert (wl.launches, wf.launches) == (n_l, n_f)

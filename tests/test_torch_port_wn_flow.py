@@ -7,6 +7,11 @@ At tests/test_wn_flow_pallas.py's config (C=64, L=4, 12 flows, so n_half
 is held against it on the card by tests/test_torch_port_card.py.  The
 bf16 kernel's weight image is checked here against the pack and the JAX
 pack it comes from, exactly.
+The f32 plain net is the card's yardstick for the f32 SIMT kernel
+(64-row tiles), so it is also held against the Pallas kernel at that
+tile's row edges: T in {1, 63, 65, 130} (at T = 1 every dilation after the
+first is >= T), every net's last layer, B = 1 with a strided cond view:
+there within atol 1e-5.
 Tolerances: f32 atol 2e-5, rtol 2e-4 on one net and atol 2e-4, rtol 1e-3 on
 the 12-flow audio (the JAX tests' own: the same arithmetic summed in
 another order); bf16 against the JAX f32 result within
@@ -95,6 +100,42 @@ def test_wn_flow_plain_matches_jax_kernel(params, n_half):
     assert got.shape == (1, 2 * n_half, 100)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-4)
+
+
+@pytest.mark.parametrize("B,T,n_half,strided", [
+    (2, 1, 4, False), (2, 63, 3, False), (2, 65, 2, False), (2, 130, 4, False),
+    (1, 65, 4, True), (1, 130, 3, True)])
+def test_wn_flow_plain_matches_jax_kernel_at_tile_edges(params, B, T, n_half,
+                                                        strided):
+    """The f32 plain net (the card's yardstick) against the Pallas kernel
+    in interpret mode where the kernel's 64-row tiles end; with `strided`,
+    cond is a view of a wider projection (time stride L*2C + 8), as a
+    caller may slice it.  Within atol 1e-5."""
+    jparams, tparams = params
+    flow = FLOW_OF_N_HALF[n_half]
+    _, audio, spect = _flow_inputs(flow, B, T, seed=T + flow)
+    wn = jparams["wn"][flow]
+    t_pad, halo, _ = flow_buf_geometry(T, 128, CFG.wn_n_layers)
+    cond_w = jnp.concatenate([p["weight"] for p in wn["cond_layers"]], 0)
+    cond_b = jnp.concatenate([p["bias"] for p in wn["cond_layers"]], 0)
+    cond = conv1d_apply({"weight": cond_w, "bias": cond_b},
+                        pad_time_for_flow(jnp.asarray(spect), t_pad, halo))
+    want = wn_flow_pallas(pack_wn_flow(wn, CFG.wn_n_layers),
+                          jnp.asarray(audio), cond, CFG.wn_n_layers, T,
+                          tile=128, interpret=True)[:, :2 * n_half, :T]
+    pk = twg.pack_waveglow_flow(TCFG, tparams)[flow]
+    t_cond = (torch.matmul(torch.from_numpy(spect).transpose(1, 2),
+                           pk["cond_w"].float()) + pk["cond_b"])
+    if strided:
+        W = t_cond.shape[2]
+        wide = torch.zeros((B, T, W + 8))
+        wide[:, :, 8:] = t_cond
+        t_cond = wide[:, :, 8:]
+        assert not t_cond.is_contiguous()
+    got = twf.wn_flow(pk, torch.from_numpy(audio), t_cond)
+    assert got.shape == (B, 2 * n_half, T)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("n_half", sorted(FLOW_OF_N_HALF))

@@ -5,6 +5,10 @@ On a CPU tensor the wrapper takes `wn_layer_plain`; the kernel itself is
 held against it on the card by tests/test_torch_port_card.py.  The layer
 pack's weight image for the bf16 wgmma tile (C = 256) is checked here
 against the JAX package's Pallas pack, exactly.
+The f32 plain version is the card's yardstick for the f32 SIMT kernel
+(64-row tiles), so it is also held against the JAX package at that tile's
+row edges: T in {1, 63, 65, 130}, dilations >= T, the last layer, B = 1
+with a strided cond view.
 Tolerance: atol 1e-5 in f32 (same arithmetic, different summation order);
 bf16 WaveGlow against the JAX package's Pallas path within 2e-2 x max(1,
 max|want|), ~2.5 bf16 ulps of the largest sample (both round to bf16 in
@@ -52,6 +56,51 @@ def test_wn_layer_plain_matches_jax(dilation, last):
     for a_ref, s_ref in (
             wn_layer_reference(**j, dilation=dilation, last=last),
             wn_layer_pallas(**j, dilation=dilation, last=last, tile_t=TILE,
+                            interpret=True)):
+        np.testing.assert_allclose(s_port.numpy(), np.asarray(s_ref),
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(a_port.numpy(), np.asarray(a_ref),
+                                   atol=1e-5, rtol=0)
+
+
+# (B, T, dilation, last, tile_t of the Pallas kernel, strided cond): T at
+# the 64-row tile's edges, dilations reaching past both ends (>= T), the
+# last layer, B = 1 with cond a slice of the stacked projection
+EDGES = [(2, 1, 1, False, 1, False), (2, 1, 8, True, 1, False),
+         (2, 63, 64, False, 63, False), (2, 63, 2, True, 21, False),
+         (2, 65, 128, False, 13, False), (2, 65, 16, True, 65, False),
+         (2, 130, 8, False, 65, False), (2, 130, 128, True, 26, False),
+         (1, 65, 4, False, 65, True), (1, 130, 64, True, 130, True)]
+
+
+@pytest.mark.parametrize("B,T,dilation,last,tile_t,strided", EDGES)
+def test_wn_layer_plain_matches_jax_at_tile_edges(B, T, dilation, last,
+                                                  tile_t, strided):
+    """The f32 plain layer (the card's yardstick) against
+    wn_layer_reference and wn_layer_pallas(interpret=True) where the
+    kernel's 64-row tiles end: within atol 1e-5."""
+    rng = np.random.RandomState(1000 * T + dilation + 7 * last)
+    R = C if last else 2 * C
+
+    def mk(shape, s):
+        return (rng.randn(*shape) * s).astype(np.float32)
+
+    arrs = dict(x=mk((B, T, C), 0.3), cond=mk((B, T, 2 * C), 0.3),
+                w_in=mk((3 * C, 2 * C), 0.1), b_in=mk((2 * C,), 0.1),
+                w_rs=mk((C, R), 0.1), b_rs=mk((R,), 0.1))
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    if strided:
+        # layer 1 of a 3-layer stacked (B, T, 3*2C) projection
+        stacked = torch.from_numpy(mk((B, T, 3 * 2 * C), 0.3))
+        stacked[:, :, 2 * C:4 * C] = t["cond"]
+        t["cond"] = stacked[:, :, 2 * C:4 * C]
+        assert not t["cond"].is_contiguous()
+    j = {k: jnp.asarray(v) for k, v in arrs.items()}
+    a_port, s_port = wl.wn_layer(**t, dilation=dilation, last=last)
+    assert a_port.shape == (B, T, C) and s_port.shape == (B, T, C)
+    for a_ref, s_ref in (
+            wn_layer_reference(**j, dilation=dilation, last=last),
+            wn_layer_pallas(**j, dilation=dilation, last=last, tile_t=tile_t,
                             interpret=True)):
         np.testing.assert_allclose(s_port.numpy(), np.asarray(s_ref),
                                    atol=1e-5, rtol=0)
