@@ -58,9 +58,28 @@ Phases (any failure exits nonzero; there is no CPU path):
      (c) with --cond_impl auto; check every wav (16 kHz int16, finite, not
      constant, 1000 * hop long), >= 96 layer kernel launches per dense
      batch and 12 flow kernel launches per int8 batch; profile one batch
-     of (c).
+     of (c);
+  9. streaming, and the decode on the card (models/tacotron2.py::decode:
+     k-step chunks, each a CUDA graph replay): (a) at B=8, T_in=448,
+     M=1000 (full-width Tacotron2, seeded, one set of prenet masks), the
+     public batched entry (graphs) against the eager chunk loop (its plain
+     version), gate held off and at a gate setting that stops the 8
+     sequences at different steps (picked from the held-off run's gate
+     logits, printed); then B=1 (tacotron2_inference) the same way:
+     lengths / end step exact, mel, gate and alignments within 1e-5;
+     (b) that decode timed, eager against graph in turns, for each k of
+     CHUNK_SWEEP, and profiled; (c) StreamingAccentConverter at full width
+     (fused, batch 8, 2 front-end threads, pipeline depth 2, bf16
+     WaveGlow, max_frames 500) after prewarm() over 24 seeded wavs of
+     2-4 s: every PCM checked, >= 96 layer kernel launches a batch, the
+     native MFCC built and serving; depth 1 against depth 2 on one
+     front-end thread, bit for bit; cond_impl="int8" (12 flow kernel
+     launches a batch); the staged route over 2 wavs; the native MFCC
+     against numpy at dither 0 (1e-3); (d) the streaming CLI in-process on
+     a generated .pt pair, --fused --batch_size 8 over 8 wavs.
 Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
-`cli:`, `synth profile:` and `synth:` lines,
+`cli:`, `synth profile:`, `synth:`, `decode:`, `decode profile:`,
+`stream:` and `stream cli:` lines,
 a `{"kernels": ...}` line and, last, `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
 
@@ -98,6 +117,12 @@ N_MELS, MEL_FRAMES, CLI_BATCH = 16, (449, 512), 8
 # the synthesis CLI's batch (--batch_size 8) and its frames per request
 # (max_decoder_steps; the gate is held off)
 SYNTH_BATCH, SYNTH_FRAMES = 8, 1000
+# phase 9: the decode's shape (the synthesis CLI's batch at the longest
+# feature bucket of a 4 s request), the chunk lengths swept, the stream
+STREAM_WAVS, STREAM_BATCH = 24, 8
+DEC_B, DEC_T_IN, DEC_M = 8, 448, 1000
+CHUNK_SWEEP = (1, 8, 32, 64)
+GATE_SCALE = 1e3
 
 
 def log(*a):
@@ -426,12 +451,12 @@ def check_waveglow(wg_cfg, wg_params):
                                  f"{err}")
 
 
-def write_wavs(dirname):
+def write_wavs(dirname, n=N_WAVS, seed=SEED):
     from scipy.io import wavfile
 
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     paths = []
-    for i in range(N_WAVS):
+    for i in range(n):
         n = int(16000 * rng.uniform(2.0, 4.0))
         t = np.arange(n) / 16000.0
         f0 = rng.uniform(90, 220) * (1 + 0.05 * np.sin(2 * np.pi * 3 * t))
@@ -445,12 +470,14 @@ def write_wavs(dirname):
     return paths
 
 
-def build_synth():
+def serving_models():
+    """Phase 5's and 9's models at the full default configs: a seeded
+    Tacotron2 with its gate held off and a seeded WaveGlow in its serving
+    form."""
     from fac_via_ppg_torch.configs.hparams import (
         Tacotron2Config,
         WaveGlowConfig,
     )
-    from fac_via_ppg_torch.eval.fused import FusedSynthesizer
     from fac_via_ppg_torch.models import init_tacotron2, init_waveglow
     from fac_via_ppg_torch.models.waveglow import remove_weightnorm
 
@@ -467,7 +494,13 @@ def build_synth():
         w = wn["end"]["weight"]
         wn["end"]["weight"] = torch.randn(w.shape, generator=g) * 1e-2
     # the serving form, with the f32 1x1 inverses computed once
-    wg_params = remove_weightnorm(wg_params)
+    return t2_cfg, t2_params, t2_state, wg_cfg, remove_weightnorm(wg_params)
+
+
+def build_synth():
+    from fac_via_ppg_torch.eval.fused import FusedSynthesizer
+
+    t2_cfg, t2_params, t2_state, wg_cfg, wg_params = serving_models()
     t0 = time.time()
     synth = FusedSynthesizer(t2_cfg, t2_params, t2_state, wg_cfg, wg_params,
                              serving_dtype=torch.bfloat16,
@@ -857,32 +890,37 @@ def check_int_mm(cfg, ckpt):
     return len(idx)
 
 
+def write_t2_pt(path, seed):
+    """A seeded Tacotron2 at the hparams' defaults in the reference's .pt
+    format, gate bias -10 (every request decodes all max_decoder_steps)."""
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        create_hparams_stage,
+    )
+    from fac_via_ppg_torch.models import init_tacotron2
+    from fac_via_ppg_torch.train.export_torch import \
+        save_reference_tacotron2_checkpoint
+
+    cfg = Tacotron2Config.from_hparams(create_hparams_stage())
+    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(seed))
+    params["decoder"]["gate_layer"]["bias"].fill_(-10.0)
+    save_reference_tacotron2_checkpoint(path, params, state, cfg)
+
+
 def write_synth_inputs(tmp):
     """Phase 8's inputs: the full-width substitute bundle, its AM also in
     Kaldi's binary format; a seeded full-width Tacotron2 as the
     reference's .pt, gate bias -10 (every request decodes all
     max_decoder_steps); a seeded WaveGlow .pt; 8 seeded wavs."""
-    from fac_via_ppg_torch.configs.hparams import (
-        Tacotron2Config,
-        create_hparams_stage,
-    )
     from fac_via_ppg_torch.frontend.nnet3 import load_nnet3
     from fac_via_ppg_torch.frontend.nnet3_binary import write_nnet3_binary
-    from fac_via_ppg_torch.models import init_tacotron2
     from fac_via_ppg_torch.scripts.make_substitute_am import make_bundle
-    from fac_via_ppg_torch.train.export_torch import \
-        save_reference_tacotron2_checkpoint
 
     t0 = time.time()
     make_bundle(f"{tmp}/bundle")
     write_nnet3_binary(load_nnet3(f"{tmp}/bundle/am/final.raw.txt"),
                        f"{tmp}/bundle/am/final.raw")
-    cfg = Tacotron2Config.from_hparams(create_hparams_stage())
-    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(
-        SEED + 7))
-    params["decoder"]["gate_layer"]["bias"].fill_(-10.0)
-    save_reference_tacotron2_checkpoint(f"{tmp}/tacotron2.pt", params,
-                                        state, cfg)
+    write_t2_pt(f"{tmp}/tacotron2.pt", SEED + 7)
     write_waveglow_pt(f"{tmp}/waveglow.pt", SEED + 9)
     Path(f"{tmp}/wavs").mkdir()
     wavs = write_wavs(f"{tmp}/wavs")
@@ -1128,6 +1166,369 @@ def time_f32_at(root):
     return 0
 
 
+# ---------------------------------------------------------------- phase 9
+
+def stop_gate(logits, M, k, margin=1e-6):
+    """A gate setting at which the sequences stop at different steps.
+
+    `logits` (B, M): the gate's bias-free outputs z over all M steps with
+    the stop held off.  The decode's state never reads the gate, so a
+    gate of weight s*w and bias -s*th stops a sequence after the first
+    step at which s*z > th, the rest of the decode unchanged.  Over s in
+    {+1, -1} and thresholds between observed values, take the one with
+    the most distinct lengths, then the most that stop, then the most
+    that stop inside a chunk of k, keeping every produced s*z at least
+    `margin` from the threshold (random weights give |z| ~ 1e-3).
+    Returns (s, th, lengths)."""
+    best, B = None, logits.shape[0]
+    for sign in (1.0, -1.0):
+        u = sign * logits
+        vals = np.unique(u)
+        cands = (vals[1:] + vals[:-1]) / 2
+        for th in cands[::max(1, len(cands) // 2000)]:
+            fired = u > th
+            first = np.where(fired.any(1), fired.argmax(1) + 1, M)
+            near = min(np.abs(u[i, :first[i]] - th).min() for i in range(B))
+            if near < margin:
+                continue
+            score = (len(set(first.tolist())), int((first < M).sum()),
+                     int((first % k != 0).sum()),
+                     -abs(float(np.median(first)) - M / 2))
+            if best is None or score > best[0]:
+                best = (score, sign, float(th), first.tolist())
+    if best is None:
+        raise AssertionError("no gate setting stops the sequences apart")
+    return best[1:]
+
+
+def decode_inputs(B, T_in, M, seed):
+    """Full-width Tacotron2 (seeded, gate held off), a seeded PPG batch of
+    B x T_in (true lengths spread down to T_in / 2), and one set of
+    prenet masks drawn up front, all on the card."""
+    from fac_via_ppg_torch.configs.hparams import Tacotron2Config
+    from fac_via_ppg_torch.models import init_tacotron2
+    from fac_via_ppg_torch.models import tacotron2 as tt
+    from fac_via_ppg_torch.weights import move
+
+    cfg = Tacotron2Config(max_decoder_steps=M)
+    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(seed))
+    params["decoder"]["gate_layer"]["bias"].fill_(-10.0)
+    dev = torch.device("cuda")
+    params, state = move(params, dev), move(state, dev)
+    g = torch.Generator("cuda").manual_seed(seed)
+    ppg = torch.softmax(torch.randn((B, cfg.n_symbols, T_in), generator=g,
+                                    device=dev) * 3, dim=1)
+    lengths = torch.linspace(T_in, T_in // 2, B, device=dev).long()
+    return cfg, params, state, ppg, lengths
+
+
+def hold_decodes(tt, cfg, params, state, ppg, lengths, seed, single):
+    """The public entry (CUDA graphs) against the eager chunk loop, the
+    plain version, on the same masks: lengths / end step exact, mel, gate
+    and alignments within 1e-5.  Returns (lengths or t_end, max error,
+    the eager decode's gate logits)."""
+    with torch.no_grad():
+        g = torch.Generator("cuda").manual_seed(seed)
+        memory, processed = tt._encode(cfg, params, state, ppg, lengths, g,
+                                       None)
+        masks = tt.decoder_prenet_masks(cfg, 2, ppg.shape[0], "cuda", g)
+        mel, gate, align, lens, t_end = tt.decode(
+            cfg, params["decoder"], memory, processed, lengths, masks,
+            single, graph=False)
+        g = torch.Generator("cuda").manual_seed(seed)
+        if single:
+            out = tt.tacotron2_inference(cfg, params, state, ppg, g, lengths)
+        else:
+            out = tt.tacotron2_inference_batched(cfg, params, state, ppg,
+                                                 lengths, g)
+        torch.cuda.synchronize()
+    err = max((out[0] - mel.permute(1, 2, 0)).abs().max().item(),
+              (out[2] - gate.T).abs().max().item(),
+              (out[3] - align.permute(1, 0, 2)).abs().max().item())
+    got = [out[4]] if single else out[4].tolist()
+    want = [int(t_end)] if single else lens.tolist()
+    if got != want or not err <= 1e-5:
+        raise AssertionError(f"graph decode disagrees with eager: lengths "
+                             f"{got} vs {want}, max_abs_err {err}")
+    return want, err, gate.T.cpu().numpy()
+
+
+def check_decode_graphs():
+    """Phase 9 (a): the graph decode against the eager chunk loop at
+    B=8, T_in=448, M=1000, gate held off and at a gate setting that stops
+    the sequences at different steps; then B=1 the same way."""
+    from fac_via_ppg_torch.models import decode_graph
+    from fac_via_ppg_torch.models import tacotron2 as tt
+
+    out = {}
+    for name, B, single in (("batched", DEC_B, False), ("single", 1, True)):
+        cfg, params, state, ppg, lengths = decode_inputs(
+            B, DEC_T_IN, DEC_M, SEED + 11)
+        gate = params["decoder"]["gate_layer"]
+        replays = decode_graph.replays
+        held, err_off, logits = hold_decodes(tt, cfg, params, state, ppg,
+                                             lengths, SEED + 12, single)
+        if held != [DEC_M] * B or decode_graph.replays == replays:
+            raise AssertionError(f"{name}: held-off decode gave {held}, "
+                                 f"{decode_graph.replays - replays} replays")
+        sign, th, expect = stop_gate(logits + 10.0, DEC_M, tt.DECODE_CHUNK)
+        # in place (the captured graph reads the same addresses), scaled
+        # by GATE_SCALE so that every logit is >= 1e-3 from the threshold
+        gate["weight"].mul_(sign * GATE_SCALE)
+        gate["bias"].fill_(-th * GATE_SCALE)
+        stops, err_stop, _ = hold_decodes(tt, cfg, params, state, ppg,
+                                          lengths, SEED + 12, single)
+        if stops != expect:
+            raise AssertionError(f"{name}: stops {stops}, predicted {expect}")
+        out[name] = {"held_off_lengths": held, "stop_lengths": stops,
+                     "gate_weight_scale": sign * GATE_SCALE,
+                     "gate_bias": -th * GATE_SCALE,
+                     "max_abs_err": max(err_off, err_stop)}
+        log(f"decode graph vs eager, {name} B={B} T_in={DEC_T_IN} "
+            f"M={DEC_M}: held off {held[:2]}..., stopped at {stops} "
+            f"(gate weight x {sign * GATE_SCALE:+.0f}, bias "
+            f"{-th * GATE_SCALE:.5f}); max_abs_err "
+            f"{out[name]['max_abs_err']:.3g} (atol 1e-5)")
+    return out
+
+
+def time_decode(profile=True):
+    """Phase 9 (b): the B=8, T_in=448, M=1000 decode (gate held off, all
+    1000 steps), the eager chunk loop against graph replay, in turns
+    (eager, graph, graph, eager) for each k of CHUNK_SWEEP, each graph
+    captured before it is timed; then one graph decode at DECODE_CHUNK
+    under the profiler.  Seconds per 1000 steps."""
+    from fac_via_ppg_torch.models import decode_graph
+    from fac_via_ppg_torch.models import tacotron2 as tt
+
+    cfg, params, state, ppg, lengths = decode_inputs(
+        DEC_B, DEC_T_IN, DEC_M, SEED + 11)
+    with torch.no_grad():
+        g = torch.Generator("cuda").manual_seed(SEED + 12)
+        memory, processed = tt._encode(cfg, params, state, ppg, lengths, g,
+                                       None)
+        masks = tt.decoder_prenet_masks(cfg, 2, DEC_B, "cuda", g)
+
+    def run(k, graph):
+        torch.cuda.synchronize()
+        t = time.time()
+        tt.decode(cfg, params["decoder"], memory, processed, lengths, masks,
+                  False, k=k, graph=graph)
+        torch.cuda.synchronize()
+        return (time.time() - t) * 1000 / DEC_M
+
+    sweep = {}
+    for k in CHUNK_SWEEP:
+        n0 = decode_graph.captures
+        t = time.time()
+        run(k, True)
+        capture_s = time.time() - t
+        if decode_graph.captures != n0 + 1:
+            raise AssertionError(f"k={k}: no graph captured")
+        turns = [run(k, False), run(k, True), run(k, True), run(k, False)]
+        sweep[k] = {"eager_s": [turns[0], turns[3]],
+                    "graph_s": [turns[1], turns[2]],
+                    "first_call_s": capture_s}
+        log(f"decode k={k}: eager {turns[0]:.4f} / {turns[3]:.4f} s, graph "
+            f"{turns[1]:.4f} / {turns[2]:.4f} s per 1000 steps (first call, "
+            f"with the capture, {capture_s:.3f} s)")
+    prof = {}
+    if profile:
+        prof = profile_run(lambda: run(tt.DECODE_CHUNK, True))
+        prof_eager = profile_run(lambda: run(tt.DECODE_CHUNK, False))
+        prof = {"graph": prof, "eager": prof_eager}
+    return sweep, prof, decode_graph.count()
+
+
+def run_streaming(wl, wf, tmp):
+    """Phase 9 (c): StreamingAccentConverter at full width (fused, batch
+    8, 2 front-end threads, pipeline depth 2, bf16 WaveGlow, max_frames
+    500, after prewarm) over 24 seeded wavs; the same at depth 1 (PCM bit
+    for bit); cond_impl="int8"; the staged route over 2 wavs; the native
+    MFCC built, used and held against numpy."""
+    import dataclasses
+    import threading
+
+    from fac_via_ppg_torch import native
+    from fac_via_ppg_torch.eval.streaming import StreamingAccentConverter
+    from fac_via_ppg_torch.frontend import feat as feat_mod
+    from fac_via_ppg_torch.frontend import mfcc as mfcc_mod
+
+    t2_cfg, t2_params, t2_state, wg_cfg, wg_params = serving_models()
+    t2_cfg = dataclasses.replace(t2_cfg, max_decoder_steps=MAX_FRAMES)
+    paths = write_wavs(tmp, n=STREAM_WAVS, seed=SEED + 13)
+    hop = wg_cfg.hop_length
+
+    def converter(**kw):
+        conv = StreamingAccentConverter(
+            t2_cfg, t2_params, t2_state, wg_cfg, wg_params,
+            serving_dtype=torch.bfloat16, device="cuda", **kw)
+        stages = {"featurize_s": 0.0, "launch_s": 0.0, "collect_s": 0.0,
+                  "launches": []}
+        if conv.fused is None:
+            return conv, stages
+        f = conv.fused
+        featurize, launch, collect = (f.featurize, f.launch_feature_pairs,
+                                      f.collect_feature_pairs)
+        lock = threading.Lock()
+
+        def timed_featurize(path):
+            t = time.time()
+            out = featurize(path)
+            with lock:
+                stages["featurize_s"] += time.time() - t
+            return out
+
+        def timed_launch(*a, **k):
+            n = (wl.launches, wf.launches)
+            t = time.time()
+            handle = launch(*a, **k)
+            stages["launch_s"] += time.time() - t
+            stages["launches"].append([wl.launches - n[0],
+                                       wf.launches - n[1]])
+            return handle
+
+        def timed_collect(handle):
+            t = time.time()
+            out = collect(handle)
+            stages["collect_s"] += time.time() - t
+            return out
+
+        f.featurize, f.launch_feature_pairs, f.collect_feature_pairs = (
+            timed_featurize, timed_launch, timed_collect)
+        return conv, stages
+
+    def serve(conv, seed):
+        t0 = time.time()
+        results = list(conv.run(paths, torch.Generator("cuda").manual_seed(
+            seed)))
+        wall = time.time() - t0
+        if sorted(r.wav_path for r in results) != sorted(paths):
+            raise AssertionError("the stream lost or repeated utterances")
+        for r in results:
+            pcm = np.round(r.audio * 32767)
+            if r.error is not None or not np.isfinite(pcm).all() \
+                    or pcm.std() == 0 or len(pcm) != MAX_FRAMES * hop:
+                raise AssertionError(f"bad stream result {r.wav_path}: "
+                                     f"{len(pcm)} samples, {r.error}")
+        return results, wall
+
+    out = {}
+    native.calls = 0
+    conv, stages = converter(fused=True, batch_size=STREAM_BATCH,
+                             frontend_threads=2, pipeline_depth=2)
+    t = time.time()
+    conv.prewarm()
+    torch.cuda.synchronize()
+    out["prewarm_s"] = time.time() - t
+    stages.update(featurize_s=0.0, launch_s=0.0, collect_s=0.0, launches=[])
+    wl.launches = wf.launches = 0
+    results, wall = serve(conv, SEED + 14)
+    out["wn_layer_launches"], out["wn_flow_launches"] = \
+        wl.launches, wf.launches
+    launches = stages.pop("launches")
+    if len(launches) != STREAM_WAVS // STREAM_BATCH or any(
+            n_l < 96 or n_f for n_l, n_f in launches):
+        raise AssertionError(f"dense stream launches per batch {launches}")
+    if native.calls < STREAM_WAVS:
+        raise AssertionError(f"native MFCC served {native.calls} calls")
+    first = {r.wav_path for r in results[:STREAM_BATCH]}
+    steady = [r for r in results if r.wav_path not in first]
+    lat = [r.latency_seconds for r in steady]
+    out.update({
+        "wall_s": wall, "stages": stages, "launches_per_batch": launches,
+        "audio_s": sum(r.audio_seconds for r in results),
+        "audio_s_per_wall_s": sum(r.audio_seconds for r in results) / wall,
+        "steady_audio_s_per_attributed_s":
+            sum(r.audio_seconds for r in steady)
+            / sum(r.wall_seconds for r in steady),
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p95_s": float(np.percentile(lat, 95)),
+        "native_mfcc_calls": native.calls})
+
+    # depth 1 against depth 2 on one front-end thread: with two, the
+    # batches' make-up follows featurization order, which varies
+    piped = {}
+    for depth in (2, 1):
+        c, _ = converter(fused=True, batch_size=STREAM_BATCH,
+                         frontend_threads=1, pipeline_depth=depth)
+        piped[depth], out[f"depth{depth}_one_thread_wall_s"] = serve(
+            c, SEED + 14)
+    if [r.wav_path for r in piped[1]] != [r.wav_path for r in piped[2]] \
+            or any(not np.array_equal(a.audio, b.audio)
+                   for a, b in zip(piped[1], piped[2])):
+        raise AssertionError("pipeline depth 1 and 2 serve different PCM")
+    del c, piped
+
+    int8_conv, int8_stages = converter(
+        fused=True, batch_size=STREAM_BATCH, frontend_threads=2,
+        pipeline_depth=2, cond_impl="int8")
+    wl.launches = wf.launches = 0
+    _, out["int8_wall_s"] = serve(int8_conv, SEED + 15)
+    out["int8_wn_flow_launches"] = wf.launches
+    launches = int8_stages["launches"]
+    if any(n_l or n_f != wg_cfg.n_flows for n_l, n_f in launches):
+        raise AssertionError(f"int8 stream launches per batch {launches}")
+    out["int8_launches_per_batch"] = launches
+    del int8_conv
+
+    staged, _ = converter(fused=False)
+    t = time.time()
+    staged_res = list(staged.run(paths[:2], torch.Generator(
+        "cuda").manual_seed(SEED + 16)))
+    out["staged_wall_s"] = time.time() - t
+    for r in staged_res:
+        if r.error is not None or not np.isfinite(r.audio).all() \
+                or r.audio.std() == 0 or len(r.audio) % hop:
+            raise AssertionError(f"bad staged result {r.wav_path}")
+    out["staged_samples"] = [len(r.audio) for r in staged_res]
+    del staged
+
+    fs, wav = feat_mod.read_wav(paths[0])
+    opts = mfcc_mod.MfccOptions(frame_opts=mfcc_mod.FrameExtractionOptions(
+        snip_edges=False, allow_downsample=True, dither=0.0),
+        use_energy=False)
+    a = mfcc_mod.compute_mfcc(wav, fs, opts, backend="native")
+    b = mfcc_mod.compute_mfcc(wav, fs, opts, backend="numpy")
+    out["native_vs_numpy_max_abs_err"] = float(np.abs(a - b).max())
+    if not native.LIBRARY.exists() or not \
+            out["native_vs_numpy_max_abs_err"] <= 1e-3:
+        raise AssertionError(f"native MFCC: {out}")
+    log(f"native MFCC: {native.LIBRARY} built and served "
+        f"{out['native_mfcc_calls']} calls; against numpy at dither 0 "
+        f"max_abs_err {out['native_vs_numpy_max_abs_err']:.3g} (atol 1e-3)")
+    return out
+
+
+def run_streaming_cli(tmp):
+    """Phase 9 (d): the streaming CLI in-process on a generated .pt pair
+    (the hparams' defaults: f32 WaveGlow, 1000 frames, gate held off),
+    --fused --batch_size 8 over 8 wavs; every wav checked."""
+    from scipy.io import wavfile
+
+    from fac_via_ppg_torch.eval import streaming
+
+    t2_pt, wg_pt = f"{tmp}/tacotron2.pt", f"{tmp}/waveglow.pt"
+    write_t2_pt(t2_pt, SEED + 7)
+    write_waveglow_pt(wg_pt, SEED + 9)
+    wavs = write_wavs(tmp, seed=SEED + 17)
+    with open(f"{tmp}/wavs.txt", "w") as fh:
+        fh.write("\n".join(wavs) + "\n")
+    t0 = time.time()
+    streaming.main(["--ppg2mel_model", t2_pt, "--waveglow_model", wg_pt,
+                    "--filelist", f"{tmp}/wavs.txt", "--output_dir",
+                    f"{tmp}/out", "--fused", "--batch_size", "8",
+                    "--frontend_threads", "2"])
+    wall = time.time() - t0
+    for w in wavs:
+        sr, pcm = wavfile.read(f"{tmp}/out/" + Path(w).name.replace(
+            ".wav", "_ac.wav"))
+        if sr != 16000 or pcm.dtype != np.int16 \
+                or len(pcm) != SYNTH_FRAMES * 160 or pcm.std() == 0:
+            raise AssertionError(f"bad streaming CLI wav for {w}")
+    return {"wall_s": wall, "wavs": len(wavs)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
@@ -1221,6 +1622,28 @@ def main():
     synth_launches = {
         name: sum(r[f"{name}_launches"] for r in synth_runs.values())
         for name in ("wn_layer", "wn_flow")}
+
+    from fac_via_ppg_torch.models import tacotron2 as tt
+
+    graphs = check_decode_graphs()
+    sweep, dec_prof, n_graphs = time_decode()
+    log("decode: " + json.dumps({
+        "card": card, "B": DEC_B, "T_in": DEC_T_IN, "steps": DEC_M,
+        "chunk": tt.DECODE_CHUNK,
+        "s_per_1000_steps": {str(k): v for k, v in sweep.items()},
+        "busy_share_graph": dec_prof["graph"]["busy_share"],
+        "busy_share_eager": dec_prof["eager"]["busy_share"],
+        "device_busy_s_graph": dec_prof["graph"]["device_busy_s"],
+        "device_kernels_graph": dec_prof["graph"]["device_kernels"],
+        "graphs_cached": n_graphs, "parity": graphs}))
+    log("decode profile: " + json.dumps(dec_prof))
+    with tempfile.TemporaryDirectory() as tmp:
+        stream = run_streaming(wl, wf, tmp)
+    log("stream: " + json.dumps({"card": card, "wavs": STREAM_WAVS,
+                                 "batch": STREAM_BATCH, **stream}))
+    with tempfile.TemporaryDirectory() as tmp:
+        stream_cli = run_streaming_cli(tmp)
+    log("stream cli: " + json.dumps({"card": card, **stream_cli}))
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
@@ -1233,6 +1656,7 @@ def main():
         "bound_by": bound_by, "ms_f32": ms32,
         **f32_synth["wn_layer"],
         "launches_synth": synth_launches["wn_layer"],
+        "launches_stream": stream["wn_layer_launches"],
         **layer_res, "library_ms": None}, {
         "name": "wn_flow", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_flow.cu",
@@ -1245,6 +1669,7 @@ def main():
         "bound_by": f_bound_by, "ms_f32": flow_t[torch.float32][0],
         **f32_synth["wn_flow"],
         "launches_synth": synth_launches["wn_flow"],
+        "launches_stream_int8": stream["int8_wn_flow_launches"],
         **flow_res, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,12 @@ round trip between stages:
     gate stop) -> log(1e-5) silence after each stop -> WaveGlow inverse (WN
     layers on a hand-written kernel) -> STFT bias denoiser -> int16 PCM
 
-Host featurization (MFCC -> CMN -> splice +-3 -> LDA, numpy) is `featurize`.
-The decoder's stop is the only value the host reads mid-program (once per
-step, to end the loop); everything else stays on the card until
-`collect_feature_pairs` reads back the PCM.
+Host featurization (MFCC on the native C++ library where it builds, else
+numpy -> CMN -> splice +-3 -> LDA) is `featurize`.  The decode runs on the
+card in chunks of k steps, each chunk one CUDA graph replay
+(models/tacotron2.py::decode); the decoder's stop is the only value the
+host reads mid-program (once per chunk, to end the loop); everything
+else stays on the card until `collect_feature_pairs` reads back the PCM.
 
 Only WaveGlow runs in `serving_dtype`, with its 1x1 inverses kept f32; the
 AM and Tacotron2 stay f32.  The denoiser's bias spectrum comes from the
@@ -206,9 +208,13 @@ class FusedSynthesizer:
                              pad_batch_to: Optional[int] = None,
                              dropout_masks=None, noise=None):
         """Assemble and enqueue one micro-batch without waiting for its
-        PCM: the returned handle holds device tensors whose kernels may
-        still run.  `collect_feature_pairs` reads them back, so a serving
-        loop can featurize batch N+1 while batch N finishes on the card.
+        PCM.  The host waits only for the decode's stop, read once per
+        chunk of decode steps (and so for whatever the card had queued
+        before them); the postnet, WaveGlow, the denoiser and the PCM
+        conversion are enqueued behind it, and the returned handle holds
+        device tensors whose kernels may still run.
+        `collect_feature_pairs` reads them back, so a serving loop can
+        featurize batch N+1 while batch N finishes on the card.
 
         Feature rows are padded to the batch's longest by repeating the
         last frame; the batch is padded with repeats of the last request

@@ -1,6 +1,11 @@
-"""Kaldi-convention MFCC front-end (numpy, host side).
+"""Kaldi-convention MFCC front-end (host side: native C++ or numpy).
 
-A copy of the numpy path of fac_via_ppg_tpu/frontend/mfcc.py (options set
+`compute_mfcc(backend="auto")` runs the native C++ library
+(native/src/frontend.cc, loaded by fac_via_ppg_torch/native.py) and takes
+this module's numpy path where the JAX package does: no toolchain, or an
+option combination the library does not implement.
+
+The numpy path is a copy of fac_via_ppg_tpu/frontend/mfcc.py's (options set
 as the reference does at src/ppg/compute_ppg.py:110-123: use_energy=False,
 allow_downsample=True, frame_shift=10 ms, snip_edges=False):
 
@@ -13,8 +18,11 @@ allow_downsample=True, frame_shift=10 ms, snip_edges=False):
   23 HTK-mel triangular bins over [20 Hz, nyquist], floor eps, log
   DCT-II orthonormal -> first 13 ceps, cepstral lifter Q=22
 
-Dither is driven by numpy's RandomState(seed), the same draws as the JAX
-package's numpy path; pass dither=0.0 for deterministic features.
+Dither is driven by numpy's RandomState(seed) on the numpy path (the same
+draws as the JAX package's numpy path) and by the library's own seeded
+generator on the native path (the JAX package's native draws); the two
+backends agree to 1e-3 apart from the dither.  Pass dither=0.0 for
+deterministic features.
 """
 
 from __future__ import annotations
@@ -237,6 +245,7 @@ def compute_mfcc(
     fs: float,
     opts: MfccOptions | None = None,
     seed: int = 0,
+    backend: str = "auto",
 ) -> np.ndarray:
     """Waveform -> (n_frames, num_ceps) MFCCs, Kaldi conventions.
 
@@ -246,6 +255,10 @@ def compute_mfcc(
         fs: sampling frequency of `wav`.
         opts: MfccOptions.
         seed: dither PRNG seed (only used when frame_opts.dither != 0).
+        backend: 'auto' prefers the native C++ library and takes numpy
+            where it cannot build or load, or where `native.supports`
+            rejects the options; 'native' raises in both cases; 'numpy'
+            forces numpy.
     """
     opts = opts or MfccOptions()
     fo = opts.frame_opts
@@ -260,6 +273,23 @@ def compute_mfcc(
                 "and allow_downsample is off."
             )
         wav = resample_waveform(wav, fs, fo.samp_freq)
+
+    if backend in ("auto", "native"):
+        from fac_via_ppg_torch import native
+
+        if native.supports(opts):
+            out = native.mfcc_compute(wav, fo.samp_freq, opts, seed=seed)
+            if out is not None:
+                return out
+            if backend == "native":
+                raise RuntimeError("native frontend library unavailable")
+        elif backend == "native":
+            raise ValueError(
+                "option combination not implemented by the native frontend "
+                "(see fac_via_ppg_torch.native.supports); use "
+                "backend='numpy'")
+    elif backend != "numpy":
+        raise ValueError(f"unknown MFCC backend {backend!r}")
 
     idx = frame_indices(len(wav), fo)
     frames = wav[idx]  # (T, window_size)

@@ -7,13 +7,20 @@ them); layouts are torch's.
 
   * Encoder: prenet on the 5816-dim PPG, 3 x [conv1d(k=5) + BN + relu],
     then a BiLSTM with packed-sequence semantics by masks (ops/rnn.py).
-  * Decoder: a Python loop over steps on the device, location-sensitive
-    attention with the +-window mask, including the reference's
-    end-of-sequence quirk (model.py:471-477, utils.py:46-78).
+  * Decoder: location-sensitive attention with the +-window mask,
+    including the reference's end-of-sequence quirk (model.py:471-477,
+    utils.py:46-78).  The step takes `t` as a device tensor, and the
+    autoregressive loop stays on the device as the JAX package's
+    `lax.while_loop` does: `decode_chunk` runs k steps as one pure tensor
+    function (the stop, lengths and end step kept on the device), on the
+    card captured once as a CUDA graph and replayed (models/
+    decode_graph.py); the host reads the stop once per chunk.
   * Prenet dropout is ALWAYS on (model.py:132-135): its keep-masks are
     drawn from a torch.Generator, or injected through `masks`, an
     iterator of bool arrays consumed in call order (the encoder prenet's
-    2 layers first, then 2 per decode step).  Every other dropout is off
+    2 layers first, then 2 per decode step).  The decoder's masks for
+    every step are drawn before the loop, one (M, layers, B, prenet_dim)
+    tensor, so a step consumes no randomness.  Every other dropout is off
     at inference.
 """
 
@@ -21,9 +28,11 @@ from __future__ import annotations
 
 from typing import Iterator, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from fac_via_ppg_torch.configs.hparams import Tacotron2Config
+from fac_via_ppg_torch.models import decode_graph
 from fac_via_ppg_torch.ops.layers import (
     batchnorm,
     batchnorm_params,
@@ -39,6 +48,9 @@ from fac_via_ppg_torch.ops.layers import (
 from fac_via_ppg_torch.ops.rnn import bidirectional_lstm
 
 MASK_VALUE = -1e9  # finite stand-in for the reference's -inf score mask
+# Decode steps per chunk: the host reads the stop once per chunk, and a
+# chunk is one CUDA graph replay on the card (PERF.md: the sweep).
+DECODE_CHUNK = 8
 
 
 # ==========================================================================
@@ -174,15 +186,17 @@ def postnet_apply(params, state, mel, valid_mask=None) -> torch.Tensor:
     return x
 
 
-def windowed_attention_mask(lengths, window: int, t: int, T_in: int):
+def windowed_attention_mask(lengths, window: int, t: torch.Tensor,
+                            T_in: int):
     """Reference utils.py:46-78 semantics, vectorized; True = allowed.
+    `t` is the step, an int64 tensor of shape () on `lengths`' device.
 
     start = min(max(0, t-w), len-1); end = min(t+w, len-1) -- including
     the quirk that keeps the last valid frame unmasked after the window
     passes the sequence end (documented at utils.py:65-69)."""
     max_idx = lengths - 1
-    start = torch.clamp(max_idx, max=max(0, t - window))
-    end = torch.clamp(max_idx, max=t + window)
+    start = torch.minimum(torch.clamp(t - window, min=0), max_idx)
+    end = torch.minimum(t + window, max_idx)
     ids = torch.arange(T_in, device=lengths.device)[None, :]
     return (ids >= start[:, None]) & (ids <= end[:, None])
 
@@ -226,9 +240,9 @@ def init_decoder_state(cfg: Tacotron2Config, memory: torch.Tensor):
 
 
 def decode_step(cfg: Tacotron2Config, p_dec, ds: DecoderState, prenet_frame,
-                memory, processed_memory, memory_lengths, t: int):
-    """One decoder step at inference (model.py:387-442).
-    Returns (state, mel, gate, attention weights)."""
+                memory, processed_memory, memory_lengths, t: torch.Tensor):
+    """One decoder step at inference (model.py:387-442), `t` an int64
+    tensor of shape ().  Returns (state, mel, gate, attention weights)."""
     T_in = memory.shape[1]
     cell_in = torch.cat([prenet_frame, ds.att_context], dim=-1)
     att_h, att_c = lstm_cell(p_dec["attention_rnn"], cell_in, ds.att_h,
@@ -255,6 +269,229 @@ def decode_step(cfg: Tacotron2Config, p_dec, ds: DecoderState, prenet_frame,
 
 
 # ==========================================================================
+# the decode loop, on the device
+# ==========================================================================
+
+class DecodeLoop(NamedTuple):
+    """The loop's carry (JAX `models/tacotron2.py:457-470, 531-553`), all
+    on the device.  The buffers have `n_chunks * k` rows, M rounded up to
+    the chunk; rows past M are never part of an output."""
+    ds: DecoderState
+    prev: torch.Tensor      # (B, D) the last frame
+    t: torch.Tensor         # () int64, steps run
+    done: torch.Tensor      # (B,) bool
+    lengths: torch.Tensor   # (B,) int64
+    t_end: torch.Tensor     # () int64, the step count when the stop held
+    mel: torch.Tensor       # (rows, B, D)
+    gate: torch.Tensor      # (rows, B)
+    align: torch.Tensor     # (rows, B, T_in)
+
+
+def init_decode_loop(cfg: Tacotron2Config, memory: torch.Tensor,
+                     rows: int) -> DecodeLoop:
+    B, T_in, _ = memory.shape
+    D, M = cfg.n_acoustic_feat_dims, cfg.max_decoder_steps
+    i64 = dict(dtype=torch.int64, device=memory.device)
+    return DecodeLoop(
+        ds=init_decoder_state(cfg, memory), prev=memory.new_zeros((B, D)),
+        t=torch.zeros((), **i64),
+        done=torch.zeros((B,), dtype=torch.bool, device=memory.device),
+        lengths=torch.full((B,), M, **i64), t_end=torch.zeros((), **i64),
+        mel=memory.new_zeros((rows, B, D)),
+        gate=memory.new_full((rows, B), 1e3),
+        align=memory.new_zeros((rows, B, T_in)))
+
+
+def _reset_decode_loop(loop: DecodeLoop, M: int) -> None:
+    """`loop` back to `init_decode_loop`'s values, in place."""
+    for x in (*loop.ds, loop.prev, loop.t, loop.done, loop.t_end,
+              loop.mel, loop.align):
+        x.zero_()
+    loop.lengths.fill_(M)
+    loop.gate.fill_(1e3)
+
+
+def decoder_prenet_masks(cfg: Tacotron2Config, n_layers: int, B: int,
+                         device, generator: Optional[torch.Generator] = None,
+                         masks: Optional[Iterator] = None) -> torch.Tensor:
+    """Every decode step's prenet keep-masks, (M, n_layers, B, prenet_dim)
+    bool, drawn before the loop from `generator` (keep probability 0.5).
+
+    Injected `masks` (the rest of the call-order iterator, `n_layers` a
+    step, for the steps the JAX package ran) fill the first steps; steps
+    it never ran keep every unit (their writes are masked, so the padding
+    reaches no output)."""
+    M, P = cfg.max_decoder_steps, cfg.prenet_dim
+    if masks is None:
+        return torch.rand((M, n_layers, B, P), generator=generator,
+                          device=device) < 0.5
+    rest = [m.to(device, torch.bool) if isinstance(m, torch.Tensor)
+            else torch.tensor(np.asarray(m), dtype=torch.bool, device=device)
+            for m in masks]
+    n = len(rest) // n_layers
+    if len(rest) % n_layers or n > M:
+        raise ValueError(f"{len(rest)} injected decoder masks are not "
+                         f"{n_layers} a step for at most {M} steps")
+    out = torch.ones((M, n_layers, B, P), dtype=torch.bool, device=device)
+    if n:
+        out[:n] = torch.stack(rest).view(n, n_layers, B, P)
+    return out
+
+
+def decode_chunk(cfg: Tacotron2Config, p_dec, loop: DecodeLoop,
+                 masks: torch.Tensor, memory, processed_memory,
+                 memory_lengths, k: int, stop_on_first: bool) -> DecodeLoop:
+    """k decode steps as one pure tensor function: no host read, no
+    branch on a tensor's value.  Writes row t of the buffers in place and
+    returns the new carry.
+
+    A step is live while the JAX loop would still run it: not every
+    sequence done, and t < M.  Batched (JAX :531-553): a done sequence
+    writes 0 / 1e3 / 0, `lengths = where(active & fired, t+1, lengths)`,
+    `done |= fired`.  `stop_on_first` (one sequence, JAX :457-470) stops
+    on sequence 0's gate.  A step that is not live (past the stop, or
+    t >= M) changes no output: it writes its row's initial values."""
+    M = cfg.max_decoder_steps
+    for _ in range(k):
+        t = loop.t
+        step_masks = masks.index_select(0, t.view(1))[0]
+        frame = prenet_apply(p_dec["prenet"], loop.prev,
+                             masks=iter(step_masks.unbind(0)))
+        ds, mel_f, gate_f, att_w = decode_step(
+            cfg, p_dec, loop.ds, frame, memory, processed_memory,
+            memory_lengths, t)
+        fired = torch.sigmoid(gate_f) > cfg.gate_threshold
+        if stop_on_first:
+            fired = fired[:1].expand_as(fired)
+        live = ~loop.done.all() & (t < M)
+        active = ~loop.done & live
+        zero = mel_f.new_zeros(())
+        row = t.view(1)
+        loop.mel.index_copy_(0, row,
+                             torch.where(active[:, None], mel_f, zero)[None])
+        loop.gate.index_copy_(0, row, torch.where(
+            active, gate_f, gate_f.new_full((), 1e3))[None])
+        loop.align.index_copy_(0, row,
+                               torch.where(active[:, None], att_w, zero)[None])
+        loop = loop._replace(
+            ds=ds, prev=mel_f, t=t + 1,
+            done=loop.done | (fired & live),
+            lengths=torch.where(active & fired, t + 1, loop.lengths),
+            t_end=torch.where(live, t + 1, loop.t_end))
+    return loop
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _decode_graph(cfg, p_dec, memory, processed_memory, masks, k,
+                  stop_on_first) -> decode_graph.ChunkGraph:
+    """The cached graph of one chunk for these shapes and weights."""
+    B, T_in, _ = memory.shape
+    leaves = list(_leaves(p_dec))
+    key = (cfg, B, T_in, k, stop_on_first, memory.dtype, memory.device,
+           torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32,
+           tuple(x.data_ptr() for x in leaves))
+
+    def make():
+        static = dict(
+            memory=torch.zeros_like(memory),
+            processed=torch.zeros_like(processed_memory),
+            lengths=torch.full((B,), T_in, dtype=torch.int64,
+                               device=memory.device),
+            masks=torch.ones_like(masks),
+            loop=init_decode_loop(cfg, memory, masks.shape[0]),
+            weights=leaves)
+
+        def chunk():
+            loop = static["loop"]
+            out = decode_chunk(cfg, p_dec, loop, static["masks"],
+                               static["memory"], static["processed"],
+                               static["lengths"], k, stop_on_first)
+            for dst, src in zip((*loop.ds, loop.prev, loop.t, loop.done,
+                                 loop.lengths, loop.t_end),
+                                (*out.ds, out.prev, out.t, out.done,
+                                 out.lengths, out.t_end)):
+                dst.copy_(src)
+
+        return decode_graph.ChunkGraph(chunk, static)
+
+    with torch.cuda.device(memory.device):
+        return decode_graph.cached(key, make)
+
+
+def decode(cfg: Tacotron2Config, p_dec, memory: torch.Tensor,
+           processed_memory: torch.Tensor, memory_lengths: torch.Tensor,
+           masks: torch.Tensor, stop_on_first: bool,
+           k: Optional[int] = None, graph: Optional[bool] = None):
+    """The autoregressive decode: chunks of k steps until the stop holds
+    (the host reads it once per chunk) or M steps have run.
+
+    `masks` is `decoder_prenet_masks`' (M, layers, B, P) tensor; `k`
+    defaults to DECODE_CHUNK.  On a
+    CUDA `memory` each chunk is a replay of one captured CUDA graph
+    (`graph=None`); `graph=False` runs the same chunk function eagerly,
+    the plain version the CPU always runs and that the card's checks hold
+    the graphs against.
+
+    Returns (mel (M, B, D), gate (M, B), alignments (M, B, T_in),
+    lengths (B,), t_end ()): `t_end` the number of steps the JAX loop ran
+    (the first step at which the stop held, plus one, or M), and a
+    sequence whose gate never fired has length t_end (JAX :561)."""
+    M = cfg.max_decoder_steps
+    k = DECODE_CHUNK if k is None else k
+    n_chunks = -(-M // k)
+    rows = n_chunks * k
+    if rows != M:
+        masks = torch.cat([masks, masks.new_ones(
+            (rows - M, *masks.shape[1:]))])
+    if graph is None:
+        graph = memory.is_cuda
+    def outputs(loop):
+        lengths = torch.where(loop.done, loop.lengths, loop.t_end)
+        return loop.mel[:M], loop.gate[:M], loop.align[:M], lengths, \
+            loop.t_end
+
+    with torch.no_grad():
+        if not graph:
+            loop = init_decode_loop(cfg, memory, rows)
+            for _ in range(n_chunks):
+                loop = decode_chunk(cfg, p_dec, loop, masks, memory,
+                                    processed_memory, memory_lengths, k,
+                                    stop_on_first)
+                if bool(loop.done.all()):
+                    break
+            return outputs(loop)
+        if not memory.is_cuda:
+            raise ValueError("CUDA graphs need the decode on the card")
+        entry = _decode_graph(cfg, p_dec, memory, processed_memory, masks,
+                              k, stop_on_first)
+        with entry.lock:
+            st = entry.static
+            st["memory"].copy_(memory)
+            st["processed"].copy_(processed_memory)
+            st["lengths"].copy_(memory_lengths)
+            st["masks"].copy_(masks)
+            loop = st["loop"]
+            _reset_decode_loop(loop, M)
+            for _ in range(n_chunks):
+                entry.replay()
+                if bool(loop.done.all()):
+                    break
+            # the next decode overwrites the static buffers
+            return tuple(x.clone() for x in outputs(loop))
+
+
+# ==========================================================================
 # autoregressive inference
 # ==========================================================================
 
@@ -263,6 +500,18 @@ def _encode(cfg, params, state, ppg, input_lengths, generator, masks):
                            masks, mask_convs=True)
     processed = linear(params["decoder"]["attention"]["memory"], memory)
     return memory, processed
+
+
+def _decode_from_ppg(cfg, params, state, ppg, input_lengths, generator,
+                     masks, stop_on_first):
+    memory, processed = _encode(cfg, params, state, ppg, input_lengths,
+                                generator, masks)
+    p_dec = params["decoder"]
+    dec_masks = decoder_prenet_masks(
+        cfg, len(p_dec["prenet"]["layers"]), ppg.shape[0], ppg.device,
+        generator, masks)
+    return decode(cfg, p_dec, memory, processed, input_lengths, dec_masks,
+                  stop_on_first)
 
 
 def tacotron2_inference(cfg: Tacotron2Config, params, state,
@@ -284,30 +533,16 @@ def tacotron2_inference(cfg: Tacotron2Config, params, state,
     dev = ppg.device
     if input_lengths is None:
         input_lengths = torch.full((B,), T_in, dtype=torch.int64, device=dev)
-    memory, processed = _encode(cfg, params, state, ppg, input_lengths,
-                                generator, masks)
-    p_dec = params["decoder"]
-    M, D = cfg.max_decoder_steps, cfg.n_acoustic_feat_dims
-    ds = init_decoder_state(cfg, memory)
-    mel_buf = memory.new_zeros((M, B, D))
-    gate_buf = memory.new_full((M, B), 1e3)
-    align_buf = memory.new_zeros((M, B, T_in))
-    prev = memory.new_zeros((B, D))
-    t = 0
-    while t < M:
-        frame = prenet_apply(p_dec["prenet"], prev, generator, masks)
-        ds, prev, gate_f, att_w = decode_step(
-            cfg, p_dec, ds, frame, memory, processed, input_lengths, t)
-        mel_buf[t], gate_buf[t], align_buf[t] = prev, gate_f, att_w
-        t += 1
-        if bool(torch.sigmoid(gate_f[0]) > cfg.gate_threshold):
-            break
+    mel_buf, gate_buf, align_buf, _, t_end = _decode_from_ppg(
+        cfg, params, state, ppg, input_lengths, generator, masks, True)
     mel_out = mel_buf.permute(1, 2, 0)
-    produced = (torch.arange(M, device=dev) < t)[None, None, :]
+    produced = (torch.arange(cfg.max_decoder_steps, device=dev)
+                < t_end)[None, None, :]
     residual = postnet_apply(params, state, mel_out, valid_mask=produced)
     mel_post = torch.where(produced, mel_out + residual,
                            mel_out.new_zeros(()))
-    return (mel_out, mel_post, gate_buf.T, align_buf.permute(1, 0, 2), t)
+    return (mel_out, mel_post, gate_buf.T, align_buf.permute(1, 0, 2),
+            int(t_end))
 
 
 def tacotron2_inference_batched(cfg: Tacotron2Config, params, state,
@@ -321,40 +556,13 @@ def tacotron2_inference_batched(cfg: Tacotron2Config, params, state,
     fired their gate (or at max_decoder_steps); frames produced after a
     sequence's own stop are zeroed.  Returns (mel_out, mel_out_postnet,
     gate_out, alignments, mel_lengths (B,))."""
-    B, _, T_in = ppg.shape
-    dev = ppg.device
-    memory, processed = _encode(cfg, params, state, ppg, input_lengths,
-                                generator, masks)
-    p_dec = params["decoder"]
-    M, D = cfg.max_decoder_steps, cfg.n_acoustic_feat_dims
-    ds = init_decoder_state(cfg, memory)
-    mel_buf = memory.new_zeros((M, B, D))
-    gate_buf = memory.new_full((M, B), 1e3)
-    align_buf = memory.new_zeros((M, B, T_in))
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    lengths = torch.full((B,), M, dtype=torch.int64, device=dev)
-    prev = memory.new_zeros((B, D))
-    zero = memory.new_zeros(())
-    t = 0
-    while t < M:
-        frame = prenet_apply(p_dec["prenet"], prev, generator, masks)
-        ds, prev, gate_f, att_w = decode_step(
-            cfg, p_dec, ds, frame, memory, processed, input_lengths, t)
-        active = ~done
-        mel_buf[t] = torch.where(active[:, None], prev, zero)
-        gate_buf[t] = torch.where(active, gate_f, zero + 1e3)
-        align_buf[t] = torch.where(active[:, None], att_w, zero)
-        fired = torch.sigmoid(gate_f) > cfg.gate_threshold
-        lengths = torch.where(active & fired, t + 1, lengths)
-        done = done | fired
-        t += 1
-        if bool(done.all()):
-            break
-    lengths = torch.where(done, lengths, t)
+    mel_buf, gate_buf, align_buf, lengths, _ = _decode_from_ppg(
+        cfg, params, state, ppg, input_lengths, generator, masks, False)
     mel_out = mel_buf.permute(1, 2, 0)
-    produced = (torch.arange(M, device=dev)[None, None, :]
-                < lengths[:, None, None])
+    produced = (torch.arange(cfg.max_decoder_steps, device=ppg.device)
+                [None, None, :] < lengths[:, None, None])
     residual = postnet_apply(params, state, mel_out, valid_mask=produced)
-    mel_post = torch.where(produced, mel_out + residual, zero)
+    mel_post = torch.where(produced, mel_out + residual,
+                           mel_out.new_zeros(()))
     return (mel_out, mel_post, gate_buf.T, align_buf.permute(1, 0, 2),
             lengths)

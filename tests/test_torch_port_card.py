@@ -7,6 +7,10 @@ and f32 on the SIMT tile (csrc/wn_simt.cuh); other widths on
 wn_tile.cuh's.  Tolerances: f32 atol 1e-4 (TF32 off; the same arithmetic
 summed in another order), bf16 3e-2 (x max(1, max|plain|) for a net).
 
+Also the Tacotron2 decode's CUDA graphs (models/tacotron2.py::decode)
+against the eager chunk loop, their plain version, on the same masks:
+lengths and end steps exact, outputs within 1e-5.
+
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -410,3 +414,55 @@ def test_f32_kernels_reject_cond_strides(card):
             with pytest.raises(ValueError, match="strides a multiple of 4"):
                 call(bad)
     assert (wl.launches, wf.launches) == (n_l, n_f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("k", [1, 7, 32])
+def test_decode_graph_matches_eager(card, monkeypatch, k, single):
+    """Phase 9 (a) of chip_smoke.py, smaller (full-width Tacotron2, B=4,
+    T_in=128, M=200): gate held off, then at a gate setting that stops the
+    sequences apart, with the graph replayed at the new gate values."""
+    import chip_smoke as smoke
+    from fac_via_ppg_torch.models import decode_graph
+    from fac_via_ppg_torch.models import tacotron2 as tt
+
+    monkeypatch.setattr(tt, "DECODE_CHUNK", k)
+    B, T_in, M = (1 if single else 4), 128, 200
+    cfg, params, state, ppg, lengths = smoke.decode_inputs(B, T_in, M, 5)
+    n0 = decode_graph.replays
+    held, _, logits = smoke.hold_decodes(tt, cfg, params, state, ppg,
+                                         lengths, 6, single)
+    assert held == [M] * B and decode_graph.replays > n0
+    sign, th, expect = smoke.stop_gate(logits + 10.0, M, k)
+    gate = params["decoder"]["gate_layer"]
+    gate["weight"].mul_(sign * smoke.GATE_SCALE)
+    gate["bias"].fill_(-th * smoke.GATE_SCALE)
+    stops, _, _ = smoke.hold_decodes(tt, cfg, params, state, ppg, lengths, 6,
+                                     single)
+    assert stops == expect and max(stops) < M
+
+
+@pytest.mark.cuda
+def test_decode_graph_cache_is_keyed_and_bounded(card):
+    """A graph is captured once per shape and weights, replayed after
+    that, and the cache holds at most MAX_GRAPHS."""
+    import chip_smoke as smoke
+    from fac_via_ppg_torch.models import decode_graph
+    from fac_via_ppg_torch.models import tacotron2 as tt
+
+    decode_graph.clear()
+    cfg, params, state, ppg, lengths = smoke.decode_inputs(2, 64, 40, 7)
+    n0 = decode_graph.captures
+    for _ in range(2):
+        tt.tacotron2_inference_batched(cfg, params, state, ppg, lengths,
+                                       torch.Generator("cuda").manual_seed(0))
+    assert decode_graph.captures == n0 + 1
+    for T in range(64, 64 * (decode_graph.MAX_GRAPHS + 3), 64):
+        x = torch.softmax(torch.randn((2, cfg.n_symbols, T), device=card),
+                          dim=1)
+        tt.tacotron2_inference_batched(cfg, params, state, x,
+                                       torch.full((2,), T, device=card),
+                                       torch.Generator("cuda").manual_seed(0))
+    assert decode_graph.count() == decode_graph.MAX_GRAPHS
+    assert decode_graph.captures == n0 + decode_graph.MAX_GRAPHS + 2

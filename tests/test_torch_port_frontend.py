@@ -17,6 +17,7 @@ import torch
 
 import jax.numpy as jnp
 
+from fac_via_ppg_torch import native as t_native
 from fac_via_ppg_torch.frontend import kaldi_io as t_io
 from fac_via_ppg_torch.frontend import mfcc as t_mfcc
 from fac_via_ppg_torch.frontend import nnet3 as t_nnet3
@@ -50,7 +51,8 @@ def test_compute_mfcc_matches_jax_numpy(fs, snip_edges):
     wav = _wav(fs, 0.7, 1)
     ref = j_mfcc.compute_mfcc(wav, fs, _opts(j_mfcc, snip_edges),
                               backend="numpy")
-    out = t_mfcc.compute_mfcc(wav, fs, _opts(t_mfcc, snip_edges))
+    out = t_mfcc.compute_mfcc(wav, fs, _opts(t_mfcc, snip_edges),
+                              backend="numpy")
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-5)
 
@@ -85,14 +87,16 @@ def test_dither_is_seeded():
 
 
 def test_features_match_jax_numpy(monkeypatch):
-    """MFCC -> CMN -> splice +-3 -> LDA, with JAX's MFCC held to its numpy
-    backend (its native one agrees only to 1e-3)."""
+    """MFCC -> CMN -> splice +-3 -> LDA, with both packages' MFCC held to
+    their numpy backends (the native one agrees only to 1e-3)."""
     rng = np.random.RandomState(4)
     lda = np.linalg.qr(rng.randn(91, 40))[0].T.astype(np.float32)
     wav = _wav(16000, 0.9, 5)
-    monkeypatch.setattr(
-        j_ppg, "compute_mfcc",
-        lambda *a, **k: j_mfcc.compute_mfcc(*a, backend="numpy", **k))
+    for ppg_mod, mfcc_mod in ((j_ppg, j_mfcc), (t_ppg, t_mfcc)):
+        monkeypatch.setattr(
+            ppg_mod, "compute_mfcc",
+            lambda *a, _m=mfcc_mod, **k: _m.compute_mfcc(
+                *a, backend="numpy", **k))
     ref = j_ppg.compute_feat_for_nnet_internal(wav, 16000, lda, dither=0.0)
     out = t_ppg.compute_feat_for_nnet_internal(wav, 16000, lda, dither=0.0)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-5)
@@ -257,8 +261,77 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('fac_via_ppg_tpu')]\n"
         "assert not bad, bad\n"
+        "for m in ('native', 'eval.streaming', 'models.decode_graph'):\n"
+        "    assert 'fac_via_ppg_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------- native MFCC
+
+@pytest.mark.parametrize("dither", [0.0, 1.0])
+def test_native_mfcc_matches_jax_native_and_numpy(dither):
+    """The port's own build of native/src/frontend.cc against the JAX
+    package's build of it, at the same seed (the same generator: equal
+    within float32 rounding), and against numpy at dither 0 (1e-3, the
+    JAX package's stated agreement)."""
+    wav = _wav(16000, 0.8, 6)
+
+    def opts(mod):
+        return mod.MfccOptions(frame_opts=mod.FrameExtractionOptions(
+            snip_edges=False, allow_downsample=True, dither=dither),
+            use_energy=False)
+
+    got = t_mfcc.compute_mfcc(wav, 16000, opts(t_mfcc), seed=3,
+                              backend="native")
+    want = j_mfcc.compute_mfcc(wav, 16000, opts(j_mfcc), seed=3,
+                               backend="native")
+    assert got.shape == want.shape == (80, 13)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if dither == 0.0:
+        ref = t_mfcc.compute_mfcc(wav, 16000, opts(t_mfcc), backend="numpy")
+        np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+    else:
+        np.testing.assert_array_equal(got, t_mfcc.compute_mfcc(
+            wav, 16000, opts(t_mfcc), seed=3, backend="native"))
+
+
+def test_native_library_is_the_ports_own():
+    """Built from the shared source into the port's git-ignored build
+    directory, never into native/build/; served calls are counted."""
+    assert t_native.available()
+    assert str(t_native.SOURCE) == os.path.join(REPO, "native", "src",
+                                                "frontend.cc")
+    assert str(t_native.LIBRARY.parent) == os.path.join(
+        REPO, "fac_via_ppg_torch", "build")
+    assert t_native._lib._name == str(t_native.LIBRARY)
+    n0 = t_native.calls
+    t_mfcc.compute_mfcc(_wav(16000, 0.2, 7), 16000, _opts(t_mfcc, False))
+    assert t_native.calls == n0 + 1  # "auto" took the library
+
+
+def test_native_backend_raises_where_auto_takes_numpy(monkeypatch):
+    """'auto' takes numpy only where the JAX package does (an option
+    combination the library does not implement, or no library); 'native'
+    raises in both cases."""
+    wav = _wav(16000, 0.3, 8)
+    odd = t_mfcc.MfccOptions(frame_opts=t_mfcc.FrameExtractionOptions(
+        round_to_power_of_two=False, dither=0.0), use_energy=False)
+    assert not t_native.supports(odd)
+    with pytest.raises(ValueError, match="not implemented"):
+        t_mfcc.compute_mfcc(wav, 16000, odd, backend="native")
+    np.testing.assert_array_equal(
+        t_mfcc.compute_mfcc(wav, 16000, odd),
+        t_mfcc.compute_mfcc(wav, 16000, odd, backend="numpy"))
+    opts = _opts(t_mfcc, False)
+    monkeypatch.setattr(t_native, "_load", lambda: None)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        t_mfcc.compute_mfcc(wav, 16000, opts, backend="native")
+    np.testing.assert_array_equal(
+        t_mfcc.compute_mfcc(wav, 16000, opts),
+        t_mfcc.compute_mfcc(wav, 16000, opts, backend="numpy"))
+    with pytest.raises(ValueError, match="unknown MFCC backend"):
+        t_mfcc.compute_mfcc(wav, 16000, opts, backend="cuda")

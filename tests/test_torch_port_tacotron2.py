@@ -102,7 +102,7 @@ def test_windowed_attention_mask_matches_jax(t):
     lengths = np.array([3, 10, 25, 40], np.int32)
     ref = jt.windowed_attention_mask(jnp.asarray(lengths), 20, t, 40)
     out = tt.windowed_attention_mask(torch.from_numpy(lengths).long(), 20,
-                                     t, 40)
+                                     torch.tensor(t), 40)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
