@@ -76,23 +76,44 @@ Phases (any failure exits nonzero; there is no CPU path):
      front-end thread, bit for bit; cond_impl="int8" (12 flow kernel
      launches a batch); the staged route over 2 wavs; the native MFCC
      against numpy at dither 0 (1e-3); (d) the streaming CLI in-process on
-     a generated .pt pair, --fused --batch_size 8 over 8 wavs.
+     a generated .pt pair, --fused --batch_size 8 over 8 wavs;
+ 10. training (TF32 off): (a) one Tacotron2 train step at full width
+     (B=2, T_in=T_out=96, every dropout mask injected) and one WaveGlow
+     step (full WaveGlowConfig, one 10000-sample segment) on the card
+     against the same step on the CPU: loss to 1e-5 relative, each
+     gradient leaf to 1e-4 of its norm (the conv biases that a training
+     batch norm follows, whose gradient is rounding noise, to 1e-4 of
+     the whole gradient's norm), the params after the step to 1e-5 where
+     the gradient's sign is determined, elsewhere to 2 lr (Adam's first
+     update is +-lr); Tacotron2 in f64 and f32, its f32 gradient bound
+     waived where a relu input takes the other side of zero on the card
+     (counted, `relu_sign_flips`), WaveGlow in f32; (b)
+     scripts/train_ppg2mel.main in-process at create_hparams()'s defaults
+     (full PPG, batch 6, length buckets of 128) on the substitute AM, 24
+     seeded 2-4 s wavs and 6 for validation: 20 iterations, validation and
+     a checkpoint every 10, then checkpoint_path=auto (resumes at 11) for
+     one epoch, in f32 and bf16; every loss finite, the checkpoint
+     round-trips; (c) scripts/train_waveglow.main at the full config,
+     batch 3, segments of 10000, 18 wavs: 24 iterations, a checkpoint
+     every 10, then auto-resume, f32 and bf16.  Each step timed between two
+     synchronizes, the fifth profiled.
 Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
 `cli:`, `synth profile:`, `synth:`, `decode:`, `decode profile:`,
-`stream:` and `stream cli:` lines,
+`stream:`, `stream cli:`, `train ppg2mel:` and `train waveglow:` lines,
 a `{"kernels": ...}` line and, last, `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --time-flow CHECKOUT
     python3 chip_smoke.py --time-layer CHECKOUT
     python3 chip_smoke.py --time-f32 CHECKOUT
+    python3 chip_smoke.py --train
 
 run only the flow kernel (at the CLI's shape), only the layer kernel
 (bf16 at the fused batch's shape, B=4, T=10000, d=8), or both kernels'
 f32 forms (at the synthesis CLI's shape, B=8, T=20000; TF32 off, atol
 1e-4) of the port in CHECKOUT (another commit unpacked with `git
 archive`): build, hold against the plain versions and time as phase 7
-does; print one JSON line.  Compare two versions on one card in one
+does; print one JSON line.  `--train` runs phase 10 alone.  Compare two versions on one card in one
 call, in turns: old, new, new, old.
 """
 
@@ -123,6 +144,12 @@ STREAM_WAVS, STREAM_BATCH = 24, 8
 DEC_B, DEC_T_IN, DEC_M = 8, 448, 1000
 CHUNK_SWEEP = (1, 8, 32, 64)
 GATE_SCALE = 1e3
+# phase 10: the card-vs-CPU Tacotron2 step's (B, T_in, T_out), the
+# WaveGlow segment; the trainers' wavs and iterations
+T2_CHECK = (2, 96, 96)
+WG_SEGMENT = 10000
+T2_TRAIN_WAVS, T2_VAL_WAVS, T2_TRAIN_ITERS = 24, 6, 20
+WG_TRAIN_WAVS, WG_TRAIN_ITERS = 18, 24
 
 
 def log(*a):
@@ -630,7 +657,8 @@ def profile_run(fn):
 
     # device kernels only: key_averages() would count each kernel again
     # under the aten op that launched it
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_us, reach = 0.0, float("-inf")
     for e in sorted(kernels, key=lambda e: e.time_range.start):
         start, end = e.time_range.start, e.time_range.end
@@ -1529,6 +1557,452 @@ def run_streaming_cli(tmp):
     return {"wall_s": wall, "wavs": len(wavs)}
 
 
+# ---------------------------------------------------------------- phase 10
+
+def t2_masks(cfg, B, T_in, T_out, seed):
+    """Every dropout keep-mask of one Tacotron2 training forward, in the
+    order `tacotron2_forward(masks=...)` takes them, as numpy bool arrays
+    (each device converts its own)."""
+    rng = np.random.RandomState(seed)
+    E, P, pe = (cfg.encoder_embedding_dim, cfg.prenet_dim,
+                cfg.postnet_embedding_dim)
+    shapes = [(B, T_in, cfg.symbols_embedding_dim)] * 2 \
+        + [(B, E, T_in)] * cfg.encoder_n_convolutions \
+        + [(B, T_out, P)] * 2
+    step = [(B, cfg.attention_rnn_dim, cfg.p_attention_dropout)] * 2 \
+        + [(B, cfg.decoder_rnn_dim, cfg.p_decoder_dropout)] * 2
+    masks = [rng.rand(*s) < 0.5 for s in shapes]
+    for _ in range(T_out):
+        masks += [rng.rand(b, d) < 1.0 - p for b, d, p in step if p > 0]
+    post = [(B, pe, T_out)] * (cfg.postnet_n_convolutions - 1) \
+        + [(B, cfg.n_acoustic_feat_dims, T_out)]
+    return masks + [rng.rand(*s) < 0.5 for s in post]
+
+
+def t2_train_batch(cfg, B, T_in, T_out, seed):
+    rng = np.random.RandomState(seed)
+    in_len = np.linspace(T_in, T_in * 0.6, B).astype(np.int64)
+    out_len = np.linspace(T_out, T_out * 0.6, B).astype(np.int64)
+    ppg = rng.rand(B, cfg.n_symbols, T_in).astype(np.float32)
+    ppg *= (np.arange(T_in)[None, None] < in_len[:, None, None])
+    mel = (rng.randn(B, cfg.n_acoustic_feat_dims, T_out) * 0.5 - 4).astype(
+        np.float32)
+    mel *= (np.arange(T_out)[None, None] < out_len[:, None, None])
+    gate = (np.arange(T_out)[None] >= (out_len - 1)[:, None]).astype(
+        np.float32)
+    return ppg, in_len, mel, gate, out_len
+
+
+STEP_WD, STEP_CLIP = 1e-6, 1.0  # the hparams' weight decay and clip
+
+
+class relu_inputs:
+    """Records every torch.relu input of the enclosed forward (a CPU
+    copy each, in call order): which side of the kink each element took."""
+
+    def __enter__(self):
+        self.inputs, self._relu = [], torch.relu
+
+        def relu(x):
+            self.inputs.append(x.detach().to("cpu", copy=True))
+            return self._relu(x)
+
+        torch.relu = relu
+        return self.inputs
+
+    def __exit__(self, *exc):
+        torch.relu = self._relu
+        return False
+
+
+def one_step(make_step, cfg, params, batch, device, lr, state=None,
+             masks=None, dtype=torch.float32):
+    """One train step of a fresh Adam on `device`, params, state and batch
+    in `dtype`: (loss, the gradients fed to the optimizer, the params
+    after it, the params before it, the relu inputs), all on the CPU."""
+    from fac_via_ppg_torch.train.optim import Optimizer
+    from fac_via_ppg_torch.utils.tree import tree_leaves, tree_map
+
+    class Capture(Optimizer):
+        def apply(self, opt_state, grads):
+            # copies: the optimizer clips the gradients in place
+            self.grads = [g.detach().to("cpu", copy=True) for g in grads]
+            return super().apply(opt_state, grads)
+
+    def put(x):
+        x = torch.as_tensor(x)
+        # a copy: the optimizer updates the params in place
+        return x.to(device, dtype if x.is_floating_point() else x.dtype,
+                    copy=True)
+
+    opt = Capture(lr, STEP_WD, STEP_CLIP)
+    params = tree_map(put, params)
+    before = [x.cpu() for x in tree_leaves(params)]
+    batch = tuple(put(x) for x in batch)
+    step = make_step(cfg, opt)
+    with relu_inputs() as pre:
+        if state is None:
+            out = step(params, opt.init(params), batch)
+        else:
+            out = step(params, tree_map(put, state), opt.init(params),
+                       batch, masks=masks)
+    return (float(out.loss), opt.grads,
+            [x.detach().cpu() for x in tree_leaves(out.params)], before,
+            pre)
+
+
+def hold_step_against_cpu(name, run, paths, lr, noise=()):
+    """A train step on the card against the same step on the CPU: the
+    loss to 1e-5 relative; each gradient leaf to 1e-4 of its norm (a leaf
+    under a path in `noise`, a conv bias that a training batch norm
+    follows, whose gradient is zero but for rounding: to 1e-4 of the
+    whole gradient's norm); the params after the step to 1e-5 wherever
+    the sign of the gradient Adam takes (g_eff = clip * g + wd * p) is
+    determined (|g_eff| above 10x its card-vs-CPU difference and above
+    100 eps), elsewhere to 2 lr, since Adam's first update is lr *
+    g_eff / (|g_eff| + eps), +-lr for any |g_eff| >> eps.
+
+    The gradient of a relu network is piecewise: where a relu input lies
+    within the two devices' rounding of zero, they differentiate
+    different pieces and a leaf upstream may differ by far more than
+    rounding.  The check counts the relu inputs whose sign differs
+    between the devices; the per-leaf gradient bound holds where there is
+    none (the f64 step is the one that holds it then)."""
+    t0 = time.time()
+    card = run("cuda")
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    cpu = run("cpu")
+    t_cpu = time.time() - t0
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+
+    def norm(grads):
+        return float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+
+    total = norm(cpu[1])
+    clip = [min(1.0, STEP_CLIP / (norm(r[1]) + 1e-6)) for r in (card, cpu)]
+    flips = sum(int(((a > 0) != (b > 0)).sum())
+                for a, b in zip(card[4], cpu[4]))
+    rels = []
+    p_det, p_und, n_und, n_all = 0.0, 0.0, 0, 0
+    for path, ga, gb, a, b, p0 in zip(paths, card[1], cpu[1], card[2],
+                                      cpu[2], cpu[3]):
+        is_noise = any(path.startswith(p) and path.endswith("conv/bias")
+                       for p in noise)
+        denom = total if is_noise else max(float(gb.norm()), 1e-30)
+        rels.append((float((ga - gb).norm()) / denom, path))
+        ea, eb = clip[0] * ga + STEP_WD * p0, clip[1] * gb + STEP_WD * p0
+        det = (eb.abs() > 10 * (ea - eb).abs()) & (eb.abs() > 1e-6)
+        err = (a - b).abs().double()
+        p_det = max(p_det, float(err[det].max()) if det.any() else 0.0)
+        if (~det).any():
+            p_und = max(p_und, float(err[~det].max()))
+        n_und += int((~det).sum())
+        n_all += det.numel()
+    rels.sort(reverse=True)
+    grad_rel = rels[0][0]
+    res = {"dtype": str(cpu[3][0].dtype), "loss_card": card[0],
+           "loss_cpu": cpu[0], "loss_rel": loss_rel,
+           "grad_rel_max": grad_rel, "grad_rel_worst": rels[:3],
+           "relu_sign_flips": flips, "grad_norm_cpu": total,
+           "param_max_abs_err": p_det,
+           "param_max_abs_err_sign_undetermined": p_und,
+           "sign_undetermined_share": n_und / n_all,
+           "card_s": t_card, "cpu_s": t_cpu}
+    log(f"train step {name}, card vs CPU: {json.dumps(res)}")
+    if not (np.isfinite(card[0]) and loss_rel <= 1e-5
+            and (grad_rel <= 1e-4 or flips > 0)
+            and p_det <= 1e-5 and p_und <= 2 * lr * (1 + 1e-3)):
+        raise AssertionError(f"{name} train step on the card disagrees "
+                             f"with the CPU: {res}")
+    return res
+
+
+def tree_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in tree_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def check_train_steps():
+    """Phase 10 (a): one Tacotron2 and one WaveGlow train step at full
+    width (TF32 off), card against CPU, from the same seeded params,
+    batch and injected masks.  Tacotron2 in f64, where its per-leaf
+    gradient bound always holds, and in f32, the dtype training runs;
+    WaveGlow, which has no relu, in f32."""
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        WaveGlowConfig,
+    )
+    from fac_via_ppg_torch.models import init_tacotron2, init_waveglow
+    from fac_via_ppg_torch.models.waveglow import weight_norm_params
+    from fac_via_ppg_torch.train.step import (
+        make_tacotron2_train_step,
+        make_waveglow_train_step,
+    )
+
+    lr = 1e-4
+    cfg = Tacotron2Config()
+    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(SEED))
+    B, T_in, T_out = T2_CHECK
+    batch = t2_train_batch(cfg, B, T_in, T_out, SEED + 21)
+    masks = t2_masks(cfg, B, T_in, T_out, SEED + 22)
+    wg_cfg = WaveGlowConfig()
+    g = torch.Generator().manual_seed(SEED + 23)
+    wg = init_waveglow(wg_cfg, g)
+    for wn in wg["wn"]:  # the end convs are zero at init
+        wn["end"]["weight"] = torch.randn(wn["end"]["weight"].shape,
+                                          generator=g) * 1e-2
+    wg = weight_norm_params(wg)
+    rng = np.random.RandomState(SEED + 24)
+    frames = WG_SEGMENT // wg_cfg.hop_length + 1  # the STFT's count
+    wg_batch = ((rng.randn(1, wg_cfg.n_mel_channels, frames) - 4).astype(
+        np.float32), (rng.randn(1, WG_SEGMENT) * 0.1).astype(np.float32))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        key = str(dtype).split(".")[1]
+        out[f"tacotron2_{key}"] = hold_step_against_cpu(
+            f"tacotron2 {key}", lambda dev: one_step(
+                make_tacotron2_train_step, cfg, params, batch, dev, lr,
+                state, masks, dtype), tree_paths(params), lr,
+            noise=("encoder/convolutions", "postnet/convolutions"))
+    if out["tacotron2_float64"]["grad_rel_max"] > 1e-4:
+        raise AssertionError("the f64 Tacotron2 gradients disagree")
+    # no relu: the f32 step holds every bound itself
+    out["waveglow_float32"] = hold_step_against_cpu(
+        "waveglow float32", lambda dev: one_step(
+            lambda c, o: make_waveglow_train_step(c, o, sigma=0.7071),
+            wg_cfg, wg, wg_batch, dev, lr), tree_paths(wg), lr)
+    return out
+
+
+def timed_steps(module, name, frames_of):
+    """Wrap `module.name`, a train-step factory, so that each step it
+    makes is timed between two synchronizes and its loss and frames
+    (`frames_of(batch)`) recorded; the fifth step also runs under the
+    profiler.  Returns (the records, the profile, a restore function)."""
+    orig = getattr(module, name)
+    rec, prof = [], {}
+
+    def factory(*a, **k):
+        step = orig(*a, **k)
+
+        def timed(*sa, **sk):
+            if len(rec) == 4 and not prof:
+                box = []
+                prof.update(profile_run(lambda: box.append(step(*sa, **sk))))
+                out = box[0]
+                rec.append((None, float(out.loss), None))
+                return out
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*sa, **sk)
+            torch.cuda.synchronize()
+            rec.append((time.perf_counter() - t, float(out.loss),
+                        frames_of(sa)))
+            return out
+
+        return timed
+
+    setattr(module, name, factory)
+    return rec, prof, lambda: setattr(module, name, orig)
+
+
+def train_summary(card, rec, prof, unit, resumed_first, wall):
+    times = [t for t, _, _ in rec if t is not None]
+    steady = times[3:] if len(times) > 3 else times
+    rates = [f / t for t, _, f in rec if t is not None][3:]
+    losses = [loss for _, loss, _ in rec]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    return {"card": card, "iterations": len(rec),
+            "s_per_iteration_median": float(np.median(steady)),
+            "s_per_iteration_min": float(min(steady)),
+            f"{unit}_per_s_median": float(np.median(rates)),
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "resumed_first_iteration": resumed_first, "wall_s": wall,
+            "busy_share": prof.get("busy_share"),
+            "profiled_step_wall_s": prof.get("wall_s_profiled"),
+            "top": prof.get("top", [])[:5]}
+
+
+def first_iteration(text, pattern):
+    import re
+
+    m = re.search(pattern, text)
+    return int(m.group(1)) if m else None
+
+
+def roundtrip(params, opt_state, tmp, model_state=None):
+    """The trained state through save_checkpoint / load_checkpoint, bit
+    for bit."""
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    path = f"{tmp}/roundtrip"
+    ckpt.save_checkpoint(path, params, opt_state, 1e-5, 7, model_state)
+    back = ckpt.load_checkpoint(path)
+    for a, b in zip(tree_leaves((params, model_state)),
+                    tree_leaves((back["params"], back.get("model_state")))):
+        if a is not None and not torch.equal(a.cpu(), b):
+            raise AssertionError("the checkpoint does not round-trip")
+    if back["opt_state"]["state"].keys() != \
+            opt_state.state_dict()["state"].keys():
+        raise AssertionError("the optimizer state does not round-trip")
+
+
+def run_train_ppg2mel(card, tmp):
+    """Phase 10 (b): train_ppg2mel.main in-process at create_hparams()'s
+    defaults (full PPG, batch 6, buckets of 128) on the substitute AM,
+    24 seeded 2-4 s training wavs and 6 validation wavs: 20 iterations,
+    validation and a checkpoint every 10, then auto-resume for 4 more;
+    in f32 and bf16."""
+    import contextlib
+    import io
+
+    from fac_via_ppg_torch.scripts import train_ppg2mel
+
+    wavs = write_wavs(tmp, n=T2_TRAIN_WAVS + T2_VAL_WAVS, seed=SEED + 31)
+    Path(f"{tmp}/train.txt").write_text(
+        "\n".join(wavs[:T2_TRAIN_WAVS]) + "\n")
+    Path(f"{tmp}/val.txt").write_text("\n".join(wavs[T2_TRAIN_WAVS:]) + "\n")
+    per_epoch = T2_TRAIN_WAVS // 6
+    # the training set is featurized once: the first run writes the
+    # reference's feature cache, the later ones read it
+    cache = dict(is_cache_feats=True, feats_cache_path=f"{tmp}/feats.pkl")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        run_dir = f"{tmp}/t2_{dtype}"
+        kw = dict(training_files=f"{tmp}/train.txt",
+                  validation_files=f"{tmp}/val.txt",
+                  output_directory=run_dir, train_dtype=dtype,
+                  iters_per_checkpoint=10, **cache)
+        rec, prof, restore = timed_steps(
+            train_ppg2mel, "make_tacotron2_train_step",
+            lambda sa: int(sa[3][4].sum()))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                params, state, opt_state, it = train_ppg2mel.main(
+                    epochs=T2_TRAIN_ITERS // per_epoch, **kw)
+                wall = time.time() - t0
+                n_first = len(rec)
+                kw.update(is_cache_feats=False, load_feats_from_disk=True)
+                cache = dict(feats_cache_path=kw["feats_cache_path"],
+                             load_feats_from_disk=True)
+                print("--- resume ---")
+                _, _, _, it2 = train_ppg2mel.main(
+                    epochs=10 // per_epoch + 1, checkpoint_path="auto", **kw)
+        finally:
+            restore()
+        text = buf.getvalue()
+        resumed = first_iteration(text.split("--- resume ---")[1],
+                                  r"Train loss (\d+) ")
+        lines = text.splitlines()
+        log(f"ppg2mel {dtype}: {len(lines)} lines of output; "
+            + " | ".join(line for line in lines
+                         if line.startswith(("Validation", "Loaded"))))
+        if it != T2_TRAIN_ITERS or resumed != 11 or \
+                it2 != 11 + per_epoch or len(rec) - n_first != per_epoch:
+            raise AssertionError(f"ppg2mel {dtype}: iterations {it}, "
+                                 f"resumed at {resumed} to {it2}")
+        roundtrip(params, opt_state, tmp, state)
+        res = train_summary(card, rec[:n_first], prof, "mel_frames",
+                            resumed, wall)
+        res["resumed_iterations"] = it2 - 11
+        res["validation_losses"] = [float(line.split()[3]) for line in lines
+                                    if line.startswith("Validation loss")]
+        log(f"train ppg2mel {dtype}: " + json.dumps(res))
+        out[dtype] = res
+    return out
+
+
+def run_train_waveglow(card, tmp):
+    """Phase 10 (c): train_waveglow.main in-process at the full
+    WaveGlowConfig (12 flows x 8 layers, C = 256), batch 3, segments of
+    10000 samples, 18 seeded wavs: 24 iterations, a checkpoint every 10,
+    then auto-resume; in f32 and bf16."""
+    import contextlib
+    import io
+
+    from fac_via_ppg_torch.configs import DEFAULT_WAVEGLOW_CONFIG_PATH
+    from fac_via_ppg_torch.scripts import train_waveglow
+
+    wavs = write_wavs(tmp, n=WG_TRAIN_WAVS, seed=SEED + 41)
+    Path(f"{tmp}/wg.txt").write_text("\n".join(wavs) + "\n")
+    per_epoch = WG_TRAIN_WAVS // 3
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        config = json.loads(Path(DEFAULT_WAVEGLOW_CONFIG_PATH).read_text())
+        config["train_config"].update(
+            output_directory=f"{tmp}/wg_{dtype}", train_dtype=dtype,
+            iters_per_checkpoint=10, epochs=WG_TRAIN_ITERS // per_epoch)
+        config["data_config"].update(training_files=f"{tmp}/wg.txt",
+                                     segment_length=WG_SEGMENT)
+        cfg_path = f"{tmp}/wg_{dtype}.json"
+        Path(cfg_path).write_text(json.dumps(config))
+        rec, prof, restore = timed_steps(
+            train_waveglow, "make_waveglow_train_step",
+            lambda sa: sa[2][1].numel())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                params, opt_state, it = train_waveglow.main(cfg_path)
+                wall = time.time() - t0
+                n_first = len(rec)
+                _, _, it2 = train_waveglow.main(cfg_path,
+                                                checkpoint_path="auto")
+        finally:
+            restore()
+        log(f"waveglow {dtype}: {len(buf.getvalue().splitlines())} lines "
+            "of output")
+        last = (WG_TRAIN_ITERS - 1) // 10 * 10
+        if it != WG_TRAIN_ITERS or len(rec) - n_first != it2 - last - 1:
+            raise AssertionError(f"waveglow {dtype}: iterations {it}, "
+                                 f"resumed to {it2}")
+        roundtrip(params, opt_state, tmp)
+        res = train_summary(card, rec[:n_first], prof, "samples", last + 1,
+                            wall)
+        res["resumed_iterations"] = it2 - last - 1
+        log(f"train waveglow {dtype}: " + json.dumps(res))
+        out[dtype] = res
+    return out
+
+
+def run_training(card):
+    """Phase 10: (a) card against CPU, (b) the PPG->mel trainer, (c) the
+    vocoder trainer, each in f32 and bf16."""
+    t0 = time.time()
+    steps = check_train_steps()
+    with tempfile.TemporaryDirectory() as tmp:
+        t2 = run_train_ppg2mel(card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        wg = run_train_waveglow(card, tmp)
+    log("train ppg2mel: " + json.dumps(
+        {"card": card, **{k: {f: v[f] for f in (
+            "s_per_iteration_median", "mel_frames_per_s_median",
+            "max_memory_allocated_gb", "first_loss", "last_loss",
+            "busy_share", "top")} for k, v in t2.items()}}))
+    log("train waveglow: " + json.dumps(
+        {"card": card, **{k: {f: v[f] for f in (
+            "s_per_iteration_median", "samples_per_s_median",
+            "max_memory_allocated_gb", "first_loss", "last_loss",
+            "busy_share", "top")} for k, v in wg.items()}}))
+    log(f"phase 10: {time.time() - t0:.1f} s")
+    return steps, t2, wg
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
@@ -1540,6 +2014,8 @@ def main():
     ap.add_argument("--time-f32", metavar="CHECKOUT",
                     help="only check and time both kernels' f32 forms of "
                     "the port in CHECKOUT at the synthesis CLI's shape")
+    ap.add_argument("--train", action="store_true",
+                    help="only run phase 10, the trainers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1561,6 +2037,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
+    if args.train:
+        run_training(card)
+        return 0
 
     reports = build_kernels((wl, wf))
     layer_res = kernel_resources(wl, reports[0], "wn_layer_bf16_kernel")
@@ -1644,6 +2123,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         stream_cli = run_streaming_cli(tmp)
     log("stream cli: " + json.dumps({"card": card, **stream_cli}))
+    run_training(card)
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",

@@ -6,9 +6,11 @@ surface (`src/common/hparams.py:40-241` in guanlongzhao/fac-via-ppg): the
 same keys, the same defaults, the same unknown-key rejection, the same
 frozen Interspeech'19 "stage" variant.  The JAX package's extension keys
 are accepted too, so that every config written for it stays valid here.
-Of all the keys, the port's inference entry points read the model widths,
-the audio parameters, `seed` and `compute_dtype` (the WaveGlow serving
-dtype, float32 | bfloat16); the rest are accepted and stored.
+The port's inference entry points read the model widths, the audio
+parameters, `seed` and `compute_dtype` (the WaveGlow serving dtype,
+float32 | bfloat16); the PPG->mel trainer also reads the data,
+optimization and training keys; the CUDA-era keys (`fp16_run`,
+`distributed_run`, `dist_*`, `cudnn_*`) are accepted and stored.
 """
 
 from __future__ import annotations
@@ -117,9 +119,10 @@ _DEFAULTS: Dict[str, Any] = {
 }
 
 # The JAX package's extension keys (absent from the reference), with its
-# defaults.  The port reads only `compute_dtype`; the training, sharding,
-# profiling and compilation-cache keys belong to modules it has not ported
-# yet.
+# defaults.  The serving paths read `compute_dtype`, the trainers the
+# training and profiling keys; the sharding and compilation-cache keys
+# belong to modules the port has not ported yet, and the trainers raise
+# on them.
 _EXTENSIONS: Dict[str, Any] = {
     # WaveGlow serving dtype of the synthesis CLIs: "float32" or "bfloat16"
     # (the flows in that dtype with f32 accumulation, the 1x1 inverses f32).

@@ -1,4 +1,5 @@
-"""Tacotron2-variant PPG->mel model, inference only (torch).
+"""Tacotron2-variant PPG->mel model: inference and the teacher-forced
+forward (torch).
 
 The port of fac_via_ppg_tpu/models/tacotron2.py (reference
 src/common/model.py:44-610).  Parameters are the same nested dictionaries
@@ -22,19 +23,26 @@ them); layouts are torch's.
     every step are drawn before the loop, one (M, layers, B, prenet_dim)
     tensor, so a step consumes no randomness.  Every other dropout is off
     at inference.
+  * Training: `tacotron2_forward`, the teacher-forced forward
+    (model.py:580-595) with training-mode batch norm and every dropout of
+    the JAX package's forward (encoder convs, prenet, the attention and
+    decoder LSTM states, postnet), whose masks are injected in the JAX
+    package's call order or drawn, the decoder steps' before the loop.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from fac_via_ppg_torch.configs.hparams import Tacotron2Config
 from fac_via_ppg_torch.models import decode_graph
 from fac_via_ppg_torch.ops.layers import (
-    batchnorm,
+    batchnorm_apply,
     batchnorm_params,
     batchnorm_state,
     conv1d,
@@ -127,26 +135,33 @@ def init_tacotron2(cfg: Tacotron2Config, generator: torch.Generator):
 # building blocks
 # ==========================================================================
 
+def _next_mask(masks: Optional[Iterator]):
+    return None if masks is None else next(masks)
+
+
 def prenet_apply(p: dict, x: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  masks: Optional[Iterator] = None) -> torch.Tensor:
     """relu+dropout(0.5) MLP; dropout always on (model.py:132-135)."""
     for layer in p["layers"]:
         x = dropout(torch.relu(linear(layer, x)), 0.5,
-                    keep_mask=None if masks is None else next(masks),
+                    keep_mask=_next_mask(masks),
                     generator=generator)
     return x
 
 
-def encoder_apply(params, state, ppg, input_lengths,
-                  generator: Optional[torch.Generator] = None,
-                  masks: Optional[Iterator] = None,
-                  mask_convs: bool = True) -> torch.Tensor:
-    """(B, n_symbols, T_in) -> memory (B, T_in, E), inference mode.
+def encoder_forward(params, state, ppg, input_lengths, training: bool,
+                    generator: Optional[torch.Generator] = None,
+                    masks: Optional[Iterator] = None,
+                    mask_convs: bool = False):
+    """(B, n_symbols, T_in) -> (memory (B, T_in, E), new encoder state).
 
-    `mask_convs` zeroes activations beyond each sequence's length before
-    every conv so a bucket-padded input reproduces the unpadded
-    computation (conv biases otherwise leak across the boundary)."""
+    `training` runs batch norm on the batch's statistics and dropout(0.5)
+    after each conv's relu.  `mask_convs` zeroes activations beyond each
+    sequence's length before every conv, so that a bucket-padded input
+    reproduces the unpadded computation (conv biases otherwise leak
+    across the boundary); it stays off in training, as in the JAX package
+    and the reference (model.py:215-235)."""
     p, s = params["encoder"], state["encoder"]
     x = prenet_apply(p["prenet"], ppg.transpose(1, 2), generator, masks)
     x = x.transpose(1, 2)  # (B, E, T)
@@ -155,35 +170,68 @@ def encoder_apply(params, state, ppg, input_lengths,
         valid = (torch.arange(x.shape[2], device=x.device)[None, None, :]
                  < input_lengths[:, None, None])
     zero = x.new_zeros(())
+    new_bn = []
     for conv_p, bn_s in zip(p["convolutions"], s["convolutions"]):
         if valid is not None:
             x = torch.where(valid, x, zero)
         k = conv_p["conv"]["weight"].shape[2]
         x = conv1d(conv_p["conv"], x, padding=(k - 1) // 2)
-        x = torch.relu(batchnorm(conv_p["bn"], bn_s, x))
-    return bidirectional_lstm(p["lstm_fwd"], p["lstm_bwd"], x.transpose(1, 2),
-                              input_lengths)
+        x, bn_new = batchnorm_apply(conv_p["bn"], bn_s, x, training)
+        new_bn.append(bn_new)
+        x = torch.relu(x)
+        if training:
+            x = dropout(x, 0.5, keep_mask=_next_mask(masks),
+                        generator=generator)
+    memory = bidirectional_lstm(p["lstm_fwd"], p["lstm_bwd"],
+                                x.transpose(1, 2), input_lengths)
+    return memory, {"convolutions": new_bn}
 
 
-def postnet_apply(params, state, mel, valid_mask=None) -> torch.Tensor:
-    """(B, 80, T) -> residual (B, 80, T), inference mode.
+def encoder_apply(params, state, ppg, input_lengths,
+                  generator: Optional[torch.Generator] = None,
+                  masks: Optional[Iterator] = None,
+                  mask_convs: bool = True) -> torch.Tensor:
+    """(B, n_symbols, T_in) -> memory (B, T_in, E), inference mode, the
+    convs masked by default."""
+    return encoder_forward(params, state, ppg, input_lengths, False,
+                           generator, masks, mask_convs)[0]
 
-    `valid_mask` (B, 1, T) zeroes each conv's input beyond the produced
-    length, reproducing torch's zero padding at the shorter sequence."""
+
+def postnet_forward(params, state, mel, training: bool,
+                    generator: Optional[torch.Generator] = None,
+                    masks: Optional[Iterator] = None, valid_mask=None):
+    """(B, 80, T) -> (residual (B, 80, T), new postnet state).
+
+    `training` runs batch norm on the batch's statistics and dropout(0.5)
+    after every conv.  `valid_mask` (B, 1, T) zeroes each conv's input
+    beyond the produced length, reproducing torch's zero padding at the
+    shorter sequence."""
     p, s = params["postnet"], state["postnet"]
     x = mel
     n = len(p["convolutions"])
     zero = x.new_zeros(())
+    new_bn = []
     for i, (conv_p, bn_s) in enumerate(zip(p["convolutions"],
                                            s["convolutions"])):
         if valid_mask is not None:
             x = torch.where(valid_mask, x, zero)
         k = conv_p["conv"]["weight"].shape[2]
-        x = batchnorm(conv_p["bn"], bn_s,
-                      conv1d(conv_p["conv"], x, padding=(k - 1) // 2))
+        x, bn_new = batchnorm_apply(
+            conv_p["bn"], bn_s,
+            conv1d(conv_p["conv"], x, padding=(k - 1) // 2), training)
+        new_bn.append(bn_new)
         if i < n - 1:
             x = torch.tanh(x)
-    return x
+        if training:
+            x = dropout(x, 0.5, keep_mask=_next_mask(masks),
+                        generator=generator)
+    return x, {"convolutions": new_bn}
+
+
+def postnet_apply(params, state, mel, valid_mask=None) -> torch.Tensor:
+    """(B, 80, T) -> residual (B, 80, T), inference mode."""
+    return postnet_forward(params, state, mel, False,
+                           valid_mask=valid_mask)[0]
 
 
 def windowed_attention_mask(lengths, window: int, t: torch.Tensor,
@@ -239,14 +287,24 @@ def init_decoder_state(cfg: Tacotron2Config, memory: torch.Tensor):
     )
 
 
+def _drop(x: torch.Tensor, rate: float, keep_mask) -> torch.Tensor:
+    return x if keep_mask is None else dropout(x, rate, keep_mask=keep_mask)
+
+
 def decode_step(cfg: Tacotron2Config, p_dec, ds: DecoderState, prenet_frame,
-                memory, processed_memory, memory_lengths, t: torch.Tensor):
-    """One decoder step at inference (model.py:387-442), `t` an int64
-    tensor of shape ().  Returns (state, mel, gate, attention weights)."""
+                memory, processed_memory, memory_lengths, t: torch.Tensor,
+                drop=None):
+    """One decoder step (model.py:387-442), `t` an int64 tensor of shape
+    ().  `drop` (training) holds the step's keep-masks of att_h, att_c,
+    dec_h and dec_c, each None where its rate is 0.  Returns (state, mel,
+    gate, attention weights)."""
     T_in = memory.shape[1]
+    drop = drop or (None,) * 4
     cell_in = torch.cat([prenet_frame, ds.att_context], dim=-1)
     att_h, att_c = lstm_cell(p_dec["attention_rnn"], cell_in, ds.att_h,
                              ds.att_c)
+    att_h = _drop(att_h, cfg.p_attention_dropout, drop[0])
+    att_c = _drop(att_c, cfg.p_attention_dropout, drop[1])
     if cfg.attention_window_size >= 0:
         allowed = windowed_attention_mask(
             memory_lengths, cfg.attention_window_size, t, T_in)
@@ -260,12 +318,120 @@ def decode_step(cfg: Tacotron2Config, p_dec, ds: DecoderState, prenet_frame,
     dec_h, dec_c = lstm_cell(p_dec["decoder_rnn"],
                              torch.cat([att_h, context], dim=-1),
                              ds.dec_h, ds.dec_c)
+    dec_h = _drop(dec_h, cfg.p_decoder_dropout, drop[2])
+    dec_c = _drop(dec_c, cfg.p_decoder_dropout, drop[3])
     proj_in = torch.cat([dec_h, context], dim=-1)
     mel_frame = linear(p_dec["linear_projection"], proj_in)
     gate = linear(p_dec["gate_layer"], proj_in)[:, 0]
     new_state = DecoderState(att_h, att_c, dec_h, dec_c, weights,
                              weights_cum, context)
     return new_state, mel_frame, gate, weights
+
+
+# ==========================================================================
+# teacher-forced forward (training)
+# ==========================================================================
+
+def _as_mask(m, device) -> torch.Tensor:
+    if isinstance(m, torch.Tensor):
+        return m.to(device, torch.bool)
+    return torch.tensor(np.asarray(m), dtype=torch.bool, device=device)
+
+
+def decoder_state_masks(cfg: Tacotron2Config, B: int, T_out: int, device,
+                        generator: Optional[torch.Generator] = None,
+                        masks: Optional[Iterator] = None) -> list:
+    """Every training step's keep-masks of att_h, att_c, dec_h and dec_c:
+    four (T_out, B, dim) bool tensors (None where the rate is 0), drawn
+    before the loop from `generator`, or taken from `masks` in the JAX
+    package's call order (per step: att_h, att_c, dec_h, dec_c)."""
+    specs = [(cfg.p_attention_dropout, cfg.attention_rnn_dim)] * 2 \
+        + [(cfg.p_decoder_dropout, cfg.decoder_rnn_dim)] * 2
+    live = [i for i, (rate, _) in enumerate(specs) if rate > 0]
+    out = [None] * 4
+    if masks is not None:
+        rec = list(itertools.islice(masks, T_out * len(live)))
+        if len(rec) != T_out * len(live):
+            raise ValueError(f"{len(rec)} injected decoder-state masks for "
+                             f"{T_out} steps of {len(live)}")
+        for j, i in enumerate(live):
+            out[i] = torch.stack([_as_mask(m, device)
+                                  for m in rec[j::len(live)]])
+        return out
+    for i in live:
+        rate, dim = specs[i]
+        out[i] = torch.rand((T_out, B, dim), generator=generator,
+                            device=device) < 1.0 - rate
+    return out
+
+
+def tacotron2_forward(cfg: Tacotron2Config, params, state,
+                      ppg_padded: torch.Tensor,
+                      input_lengths: torch.Tensor,
+                      mel_targets: torch.Tensor,
+                      output_lengths: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      masks: Optional[Iterator] = None,
+                      training: bool = True, remat: bool = False):
+    """Teacher-forced forward (model.py:580-595; JAX `models/
+    tacotron2.py:318-404`): (B, n_symbols, T_in) PPG, (B, 80, T_out)
+    teacher mel.  Returns ((mel_out, mel_out_postnet, gate_out,
+    alignments), new_state), padding-masked as parse_output does
+    (model.py:566-578).
+
+    `training` runs batch norm on batch statistics and every dropout
+    (encoder convs 0.5, the attention / decoder LSTM states, postnet 0.5);
+    the prenet's is always on.  Keep-masks come from `masks` (an iterator
+    in the JAX package's call order: encoder prenet 2, encoder convs,
+    decoder prenet 2 over the whole sequence, 4 a step, postnet) or from
+    `generator`; the steps' masks are all drawn before the loop, so that
+    `remat=True` (each step under torch.utils.checkpoint, recomputed in
+    the backward pass from its carry) replays the same step."""
+    B, D, T_out = mel_targets.shape
+    dev = mel_targets.device
+    memory, enc_state = encoder_forward(params, state, ppg_padded,
+                                        input_lengths, training, generator,
+                                        masks, mask_convs=False)
+    p_dec = params["decoder"]
+    processed = linear(p_dec["attention"]["memory"], memory)
+    # go frame + teacher frames shifted right, the prenet applied to the
+    # whole sequence up front (model.py:459-462)
+    dec_in = torch.cat([mel_targets.new_zeros((B, 1, D)),
+                        mel_targets.transpose(1, 2)[:, :-1]], dim=1)
+    dec_in = prenet_apply(p_dec["prenet"], dec_in, generator, masks)
+    drops = (decoder_state_masks(cfg, B, T_out, dev, generator, masks)
+             if training else [None] * 4)
+    ds = init_decoder_state(cfg, memory)
+    ts = torch.arange(T_out, device=dev)
+    mels, gates, aligns = [], [], []
+    for t in range(T_out):
+        drop_t = tuple(None if d is None else d[t] for d in drops)
+        args = (cfg, p_dec, ds, dec_in[:, t], memory, processed,
+                input_lengths, ts[t], drop_t)
+        if remat:
+            ds, mel_f, gate_f, att_w = checkpoint(
+                decode_step, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            ds, mel_f, gate_f, att_w = decode_step(*args)
+        mels.append(mel_f)
+        gates.append(gate_f)
+        aligns.append(att_w)
+    mel_out = torch.stack(mels, dim=2)          # (B, 80, T_out)
+    gate_out = torch.stack(gates, dim=1)        # (B, T_out)
+    alignments = torch.stack(aligns, dim=1)     # (B, T_out, T_in)
+
+    residual, post_state = postnet_forward(params, state, mel_out, training,
+                                           generator, masks)
+    mel_post = mel_out + residual
+    if cfg.mask_padding:
+        valid = ts[None, :] < output_lengths[:, None]
+        zero = mel_out.new_zeros(())
+        mel_out = torch.where(valid[:, None], mel_out, zero)
+        mel_post = torch.where(valid[:, None], mel_post, zero)
+        gate_out = torch.where(valid, gate_out, gate_out.new_full((), 1e3))
+    new_state = {"encoder": enc_state, "postnet": post_state}
+    return (mel_out, mel_post, gate_out, alignments), new_state
 
 
 # ==========================================================================
@@ -325,9 +491,7 @@ def decoder_prenet_masks(cfg: Tacotron2Config, n_layers: int, B: int,
     if masks is None:
         return torch.rand((M, n_layers, B, P), generator=generator,
                           device=device) < 0.5
-    rest = [m.to(device, torch.bool) if isinstance(m, torch.Tensor)
-            else torch.tensor(np.asarray(m), dtype=torch.bool, device=device)
-            for m in masks]
+    rest = [_as_mask(m, device) for m in masks]
     n = len(rest) // n_layers
     if len(rest) % n_layers or n > M:
         raise ValueError(f"{len(rest)} injected decoder masks are not "

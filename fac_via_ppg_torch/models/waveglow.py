@@ -1,4 +1,5 @@
-"""WaveGlow normalizing-flow vocoder, inference only (torch).
+"""WaveGlow normalizing-flow vocoder (torch): inference, and the training
+forward `waveglow_forward`.
 
 The port of fac_via_ppg_tpu/models/waveglow.py (reference
 src/waveglow/glow.py:62-311).  Parameters are the JAX package's
@@ -21,6 +22,11 @@ Three coupling-net implementations:
 The cond projection runs dense or, with `cond_impl="int8"`, as an int8
 matmul with int32 accumulation (per-column activation scales,
 per-out-channel weight scales) and exact dequantization.
+
+Training takes the train form (`weight_norm_params`): every WN conv but
+the end conv as weight-norm (g, v, bias), folded inside the forward's
+autograd graph with the f32 norm and run on the conv formulation
+(`wn_apply`), as the JAX package trains on its XLA convs.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 from fac_via_ppg_torch.ops.layers import conv1d
 from fac_via_ppg_torch.ops.wn_flow import pack_wn_flow, wn_flow
@@ -40,6 +48,7 @@ from fac_via_ppg_torch.ops.wn_layer import (
     pack_in_weight,
     wn_layer,
 )
+from fac_via_ppg_torch.weights import fold_wn
 
 
 def flow_channels(cfg: WaveGlowConfig) -> List[int]:
@@ -106,6 +115,27 @@ def init_waveglow(cfg: WaveGlowConfig, generator: torch.Generator):
     return params
 
 
+def weight_norm_params(params):
+    """The folded form -> the train form: every WN conv but the zero end
+    conv split as torch.nn.utils.weight_norm(dim=0) does, g = ||w|| per
+    output channel and v = w (JAX `_weight_norm_init`)."""
+    def split(p):
+        w = p["weight"]
+        return {"g": torch.sqrt(torch.sum(w ** 2, dim=(1, 2))), "v": w,
+                "bias": p["bias"]}
+
+    out = {"upsample": params["upsample"], "convinv": params["convinv"],
+           "wn": []}
+    for wn in params["wn"]:
+        out["wn"].append({
+            "start": split(wn["start"]), "end": wn["end"],
+            "in_layers": [split(p) for p in wn["in_layers"]],
+            "cond_layers": [split(p) for p in wn["cond_layers"]],
+            "res_skip_layers": [split(p) for p in wn["res_skip_layers"]],
+        })
+    return out
+
+
 def remove_weightnorm(params):
     """Adds the f32 1x1 inverses `convinv[k].weight_inverse`
     (glow.py:295-311).  Weight norm is already folded in the port's form."""
@@ -167,6 +197,13 @@ def group_spect(spect_up: torch.Tensor, n_group: int) -> torch.Tensor:
     G = T // n_group
     x = spect_up[:, :, :G * n_group].reshape(B, M, G, n_group)
     return x.permute(0, 2, 1, 3).reshape(B, G, M * n_group).transpose(1, 2)
+
+
+def group_audio(audio: torch.Tensor, n_group: int) -> torch.Tensor:
+    """(B, T) -> (B, n_group, T/n_group) (reference glow.py:224)."""
+    B, T = audio.shape
+    G = T // n_group
+    return audio[:, :G * n_group].reshape(B, G, n_group).transpose(1, 2)
 
 
 def ungroup_audio(audio: torch.Tensor) -> torch.Tensor:
@@ -368,6 +405,58 @@ def wn_apply_flow(cfg: WaveGlowConfig, packed: dict,
     else:
         cond = _cond_int8(*cond_int8, dt)
     return wn_flow(packed, audio_half.contiguous(), cond)
+
+
+# ==========================================================================
+# forward (training)
+# ==========================================================================
+
+def _flow_forward(cfg: WaveGlowConfig, w: torch.Tensor, wn: dict,
+                  audio_g: torch.Tensor, spect_g: torch.Tensor):
+    """One flow: the 1x1 conv (its log-determinant in f32 whatever the
+    dtype), then the affine coupling on the folded net."""
+    n_half = audio_g.shape[1] // 2
+    logdet = torch.linalg.slogdet(w.float())[1]
+    mixed = torch.einsum("oc,bct->bot", w.float(),
+                         audio_g.float()).to(audio_g.dtype)
+    audio_0, audio_1 = mixed[:, :n_half], mixed[:, n_half:]
+    wn_out = wn_apply(cfg, fold_wn(wn), audio_0, spect_g)
+    log_s, b = wn_out[:, n_half:], wn_out[:, :n_half]
+    audio_1 = torch.exp(log_s) * audio_1 + b
+    return torch.cat([audio_0, audio_1], dim=1), log_s, logdet
+
+
+def waveglow_forward(cfg: WaveGlowConfig, params, spect: torch.Tensor,
+                     audio: torch.Tensor, remat: bool = False):
+    """((B, 80, F) mel, (B, T) audio) -> (z, log_s_list, log_det_w_list)
+    (reference glow.py:215-250; JAX `models/waveglow.py:703-778`).
+
+    `params` is the train form (weight_norm_params).  `remat=True` runs
+    each flow under torch.utils.checkpoint: the backward pass recomputes
+    the flow's WN activations instead of keeping them."""
+    T = audio.shape[1]
+    spect_up = upsample_phase_matmul(params["upsample"], spect,
+                                     cfg.hop_length)
+    spect_g = group_spect(spect_up[:, :, :T], cfg.n_group)
+    audio_g = group_audio(audio, cfg.n_group)
+    B, _, G = audio_g.shape
+    chunks, log_s_list, log_det_list = [], [], []
+    for k in range(cfg.n_flows):
+        if k % cfg.n_early_every == 0 and k > 0:
+            chunks.append(audio_g[:, :cfg.n_early_size])
+            audio_g = audio_g[:, cfg.n_early_size:]
+        args = (cfg, params["convinv"][k]["weight"], params["wn"][k],
+                audio_g, spect_g)
+        if remat:
+            audio_g, log_s, logdet = checkpoint(
+                _flow_forward, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            audio_g, log_s, logdet = _flow_forward(*args)
+        log_det_list.append(B * G * logdet)
+        log_s_list.append(log_s)
+    chunks.append(audio_g)
+    return torch.cat(chunks, dim=1), log_s_list, log_det_list
 
 
 # ==========================================================================

@@ -37,13 +37,44 @@ def conv1d(p: dict, x: torch.Tensor, padding: int = 0,
                     dilation=dilation)
 
 
+def _normalize(p: dict, mean: torch.Tensor, var: torch.Tensor,
+               x: torch.Tensor, eps: float) -> torch.Tensor:
+    inv = torch.rsqrt(var.float() + eps)
+    scale = (inv * p["weight"].float())[None, :, None].to(x.dtype)
+    y = (x - mean.to(x.dtype)[None, :, None]) * scale
+    return (y + p["bias"][None, :, None]).to(x.dtype)
+
+
 def batchnorm(p: dict, state: dict, x: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """Eval-mode BatchNorm1d over (B, C, T) with running statistics."""
-    inv = torch.rsqrt(state["running_var"].float() + eps)
-    scale = (inv * p["weight"].float())[None, :, None].to(x.dtype)
-    y = (x - state["running_mean"].to(x.dtype)[None, :, None]) * scale
-    return (y + p["bias"][None, :, None]).to(x.dtype)
+    return _normalize(p, state["running_mean"], state["running_var"], x,
+                      eps)
+
+
+def batchnorm_apply(p: dict, state: dict, x: torch.Tensor, training: bool,
+                    momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm1d over (B, C, T), torch semantics (JAX
+    `ops/initializers.py::batchnorm_apply`).  Returns (y, new_state).
+
+    Training normalizes with the biased batch statistics, computed in f32
+    whatever x's dtype, and updates the running statistics with momentum
+    and the unbiased variance; the new state is detached (it is no
+    function of the loss).  Eval mode is `batchnorm`."""
+    if not training:
+        return batchnorm(p, state, x, eps), state
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2))
+    var = ((xf - mean[None, :, None]) ** 2).mean(dim=(0, 2))
+    n = x.shape[0] * x.shape[2]
+    unbiased = (var * n / max(n - 1, 1)).detach()
+    new_state = {
+        "running_mean": (1 - momentum) * state["running_mean"]
+        + momentum * mean.detach(),
+        "running_var": (1 - momentum) * state["running_var"]
+        + momentum * unbiased,
+    }
+    return _normalize(p, mean, var, x, eps), new_state
 
 
 def lstm_cell(p: dict, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

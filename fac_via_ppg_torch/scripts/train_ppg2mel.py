@@ -1,0 +1,293 @@
+"""PPG -> mel (Tacotron2) trainer (the port of
+fac_via_ppg_tpu/scripts/train_ppg2mel.py; reference
+src/script/train_ppg2mel.py:180-305), on one device.
+
+As the reference: the hparams written to output_dir/hparams.txt, the
+datasets featurized up front, resume or warm start from a checkpoint
+(epoch_offset from the iteration), per-iteration loss / grad-norm /
+duration lines, validation and a checkpoint every `iters_per_checkpoint`.
+Also as the JAX package: `checkpoint_path='auto'` (the newest checkpoint
+of the run), length-bucketed batches (`length_bucket_size`), LR
+schedules, `train_dtype` bfloat16, `grad_accum_steps`, `remat`, async
+checkpoint saves, a final checkpoint on SIGTERM, the next batch collated
+and copied to the device while a step runs.
+
+Each iteration's dropout masks come from a generator seeded with (seed,
+iteration), and a resumed run takes up the epoch's shuffle where it
+stood, so resuming at an epoch boundary continues the run as if it had
+not stopped.  Data / tensor parallelism, ZeRO-1 and the compilation cache
+are not ported (ROADMAP queue 1 items 6-7) and raise.
+
+    python -m fac_via_ppg_torch.scripts.train_ppg2mel key=value ...
+
+(options are create_hparams' keys, plus `device`; the card by default).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from pprint import pprint
+
+import torch
+
+from fac_via_ppg_torch.configs.hparams import Tacotron2Config, create_hparams
+from fac_via_ppg_torch.data.ppg_mel_dataset import (
+    EpochBatcher,
+    PPGMelDataset,
+    ppg_acoustics_collate,
+)
+from fac_via_ppg_torch.data.prefetch import prefetch, to_device
+from fac_via_ppg_torch.models.tacotron2 import init_tacotron2
+from fac_via_ppg_torch.train import checkpoint as ckpt
+from fac_via_ppg_torch.train import preemption
+from fac_via_ppg_torch.train.logger import Tacotron2Logger
+from fac_via_ppg_torch.train.optim import (
+    make_lr_schedule,
+    make_optimizer,
+    set_learning_rate,
+)
+from fac_via_ppg_torch.train.profiling import trace
+from fac_via_ppg_torch.train.step import (
+    make_tacotron2_eval_step,
+    make_tacotron2_train_step,
+)
+from fac_via_ppg_torch.utils.device import resolve_device
+from fac_via_ppg_torch.weights import move
+
+
+def check_single_device(data_parallel_devices, tensor_parallel_devices,
+                        zero_sharded_opt_state, compilation_cache_dir):
+    """Raise on the JAX package's options the port has not ported."""
+    if data_parallel_devices not in ("", None, 1) or \
+            int(tensor_parallel_devices or 1) > 1 or zero_sharded_opt_state:
+        raise ValueError(
+            "data / tensor parallel training and ZeRO-1 are not ported "
+            "yet (ROADMAP queue 1 item 6: multi-GPU); the port trains on "
+            "one device")
+    if compilation_cache_dir:
+        raise ValueError("compilation_cache_dir is not ported yet (ROADMAP "
+                         "queue 1 item 7: tooling)")
+
+
+def step_generator(device, seed: int, iteration: int) -> torch.Generator:
+    """The generator of one iteration's dropout masks."""
+    return torch.Generator(device).manual_seed(seed * 1_000_003 + iteration)
+
+
+def prepare_dataloaders(hparams, device):
+    trainset = PPGMelDataset(hparams.training_files, hparams, device=device)
+    hparams.load_feats_from_disk = False
+    hparams.is_cache_feats = False
+    hparams.feats_cache_path = ""
+    valset = PPGMelDataset(hparams.validation_files, hparams,
+                           deps=getattr(trainset, "ppg_deps", None),
+                           device=device)
+    train_loader = EpochBatcher(
+        trainset, hparams.batch_size, hparams.seed, ppg_acoustics_collate,
+        drop_last=True, pad_to=hparams.length_bucket_size)
+    return train_loader, valset
+
+
+def validate(eval_step, params, model_state, valset, iteration, batch_size,
+             logger, pad_to, device):
+    """The validation loss, in f32 whatever the training dtype."""
+    loader = EpochBatcher(valset, batch_size, 0, ppg_acoustics_collate,
+                          drop_last=False, pad_to=pad_to)
+    place = to_device(device)
+    generator = torch.Generator(device).manual_seed(iteration)
+    val_loss, n, last = 0.0, 0, None
+    for batch in loader:
+        batch = place(batch)
+        loss, out = eval_step(params, model_state, batch, generator)
+        val_loss += float(loss)
+        n += 1
+        last = ((batch[2], batch[3]), out)
+    val_loss /= max(n, 1)
+    if last is not None:
+        print("Validation loss {}: {:9f}  ".format(iteration, val_loss))
+        logger.log_validation(val_loss, params, *last, iteration)
+    return val_loss
+
+
+def train(output_directory, log_directory, checkpoint_path, warm_start,
+          n_gpus, rank, group_name, hparams, device=None):
+    """The training loop's entry (the reference train()'s signature, plus
+    `device`, the card by default).  Returns (params, model_state,
+    opt_state, iteration)."""
+    del n_gpus, rank, group_name  # one process, one device
+    device = resolve_device(device)
+    check_single_device(hparams.data_parallel_devices,
+                        hparams.tensor_parallel_devices,
+                        hparams.zero_sharded_opt_state,
+                        hparams.compilation_cache_dir)
+    cfg = Tacotron2Config.from_hparams(hparams)
+    params, model_state = init_tacotron2(
+        cfg, torch.Generator().manual_seed(hparams.seed))
+    learning_rate = hparams.learning_rate
+    optimizer = make_optimizer(learning_rate, hparams.weight_decay,
+                               hparams.grad_clip_thresh)
+    compute_dtype = (None if hparams.train_dtype == "float32"
+                     else getattr(torch, hparams.train_dtype))
+    train_step = make_tacotron2_train_step(
+        cfg, optimizer, hparams.mel_weight, hparams.gate_weight,
+        compute_dtype=compute_dtype, grad_accum=hparams.grad_accum_steps,
+        remat=bool(hparams.remat))
+    eval_step = make_tacotron2_eval_step(cfg, hparams.mel_weight,
+                                         hparams.gate_weight)
+
+    os.makedirs(output_directory, exist_ok=True)
+    logger = Tacotron2Logger(os.path.join(output_directory, log_directory))
+    train_loader, valset = prepare_dataloaders(hparams, device)
+    pad_to = hparams.length_bucket_size
+
+    iteration, epoch_offset, restored = 0, 0, None
+    if checkpoint_path == "auto":
+        # crash recovery: the newest checkpoint of the run directory
+        checkpoint_path = ckpt.find_latest_checkpoint(output_directory)
+        if checkpoint_path:
+            print("Auto-resume from", checkpoint_path)
+    if checkpoint_path:
+        if warm_start:
+            print("Warm starting model from checkpoint '%s'"
+                  % checkpoint_path)
+            params = ckpt.warm_start(checkpoint_path)
+        else:
+            restored = ckpt.load_checkpoint(checkpoint_path)
+            params = restored["params"]
+            model_state = restored.get("model_state", model_state)
+            if hparams.use_saved_learning_rate:
+                learning_rate = restored["learning_rate"]
+            iteration = restored["iteration"] + 1
+            epoch_offset = max(0, int(iteration / len(train_loader)))
+            print("Loaded checkpoint '%s' from iteration %d"
+                  % (checkpoint_path, iteration - 1))
+    params, model_state = move(params, device), move(model_state, device)
+    opt_state = optimizer.init(params)
+    if restored is not None:
+        opt_state.load_state_dict(restored["opt_state"])
+    train_loader.epoch = epoch_offset
+
+    # The bf16 step's first op casts the PPG to bf16; casting it on the
+    # host instead is the same rounding and halves the dominant copy.
+    place = to_device(device, {0: torch.bfloat16}
+                      if compute_dtype == torch.bfloat16 else None)
+    with trace(hparams.profile_dir):
+        return _train_loop(hparams, params, model_state, opt_state,
+                           train_step, eval_step, train_loader, valset,
+                           logger, learning_rate, iteration, epoch_offset,
+                           output_directory, pad_to, place, device)
+
+
+def _train_loop(hparams, params, model_state, opt_state, train_step,
+                eval_step, train_loader, valset, logger, learning_rate,
+                iteration, epoch_offset, output_directory, pad_to, place,
+                device):
+    saver = ckpt.AsyncCheckpointSaver()
+    try:
+        with preemption.PreemptionGuard() as guard:
+            result = _epoch_loop(
+                hparams, params, model_state, opt_state, train_step,
+                eval_step, train_loader, valset, logger, learning_rate,
+                iteration, epoch_offset, output_directory, pad_to, place,
+                device, saver, guard)
+    except BaseException:
+        # land an announced checkpoint even on a crash or an interrupt
+        # ('auto' recovery depends on it), without masking the error
+        try:
+            saver.wait()
+        except BaseException as save_err:
+            print(f"WARNING: final async checkpoint save failed: "
+                  f"{save_err!r}")
+        raise
+    finally:
+        logger.close()
+    saver.wait()
+    return result
+
+
+def _epoch_loop(hparams, params, model_state, opt_state, train_step,
+                eval_step, train_loader, valset, logger, learning_rate,
+                iteration, epoch_offset, output_directory, pad_to, place,
+                device, saver, guard):
+    # `learning_rate` stays the base rate, which checkpoints store; the
+    # schedule recomputes each iteration's rate from it
+    lr_schedule = make_lr_schedule(
+        learning_rate, schedule=hparams.lr_schedule,
+        warmup_steps=hparams.lr_warmup_steps,
+        decay_steps=hparams.lr_decay_steps,
+        decay_rate=hparams.lr_decay_rate, min_factor=hparams.lr_min_factor)
+
+    def save(it, what):
+        path = os.path.join(output_directory, "checkpoint_{}".format(it))
+        print("{} at iteration {} to {}".format(what, it, path))
+        saver.save(path, params, opt_state, learning_rate, it, model_state)
+
+    for epoch in range(epoch_offset, hparams.epochs):
+        print("Epoch: {}".format(epoch))
+        for batch in prefetch(train_loader, place, depth=2):
+            start = time.perf_counter()
+            current_lr = lr_schedule(iteration)
+            set_learning_rate(opt_state, current_lr)
+            out = train_step(params, model_state, opt_state, batch,
+                             step_generator(device, hparams.seed,
+                                            iteration))
+            model_state = out.model_state
+            reduced_loss = float(out.loss)
+            grad_norm = float(out.grad_norm)
+            if not math.isnan(reduced_loss):
+                duration = time.perf_counter() - start
+                print("Train loss {} {:.6f} Grad Norm {:.6f} {:.2f}s/it"
+                      .format(iteration, reduced_loss, grad_norm, duration))
+                logger.log_training(reduced_loss, grad_norm, current_lr,
+                                    duration, iteration)
+            if iteration % hparams.iters_per_checkpoint == 0:
+                validate(eval_step, params, model_state, valset, iteration,
+                         hparams.batch_size, logger, pad_to, device)
+                save(iteration, "Saving model and optimizer state")
+            iteration += 1
+            if guard.should_stop():
+                last = iteration - 1
+                if last % hparams.iters_per_checkpoint != 0:
+                    save(last, "Preemption: saving final checkpoint")
+                print("Preemption: exiting cleanly after iteration", last)
+                return params, model_state, opt_state, iteration
+    return params, model_state, opt_state, iteration
+
+
+def main(device=None, **kwargs):
+    hparams = create_hparams(**kwargs)
+    if not hparams.output_directory:
+        raise FileExistsError("Please specify the output dir.")
+    device = resolve_device(device)
+    os.makedirs(hparams.output_directory, exist_ok=True)
+    with open(os.path.join(hparams.output_directory, "hparams.txt"),
+              "w") as writer:
+        pprint(hparams.__dict__, writer)
+    print("Device:", torch.cuda.get_device_name(device)
+          if device.type == "cuda" else device)
+    return train(hparams.output_directory, hparams.log_directory,
+                 hparams.checkpoint_path, hparams.warm_start, hparams.n_gpus,
+                 hparams.rank, hparams.group_name, hparams, device=device)
+
+
+def parse_overrides(args) -> dict:
+    """`key=value` arguments -> a dict, values read as Python literals
+    where they parse as one."""
+    import ast
+
+    overrides = {}
+    for arg in args:
+        k, _, v = arg.partition("=")
+        try:
+            overrides[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            overrides[k] = v
+    return overrides
+
+
+if __name__ == "__main__":
+    import sys
+
+    main(**parse_overrides(sys.argv[1:]))

@@ -1,0 +1,126 @@
+"""Checkpoint save / load / warm start (the port of
+fac_via_ppg_tpu/train/checkpoint.py; reference train_ppg2mel.py:122-149,
+train_waveglow.py:45-64).
+
+A checkpoint is one `torch.save` file holding the JAX package's payload
+keys: {iteration, learning_rate, params, opt_state, model_state}, every
+tensor on the CPU.  `opt_state` is the torch.optim.Adam's state_dict.  The
+JAX package writes orbax directories instead; the two formats do not read
+each other (ROADMAP queue 3)."""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+from typing import Any, Dict, Optional
+
+import torch
+
+from fac_via_ppg_torch.utils.tree import tree_map
+
+
+def _to_host(tree):
+    return tree_map(lambda x: x.detach().cpu()
+                    if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _opt_payload(opt_state):
+    """An Adam (or its state_dict) -> its state_dict."""
+    return opt_state.state_dict() if hasattr(opt_state, "state_dict") \
+        else opt_state
+
+
+def save_checkpoint(path: str, params, opt_state, learning_rate: float,
+                    iteration: int, model_state=None) -> None:
+    """Write {iteration, learning_rate, params, opt_state} (+ the BN state)
+    to `path`, through a temporary file renamed into place."""
+    payload = {
+        "iteration": int(iteration),
+        "learning_rate": float(learning_rate),
+        "params": _to_host(params),
+        "opt_state": _to_host(_opt_payload(opt_state)),
+    }
+    if model_state is not None:
+        payload["model_state"] = _to_host(model_state)
+    path = os.path.abspath(path)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+class AsyncCheckpointSaver:
+    """Checkpoint saves off the training thread.
+
+    `save()` snapshots the trees with one on-device copy of each tensor
+    (the optimizer updates the params and its moments in place, so the
+    snapshot must be its own memory), then reads them back and writes on
+    a background thread; training goes on meanwhile.  At most one save is
+    in flight: a new `save()` joins the previous one first.  A failed
+    save is reported by the next `save()` (as a warning, so that the
+    current state is still written) and raised by `wait()`; call `wait()`
+    before the process exits."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _join(self) -> Optional[BaseException]:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        return err
+
+    def save(self, path: str, params, opt_state, learning_rate: float,
+             iteration: int, model_state=None) -> None:
+        prev_err = self._join()
+        if prev_err is not None:
+            print("WARNING: previous async checkpoint save failed "
+                  f"({prev_err!r}); continuing with the current save")
+        snap = tree_map(
+            lambda x: x.detach().clone() if isinstance(x, torch.Tensor)
+            else x, (params, _opt_payload(opt_state), model_state))
+
+        def job():
+            try:
+                save_checkpoint(path, snap[0], snap[1], learning_rate,
+                                iteration, model_state=snap[2])
+            except BaseException as e:  # raised by the next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=job, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        err = self._join()
+        if err is not None:
+            raise err
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A checkpoint's payload, every tensor on the CPU."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    payload["iteration"] = int(payload["iteration"])
+    payload["learning_rate"] = float(payload["learning_rate"])
+    return payload
+
+
+def warm_start(path: str):
+    """The params alone (reference warm_start_model)."""
+    return load_checkpoint(path)["params"]
+
+
+def find_latest_checkpoint(output_directory: str,
+                           prefix: str = "checkpoint_") -> Optional[str]:
+    """The highest-iteration checkpoint `<prefix><iteration>` under a run
+    directory, or None (for `checkpoint_path='auto'`)."""
+    if not os.path.isdir(output_directory):
+        return None
+    best_iter, best_path = -1, None
+    for name in os.listdir(output_directory):
+        m = re.fullmatch(re.escape(prefix) + r"(\d+)", name)
+        path = os.path.join(output_directory, name)
+        if m and os.path.isfile(path) and int(m.group(1)) > best_iter:
+            best_iter, best_path = int(m.group(1)), path
+    return best_path

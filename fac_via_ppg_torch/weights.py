@@ -10,7 +10,10 @@ WaveGlow comes in either of its JAX forms: the train form, whose weight-norm
 (g, v) pairs are folded here exactly as the JAX package's
 `_weight_norm_fold` does (f32 norm), or the `remove_weightnorm` form,
 whose `convinv[k].weight_inverse` is kept.  `fold_waveglow` folds a tree
-that is already torch (the reference checkpoint's, train/import_torch.py).
+that is already torch (the reference checkpoint's, train/import_torch.py);
+`fold_wn` folds one coupling net, inside the training forward's graph.
+`waveglow_train_from_jax` keeps the train form as it is: g, v and the
+biases, the trainable parameters of the weight-norm convs.
 """
 
 from __future__ import annotations
@@ -54,26 +57,34 @@ def _weight_norm_fold(p: dict) -> dict:
     return {"weight": w.to(v.dtype), "bias": p["bias"]}
 
 
-def fold_waveglow(params):
-    """WaveGlow params of tensors, train (g, v) or folded form -> the
-    port's folded form (a `weight_inverse` already there is kept)."""
+def fold_wn(wn: dict) -> dict:
+    """One coupling net's params, (g, v) or folded -> folded."""
     def fold(p):
         return _weight_norm_fold(p) if "v" in p else p
 
-    out = {"upsample": params["upsample"], "convinv": params["convinv"],
-           "wn": []}
-    for wn in params["wn"]:
-        out["wn"].append({
-            "start": fold(wn["start"]),
-            "end": fold(wn["end"]),
-            "in_layers": [fold(p) for p in wn["in_layers"]],
-            "cond_layers": [fold(p) for p in wn["cond_layers"]],
-            "res_skip_layers": [fold(p) for p in wn["res_skip_layers"]],
-        })
-    return out
+    return {
+        "start": fold(wn["start"]),
+        "end": fold(wn["end"]),
+        "in_layers": [fold(p) for p in wn["in_layers"]],
+        "cond_layers": [fold(p) for p in wn["cond_layers"]],
+        "res_skip_layers": [fold(p) for p in wn["res_skip_layers"]],
+    }
+
+
+def fold_waveglow(params):
+    """WaveGlow params of tensors, train (g, v) or folded form -> the
+    port's folded form (a `weight_inverse` already there is kept)."""
+    return {"upsample": params["upsample"], "convinv": params["convinv"],
+            "wn": [fold_wn(wn) for wn in params["wn"]]}
 
 
 def waveglow_from_jax(params, device: Optional[torch.device] = None):
     """JAX WaveGlow params (train or remove_weightnorm form) -> the port's
     folded form."""
     return fold_waveglow(to_torch(params, device))
+
+
+def waveglow_train_from_jax(params, device: Optional[torch.device] = None):
+    """JAX WaveGlow params in the train form -> the same tree of tensors,
+    weight norm kept unfolded (models/waveglow.py::waveglow_forward)."""
+    return to_torch(params, device)

@@ -11,6 +11,10 @@ Also the Tacotron2 decode's CUDA graphs (models/tacotron2.py::decode)
 against the eager chunk loop, their plain version, on the same masks:
 lengths and end steps exact, outputs within 1e-5.
 
+And training: one Tacotron2 and one WaveGlow train step on the card
+against the CPU (TF32 off; chip_smoke.py's phase 10 (a) at smaller
+shapes), and the async checkpoint saver on CUDA tensors.
+
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -466,3 +470,95 @@ def test_decode_graph_cache_is_keyed_and_bounded(card):
                                        torch.Generator("cuda").manual_seed(0))
     assert decode_graph.count() == decode_graph.MAX_GRAPHS
     assert decode_graph.captures == n0 + decode_graph.MAX_GRAPHS + 2
+
+
+@pytest.mark.cuda
+def test_tacotron2_train_step_card_matches_cpu(card):
+    """One full-width Tacotron2 train step (B=2, T_in=T_out=32, every
+    dropout mask injected) on the card against the CPU, TF32 off, held as
+    chip_smoke.hold_step_against_cpu holds it: loss 1e-5 relative,
+    gradients 1e-4 of each leaf's norm, params 1e-5 where the gradient's
+    sign is determined."""
+    import chip_smoke as smoke
+    from fac_via_ppg_torch.configs.hparams import Tacotron2Config
+    from fac_via_ppg_torch.models import init_tacotron2
+    from fac_via_ppg_torch.train.step import make_tacotron2_train_step
+
+    cfg = Tacotron2Config()
+    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(3))
+    batch = smoke.t2_train_batch(cfg, 2, 32, 32, 4)
+    masks = smoke.t2_masks(cfg, 2, 32, 32, 5)
+    smoke.hold_step_against_cpu(
+        "tacotron2", lambda dev: smoke.one_step(
+            make_tacotron2_train_step, cfg, params, batch, dev, 1e-4, state,
+            masks), smoke.tree_paths(params), 1e-4,
+        noise=("encoder/convolutions", "postnet/convolutions"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_waveglow_train_step_card_matches_cpu(card, dtype):
+    """One WaveGlow train step at the full config on a 4000-sample
+    segment, card against CPU: f32 as the Tacotron2 step; bf16 (the JAX
+    package's policy on both devices) loss within 1e-2 relative."""
+    import chip_smoke as smoke
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models import init_waveglow
+    from fac_via_ppg_torch.models.waveglow import weight_norm_params
+    from fac_via_ppg_torch.train.step import make_waveglow_train_step
+
+    cfg = WaveGlowConfig()
+    g = torch.Generator().manual_seed(6)
+    wg = init_waveglow(cfg, g)
+    for wn in wg["wn"]:
+        wn["end"]["weight"] = torch.randn(wn["end"]["weight"].shape,
+                                          generator=g) * 1e-2
+    wg = weight_norm_params(wg)
+    rng = np.random.RandomState(7)
+    batch = ((rng.randn(1, 80, 4000 // 160 + 1) - 4).astype(np.float32),
+             (rng.randn(1, 4000) * 0.1).astype(np.float32))
+    compute = None if dtype == "float32" else torch.bfloat16
+
+    def run(dev):
+        return smoke.one_step(
+            lambda c, o: make_waveglow_train_step(c, o, 0.7071,
+                                                  compute_dtype=compute),
+            cfg, wg, batch, dev, 1e-4)
+
+    if compute is None:
+        smoke.hold_step_against_cpu("waveglow", run, smoke.tree_paths(wg),
+                                    1e-4)
+    else:
+        card_loss, cpu_loss = run("cuda")[0], run("cpu")[0]
+        assert np.isfinite(card_loss)
+        assert abs(card_loss - cpu_loss) <= 1e-2 * abs(cpu_loss)
+
+
+@pytest.mark.cuda
+def test_async_saver_on_cuda_tensors(card, tmp_path):
+    """The saver's snapshot is a copy on the card: an in-place update
+    right after save() does not reach the file; the file holds CPU
+    tensors that load back equal."""
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.train.optim import make_optimizer
+
+    params = {"w": torch.randn(256, 256, device=card),
+              "layers": [{"b": torch.randn(256, device=card)}]}
+    opt = make_optimizer(1e-3)
+    opt_state = opt.init(params)
+    opt.apply(opt_state, [torch.ones_like(params["w"]),
+                          torch.ones_like(params["layers"][0]["b"])])
+    want = params["w"].cpu()
+    saver = ckpt.AsyncCheckpointSaver()
+    saver.save(str(tmp_path / "c"), params, opt_state, 1e-3, 3)
+    params["w"].add_(1.0)
+    saver.wait()
+    back = ckpt.load_checkpoint(str(tmp_path / "c"))
+    assert back["params"]["w"].device.type == "cpu"
+    assert torch.equal(back["params"]["w"], want)
+    fresh = opt.init({"w": back["params"]["w"].to(card),
+                      "layers": [{"b": back["params"]["layers"][0]["b"]
+                                  .to(card)}]})
+    fresh.load_state_dict(back["opt_state"])
+    assert torch.equal(fresh.state_dict()["state"][0]["exp_avg"].cpu(),
+                       back["opt_state"]["state"][0]["exp_avg"])

@@ -261,7 +261,13 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('fac_via_ppg_tpu')]\n"
         "assert not bad, bad\n"
-        "for m in ('native', 'eval.streaming', 'models.decode_graph'):\n"
+        "for m in ('native', 'eval.streaming', 'models.decode_graph',\n"
+        "          'train.losses', 'train.optim', 'train.step',\n"
+        "          'train.checkpoint', 'train.preemption', 'train.logger',\n"
+        "          'train.plotting', 'train.profiling', 'data.prefetch',\n"
+        "          'data.ppg_mel_dataset', 'data.mel2samp', 'utils.pitch',\n"
+        "          'utils.tree', 'scripts.train_ppg2mel',\n"
+        "          'scripts.train_waveglow'):\n"
         "    assert 'fac_via_ppg_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -20,7 +20,13 @@ def record_prenet_masks(monkeypatch):
     """Replace the JAX Tacotron2's dropout with one that draws the same
     bits and records each enabled keep-mask in call order, through an
     ordered host callback, so that jitted loops record every step.  Call
-    `jax.effects_barrier()` before reading the list."""
+    `jax.effects_barrier()` before reading the list.
+
+    Every dropout call of the JAX Tacotron2 module goes through it: at
+    inference the prenet's alone; in training (`tacotron2_forward`,
+    `training=True`) also the encoder convs', the attention and decoder
+    LSTM states' (4 a step) and the postnet's, in the order the port's
+    `masks=` takes them."""
     masks = []
 
     def dropout(key, x, rate, enabled):
@@ -34,4 +40,3 @@ def record_prenet_masks(monkeypatch):
 
     monkeypatch.setattr(jax_tacotron2, "dropout", dropout)
     return masks
-
