@@ -90,31 +90,55 @@ Phases (any failure exits nonzero; there is no CPU path):
      (counted, `relu_sign_flips`), WaveGlow in f32; (b)
      scripts/train_ppg2mel.main in-process at create_hparams()'s defaults
      (full PPG, batch 6, length buckets of 128) on the substitute AM, 24
-     seeded 2-4 s wavs and 6 for validation: 20 iterations, validation and
-     a checkpoint every 10, then checkpoint_path=auto (resumes at 11) for
-     one epoch, in f32 and bf16; every loss finite, the checkpoint
-     round-trips; (c) scripts/train_waveglow.main at the full config,
+     seeded 2-4 s wavs and 6 for validation (the f32 run with
+     featurize_device=True: the device front end featurizes the training
+     set, which it caches, and each run's validation set, counted; the
+     bf16 run with the default preload, the host MFCC and the TDNN on the
+     card, reading that cache): 20 iterations, validation and a checkpoint every 10, then
+     checkpoint_path=auto (resumes at 11) for one epoch, in f32 and bf16;
+     every loss finite, the checkpoint round-trips; (c)
+     scripts/train_waveglow.main at the full config,
      batch 3, segments of 10000, 18 wavs: 24 iterations, a checkpoint
      every 10, then auto-resume, f32 and bf16.  Each step timed between two
-     synchronizes, the fifth profiled.
+     synchronizes, the fifth profiled;
+ 11. the device front end and the checkpoint tools: (a) MfccTorch on the
+     card against the numpy MFCC at dither 0 on 3 wavs of odd lengths,
+     with TF32 turned on globally and off (rtol 1e-3, atol 2e-2); (b)
+     DeviceFeaturizer on the full-width substitute AM over 32
+     make_corpus utterances of 2-4.5 s (two chunks of 16, two T buckets)
+     against the host path on the card at dither 0 (each frame's error
+     over its largest posterior within FEAT_ROW_TOL, rows summing to 1
+     within 1e-4), and a control with the MFCC in float32, which must
+     fail that bound; (c) eval/featurize_bench.run_bench(32, 4.0): host
+     and device utterances per s, the median of 5 passes each; (d) one
+     seeded full-width
+     WaveGlow (weight norm on) as a state dict, as the reference's
+     pickled module (save_reference_waveglow_checkpoint) and in the old
+     unfused res / skip format upgraded by train/convert_model.py, each
+     through the vocoder CLI (as phase 6, 8 mels): 12 flow kernel
+     launches each, the pickled module's wavs bit-equal to the state
+     dict's, the old format's within OLD_WAV_TOL int16 steps.
 Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
 `cli:`, `synth profile:`, `synth:`, `decode:`, `decode profile:`,
-`stream:`, `stream cli:`, `train ppg2mel:` and `train waveglow:` lines,
-a `{"kernels": ...}` line and, last, `{"ok": true, "device": {...}}`.
+`stream:`, `stream cli:`, `train ppg2mel:`, `train waveglow:`, `device
+featurizer:`, `featurize bench:` and `pickled:` lines, a `{"kernels":
+...}` line and, last, `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --time-flow CHECKOUT
     python3 chip_smoke.py --time-layer CHECKOUT
     python3 chip_smoke.py --time-f32 CHECKOUT
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --tools
 
 run only the flow kernel (at the CLI's shape), only the layer kernel
 (bf16 at the fused batch's shape, B=4, T=10000, d=8), or both kernels'
 f32 forms (at the synthesis CLI's shape, B=8, T=20000; TF32 off, atol
 1e-4) of the port in CHECKOUT (another commit unpacked with `git
 archive`): build, hold against the plain versions and time as phase 7
-does; print one JSON line.  `--train` runs phase 10 alone.  Compare two versions on one card in one
-call, in turns: old, new, new, old.
+does; print one JSON line.  `--train` runs phase 10 alone, `--tools`
+phase 11 (with the flow kernel's build).  Compare two versions on one
+card in one call, in turns: old, new, new, old.
 """
 
 import argparse
@@ -150,6 +174,13 @@ T2_CHECK = (2, 96, 96)
 WG_SEGMENT = 10000
 T2_TRAIN_WAVS, T2_VAL_WAVS, T2_TRAIN_ITERS = 24, 6, 20
 WG_TRAIN_WAVS, WG_TRAIN_ITERS = 18, 24
+# phase 11: the device PPGs against the host path's, each frame's max
+# |error| over its largest posterior (the full-width substitute AM on 32
+# utterances, on an H100: 2.7e-5 with the MFCC in float64, 3.3e-4 in
+# float32, the control); the old-format WaveGlow's wavs against the state dict's, in
+# int16 steps, where its folded res_skip weights differ by rounding
+FEAT_ROW_TOL = 6e-5
+OLD_WAV_TOL = 16
 
 
 def log(*a):
@@ -802,13 +833,10 @@ def time_f32_at_synth(wl, wf):
     return out
 
 
-def write_waveglow_pt(path, seed):
-    """A seeded full-width WaveGlow written as a .pt state dict by the
-    port's exporter, its end convs randomised."""
+def waveglow_params(seed):
+    """A seeded full-width WaveGlow (folded), its end convs randomised."""
     from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
     from fac_via_ppg_torch.models import init_waveglow
-    from fac_via_ppg_torch.train.export_torch import \
-        export_waveglow_state_dict
 
     cfg = WaveGlowConfig()
     g = torch.Generator().manual_seed(seed)
@@ -818,8 +846,31 @@ def write_waveglow_pt(path, seed):
     for wn in params["wn"]:
         w = wn["end"]["weight"]
         wn["end"]["weight"] = torch.randn(w.shape, generator=g) * 1e-2
+    return cfg, params
+
+
+def write_waveglow_pt(path, seed):
+    """A seeded full-width WaveGlow written as a .pt state dict by the
+    port's exporter, its end convs randomised."""
+    from fac_via_ppg_torch.train.export_torch import \
+        export_waveglow_state_dict
+
+    cfg, params = waveglow_params(seed)
     torch.save(export_waveglow_state_dict(params, cfg), path)
     return cfg
+
+
+def write_mels(tmp, n_mel_channels, n=N_MELS):
+    """`n` seeded mel .npy files of MEL_FRAMES frames; their paths and
+    frame counts."""
+    rng = np.random.RandomState(SEED)
+    frames = rng.randint(MEL_FRAMES[0], MEL_FRAMES[1] + 1, size=n)
+    paths = []
+    for i, n in enumerate(frames):
+        paths.append(f"{tmp}/mel{i}.npy")
+        np.save(paths[-1], (rng.randn(n_mel_channels, n) * 0.5
+                            - 5).astype(np.float32))
+    return paths, [int(n) for n in frames]
 
 
 def write_cli_inputs(tmp):
@@ -827,14 +878,8 @@ def write_cli_inputs(tmp):
     .npy files."""
     ckpt = f"{tmp}/waveglow.pt"
     cfg = write_waveglow_pt(ckpt, SEED + 3)
-    rng = np.random.RandomState(SEED)
-    frames = rng.randint(MEL_FRAMES[0], MEL_FRAMES[1] + 1, size=N_MELS)
-    paths = []
-    for i, n in enumerate(frames):
-        paths.append(f"{tmp}/mel{i}.npy")
-        np.save(paths[-1], (rng.randn(cfg.n_mel_channels, n) * 0.5
-                            - 5).astype(np.float32))
-    return cfg, ckpt, paths, [int(n) for n in frames]
+    paths, frames = write_mels(tmp, cfg.n_mel_channels)
+    return cfg, ckpt, paths, frames
 
 
 def check_wavs(out_dir, paths, frames, hop):
@@ -1867,6 +1912,7 @@ def run_train_ppg2mel(card, tmp):
     import contextlib
     import io
 
+    from fac_via_ppg_torch.data import ppg_mel_dataset
     from fac_via_ppg_torch.scripts import train_ppg2mel
 
     wavs = write_wavs(tmp, n=T2_TRAIN_WAVS + T2_VAL_WAVS, seed=SEED + 31)
@@ -1874,16 +1920,35 @@ def run_train_ppg2mel(card, tmp):
         "\n".join(wavs[:T2_TRAIN_WAVS]) + "\n")
     Path(f"{tmp}/val.txt").write_text("\n".join(wavs[T2_TRAIN_WAVS:]) + "\n")
     per_epoch = T2_TRAIN_WAVS // 6
-    # the training set is featurized once: the first run writes the
-    # reference's feature cache, the later ones read it
+    # the f32 run featurizes with the device front end (the training set
+    # once: its first run writes the reference's feature cache, the later
+    # ones read it; the validation set each run); the bf16 run with the
+    # default preload, the host MFCC and the TDNN on the card
     cache = dict(is_cache_feats=True, feats_cache_path=f"{tmp}/feats.pkl")
+    featurized = []
+    orig_featurizer = ppg_mel_dataset.DeviceFeaturizer
+
+    def counted_featurizer(*a, **k):
+        feat = orig_featurizer(*a, **k)
+        if feat.device.type != "cuda":
+            raise AssertionError(f"the dataset featurizes on {feat.device}")
+
+        def run(wavs, *ra, **rk):
+            featurized.append(len(wavs))
+            return feat(wavs, *ra, **rk)
+
+        return run
+
     out = {}
     for dtype in ("float32", "bfloat16"):
         run_dir = f"{tmp}/t2_{dtype}"
         kw = dict(training_files=f"{tmp}/train.txt",
                   validation_files=f"{tmp}/val.txt",
                   output_directory=run_dir, train_dtype=dtype,
-                  iters_per_checkpoint=10, **cache)
+                  iters_per_checkpoint=10,
+                  featurize_device=dtype == "float32", **cache)
+        featurized.clear()
+        ppg_mel_dataset.DeviceFeaturizer = counted_featurizer
         rec, prof, restore = timed_steps(
             train_ppg2mel, "make_tacotron2_train_step",
             lambda sa: int(sa[3][4].sum()))
@@ -1904,6 +1969,7 @@ def run_train_ppg2mel(card, tmp):
                     epochs=10 // per_epoch + 1, checkpoint_path="auto", **kw)
         finally:
             restore()
+            ppg_mel_dataset.DeviceFeaturizer = orig_featurizer
         text = buf.getvalue()
         resumed = first_iteration(text.split("--- resume ---")[1],
                                   r"Train loss (\d+) ")
@@ -1919,6 +1985,12 @@ def run_train_ppg2mel(card, tmp):
         res = train_summary(card, rec[:n_first], prof, "mel_frames",
                             resumed, wall)
         res["resumed_iterations"] = it2 - 11
+        res["device_featurized_utterances"] = list(featurized)
+        want = [T2_TRAIN_WAVS, T2_VAL_WAVS, T2_VAL_WAVS] \
+            if dtype == "float32" else []
+        if featurized != want:
+            raise AssertionError(f"ppg2mel {dtype}: the device front end "
+                                 f"featurized {featurized}, not {want}")
         res["validation_losses"] = [float(line.split()[3]) for line in lines
                                     if line.startswith("Validation loss")]
         log(f"train ppg2mel {dtype}: " + json.dumps(res))
@@ -2003,6 +2075,239 @@ def run_training(card):
     return steps, t2, wg
 
 
+# ---------------------------------------------------------------- phase 11
+
+def check_mfcc_torch():
+    """Phase 11 (a): MfccTorch on the card against the numpy MFCC at
+    dither 0 on wavs of odd lengths, with TF32 turned on globally and off
+    (rtol 1e-3, atol 2e-2); TF32 is left off, as the script runs."""
+    from fac_via_ppg_torch.frontend import mfcc as t_mfcc
+
+    opts = t_mfcc.MfccOptions(frame_opts=t_mfcc.FrameExtractionOptions(
+        snip_edges=False, allow_downsample=True, dither=0.0),
+        use_energy=False)
+    m = t_mfcc.MfccTorch(opts)
+    rng = np.random.RandomState(SEED + 51)
+    wavs = [rng.randn(n) * 3000 for n in (16001, 40123, 71999)]
+    out = {}
+    for tf32 in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            errs = []
+            for w in wavs:
+                got = m(w).cpu().numpy()
+                want = t_mfcc.compute_mfcc(w, 16000, opts, backend="numpy")
+                if got.shape != want.shape:
+                    raise AssertionError(f"MfccTorch shape {got.shape} vs "
+                                         f"{want.shape}")
+                np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-2)
+                errs.append(float(np.abs(got - want).max()))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        out["tf32_on" if tf32 else "tf32_off"] = errs
+    log(f"MfccTorch on the card against numpy, max |err| per wav "
+        f"({[len(w) for w in wavs]} samples): {out}")
+    return out
+
+
+def check_device_featurizer(tmp, deps):
+    """Phase 11 (b): DeviceFeaturizer at full width (the substitute AM at
+    make_bundle's defaults) over 32 make_corpus utterances (2-4.5 s, in
+    length order, so two chunks of 16 in two T buckets) against the host
+    path on the card at dither 0: each frame's max |error| over its
+    largest posterior within FEAT_ROW_TOL (the posteriors are peaked,
+    so an absolute bound reads only a frame's few large ones), rows
+    summing to 1 within 1e-4.  The control, the same featurizer with its MFCC in float32,
+    must exceed FEAT_ROW_TOL: the bound tells a sound front end from one
+    that drifts."""
+    from fac_via_ppg_torch.frontend import feat as feat_mod
+    from fac_via_ppg_torch.frontend.ppg import (
+        DeviceFeaturizer,
+        compute_full_ppg_wrapper,
+    )
+    from fac_via_ppg_torch.scripts.make_corpus import make_corpus
+
+    paths = make_corpus(f"{tmp}/corpus", n_train=32, n_val=0,
+                        seed=SEED + 53)["wavs"]
+    wavs = [feat_mod.read_wav(p)[1] for p in paths]
+    wavs.sort(key=len)
+    feat = DeviceFeaturizer(deps, dither=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = feat(wavs, 16000)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    host = [compute_full_ppg_wrapper(w, 16000, deps.nnet, deps.lda, 10,
+                                     dither=0.0) for w in wavs]
+
+    def errors(ppgs):
+        """(max |error|, max over frames of |error| / largest posterior,
+        max |row sum - 1|) against the host path."""
+        err = rel = row_err = 0.0
+        for d, h in zip(ppgs, host):
+            if d.shape != h.shape or d.dtype != np.float32:
+                raise AssertionError(f"device PPG {d.shape} {d.dtype} vs "
+                                     f"host {h.shape}")
+            diff = np.abs(d - h)
+            err = max(err, float(diff.max()))
+            rel = max(rel, float((diff.max(axis=1) / h.max(axis=1)).max()))
+            row_err = max(row_err, float(np.abs(d.sum(axis=1) - 1).max()))
+        return err, rel, row_err
+
+    err, rel, row_err = errors(dev)
+    control = DeviceFeaturizer(deps, dither=0.0)
+    mfcc = control._mfcc  # computes in its constants' dtype
+    mfcc.window, mfcc.banks, mfcc.dct = (
+        x.float() for x in (mfcc.window, mfcc.banks, mfcc.dct))
+    c_err, c_rel, _ = errors(control(wavs, 16000))
+    frames = [d.shape[0] for d in dev]
+    buckets = sorted({-(-max(frames[lo:lo + 16]) // 128) * 128
+                      for lo in range(0, len(frames), 16)})
+    out = {"utterances": len(dev), "frames": [min(frames), max(frames)],
+           "senones": dev[0].shape[1], "t_buckets": buckets,
+           "device_s": dev_s, "max_abs_err": err, "max_row_rel_err": rel,
+           "row_sum_err": row_err, "row_rel_tol": FEAT_ROW_TOL,
+           "f32_mfcc_max_abs_err": c_err, "f32_mfcc_max_row_rel_err": c_rel}
+    log("device featurizer: " + json.dumps(out))
+    if rel > FEAT_ROW_TOL or row_err > 1e-4:
+        raise AssertionError(f"DeviceFeaturizer disagrees with the host "
+                             f"path: {rel} of a frame's largest posterior "
+                             f"(rows {row_err})")
+    if c_rel <= FEAT_ROW_TOL:
+        raise AssertionError(f"the float32-MFCC control passes the bound "
+                             f"({c_rel} <= {FEAT_ROW_TOL})")
+    return out
+
+
+def run_pickled_cli(wf, tmp):
+    """Phase 11 (d): one seeded full-width WaveGlow, weight norm on,
+    written three ways: a state dict (the port's exporter), the
+    reference's pickled module (save_reference_waveglow_checkpoint) and
+    the old unfused res / skip format (a state dict), upgraded by the
+    converter CLI (train/convert_model.py).  The vocoder CLI (as phase 6:
+    -b 8 --mel_bucket 64 -s 0.6 -d 0.005, bf16, --wn_impl flow) runs on
+    each over 8 mels: 12 flow kernel launches each; the pickled module's
+    wavs equal the state dict's bit for bit; the old format's folded
+    res_skip weights within 8 ulp of the state dict's (weights.py's fold
+    of the split rows against the whole), and its wavs within OLD_WAV_TOL
+    int16 steps (equal where the weights are)."""
+    from scipy.io import wavfile
+
+    from fac_via_ppg_torch.models.waveglow import weight_norm_params
+    from fac_via_ppg_torch.scripts import waveglow_inference as cli
+    from fac_via_ppg_torch.train import convert_model
+    from fac_via_ppg_torch.train.export_torch import (
+        export_waveglow_state_dict,
+        save_reference_waveglow_checkpoint,
+    )
+    from fac_via_ppg_torch.utils.inference import load_waveglow_model
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    t0 = time.time()
+    cfg, params = waveglow_params(SEED + 57)
+    params = weight_norm_params(params)
+    sd = export_waveglow_state_dict(params, cfg)
+    ckpts = {"state_dict": f"{tmp}/sd.pt", "pickled": f"{tmp}/module.pt",
+             "old": f"{tmp}/old_upgraded.pt"}
+    torch.save(sd, ckpts["state_dict"])
+    save_reference_waveglow_checkpoint(ckpts["pickled"], params, cfg)
+    # the old layout: each res_skip conv's rows as res_layers (the first
+    # C) and skip_layers (the rest; the last layer has only skip rows),
+    # weight norm per output row
+    old, C = {k: v for k, v in sd.items() if ".res_skip_layers." not in k}, \
+        cfg.wn_n_channels
+    for k, wn in enumerate(params["wn"]):
+        for i, p in enumerate(wn["res_skip_layers"]):
+            parts = ({"res_layers": slice(0, C), "skip_layers": slice(C, None)}
+                     if i < cfg.wn_n_layers - 1 else
+                     {"skip_layers": slice(None)})
+            for part, rows in parts.items():
+                pre = f"WN.{k}.{part}.{i}"
+                old[f"{pre}.weight_g"] = p["g"][rows].reshape(-1, 1, 1)
+                old[f"{pre}.weight_v"] = p["v"][rows]
+                old[f"{pre}.bias"] = p["bias"][rows]
+    torch.save(old, f"{tmp}/old.pt")
+    del sd, old
+    convert_model.main([f"{tmp}/old.pt", ckpts["old"]])
+    write_s = time.time() - t0
+    paths, frames = write_mels(tmp, cfg.n_mel_channels, n=CLI_BATCH)
+    with open(f"{tmp}/mels.txt", "w") as fh:
+        fh.write("\n".join(paths) + "\n")
+
+    folded = {name: load_waveglow_model(p, cfg) for name, p in ckpts.items()}
+    ulp = 0
+    for wa, wb in zip(folded["old"]["wn"], folded["state_dict"]["wn"]):
+        for pa, pb in zip(wa["res_skip_layers"], wb["res_skip_layers"]):
+            a, b = pa["weight"].numpy(), pb["weight"].numpy()
+            ulp = max(ulp, float((np.abs(a - b) / np.spacing(
+                np.maximum(np.abs(a), np.abs(b)))).max()))
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(folded[a]), tree_leaves(folded[b])))
+
+    same_weights = same("old", "state_dict")
+    pickled_same = same("pickled", "state_dict")
+    del folded
+
+    wavs, launches = {}, {}
+    for name, ckpt in ckpts.items():
+        wf.launches = 0
+        cli.main(f"{tmp}/mels.txt", ckpt, f"{tmp}/out_{name}", 0.6, 0.005,
+                 batch_size=CLI_BATCH, compute_dtype="bfloat16",
+                 wn_impl="flow", mel_bucket=64)
+        launches[name] = wf.launches
+        check_wavs(f"{tmp}/out_{name}", paths, frames, cfg.hop_length)
+        wavs[name] = [wavfile.read(f"{tmp}/out_{name}/"
+                                   f"{p.rsplit('/', 1)[1]}_synthesis.wav")[1]
+                      for p in paths]
+    pickled_diff = max(int(np.abs(a.astype(np.int32) - b).max())
+                       for a, b in zip(wavs["pickled"], wavs["state_dict"]))
+    old_diff = max(int(np.abs(a.astype(np.int32) - b).max())
+                   for a, b in zip(wavs["old"], wavs["state_dict"]))
+    out = {"write_s": write_s, "flow_launches": launches,
+           "pickled_weights_equal": pickled_same,
+           "pickled_wav_max_diff": pickled_diff,
+           "old_res_skip_max_ulp": ulp, "old_weights_equal": same_weights,
+           "old_wav_max_diff": old_diff, "old_wav_tol": OLD_WAV_TOL}
+    log("pickled: " + json.dumps(out))
+    if any(n != cfg.n_flows for n in launches.values()):
+        raise AssertionError(f"expected {cfg.n_flows} flow kernel launches "
+                             f"per run, got {launches}")
+    if not pickled_same or pickled_diff != 0:
+        raise AssertionError("the pickled module's wavs differ from the "
+                             "state dict's")
+    if ulp > 8 or old_diff > (0 if same_weights else OLD_WAV_TOL):
+        raise AssertionError(f"the old format's weights ({ulp} ulp) or "
+                             f"wavs ({old_diff} steps) differ")
+    return out
+
+
+def run_tools(card, wf):
+    """Phase 11: (a) MfccTorch, (b) DeviceFeaturizer at full width, (c)
+    featurize_bench.run_bench(32, 4.0), (d) the pickled-module WaveGlow
+    and the old format through the vocoder CLI."""
+    from fac_via_ppg_torch.eval.featurize_bench import run_bench
+    from fac_via_ppg_torch.frontend.ppg import DependenciesPPG
+
+    t0 = time.time()
+    mfcc = check_mfcc_torch()
+    deps = DependenciesPPG()
+    with tempfile.TemporaryDirectory() as tmp:
+        featurizer = check_device_featurizer(tmp, deps)
+    bench = run_bench(32, 4.0, deps=deps)
+    if bench["max_abs_err"] > 1e-4:
+        raise AssertionError(f"featurize_bench: device and host paths "
+                             f"differ by {bench['max_abs_err']}")
+    log("featurize bench: " + json.dumps({"card": card, **bench}))
+    with tempfile.TemporaryDirectory() as tmp:
+        pickled = run_pickled_cli(wf, tmp)
+    log(f"phase 11: {time.time() - t0:.1f} s")
+    return {"mfcc": mfcc, "featurizer": featurizer, "bench": bench,
+            "pickled": pickled}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
@@ -2016,6 +2321,9 @@ def main():
                     "the port in CHECKOUT at the synthesis CLI's shape")
     ap.add_argument("--train", action="store_true",
                     help="only run phase 10, the trainers")
+    ap.add_argument("--tools", action="store_true",
+                    help="only run phase 11, the device front end and the "
+                    "checkpoint tools")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2039,6 +2347,10 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
     if args.train:
         run_training(card)
+        return 0
+    if args.tools:
+        build_kernels((wf,))
+        run_tools(card, wf)
         return 0
 
     reports = build_kernels((wl, wf))
@@ -2124,6 +2436,7 @@ def main():
         stream_cli = run_streaming_cli(tmp)
     log("stream cli: " + json.dumps({"card": card, **stream_cli}))
     run_training(card)
+    tools = run_tools(card, wf)
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
@@ -2150,6 +2463,8 @@ def main():
         **f32_synth["wn_flow"],
         "launches_synth": synth_launches["wn_flow"],
         "launches_stream_int8": stream["int8_wn_flow_launches"],
+        "launches_pickled_cli": sum(
+            tools["pickled"]["flow_launches"].values()),
         **flow_res, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ src/waveglow/mel2samp.py:42-147).
 Random fixed-length crops -> (mel, audio) pairs: the file list shuffled by
 the seed, an in-process wav cache, `segment_length` crops at offsets from
 one seeded random.Random (drawn in the JAX package's order), short files
-zero-padded, the mel from the port's TacotronSTFT on the CPU."""
+zero-padded, the mel from the port's TacotronSTFT on `device` (the CPU
+unless the caller names another)."""
 
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ def files_to_list(filename: str) -> List[str]:
 class Mel2Samp:
     def __init__(self, training_files, segment_length, filter_length,
                  hop_length, win_length, sampling_rate, mel_fmin, mel_fmax,
-                 n_mel_channels: int = 80, seed: int = 1234):
+                 n_mel_channels: int = 80, seed: int = 1234,
+                 device="cpu"):
         self.audio_files = files_to_list(training_files)
         self._rng = random.Random(seed)
         self._rng.shuffle(self.audio_files)
@@ -40,11 +42,14 @@ class Mel2Samp:
         self.segment_length = segment_length
         self.sampling_rate = sampling_rate
         self.wav_cache = {}
+        self.device = torch.device(device)
 
     def get_mel(self, audio: np.ndarray) -> np.ndarray:
         audio_norm = torch.as_tensor(
-            audio.astype(np.float32) / MAX_WAV_VALUE)[None, :]
-        return self.stft.mel_spectrogram(audio_norm)[0].numpy()  # (n_mel, T)
+            audio.astype(np.float32) / MAX_WAV_VALUE,
+            device=self.device)[None, :]
+        # (n_mel, T)
+        return self.stft.mel_spectrogram(audio_norm)[0].cpu().numpy()
 
     def __getitem__(self, index: int):
         filename = self.audio_files[index]

@@ -11,8 +11,10 @@ and zero-pads, with gate targets 1 from the last valid frame on
 bucket, so that a step sees a bounded number of shapes.
 
 The PPG runs the AM on `device` (frontend/ppg.py), the mel the port's
-TacotronSTFT on it too.  The device front end (`featurize_device`) is not
-ported (ROADMAP queue 1 item 4)."""
+TacotronSTFT on it too.  With `featurize_device`, the whole front end
+(MFCC -> CMN -> splice -> LDA -> TDNN) runs on `device` too, over padded
+utterance buckets (frontend/ppg.py::DeviceFeaturizer), instead of the
+host MFCC per utterance."""
 
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from fac_via_ppg_torch.dsp.stft import TacotronSTFT
 from fac_via_ppg_torch.frontend import feat as feat_mod
 from fac_via_ppg_torch.frontend.ppg import (
     DependenciesPPG,
+    DeviceFeaturizer,
     get_ppg,
     reduce_ppg_dim,
 )
@@ -87,10 +90,6 @@ class PPGMelDataset:
 
     def __init__(self, data_utterance_paths: str, hparams,
                  deps: Optional[DependenciesPPG] = None, device=None):
-        if getattr(hparams, "featurize_device", False):
-            raise NotImplementedError(
-                "featurize_device=True (the batched device front end) is "
-                "not ported yet: ROADMAP queue 1 item 4")
         self.data_utterance_paths = load_filepaths(data_utterance_paths)
         self.max_wav_value = hparams.max_wav_value
         self.is_full_ppg = hparams.is_full_ppg
@@ -117,9 +116,14 @@ class PPGMelDataset:
                 self.ppg_sequences, self.acoustic_sequences = pickle.load(f)
         else:
             self.ppg_deps = deps if deps is not None else DependenciesPPG()
-            for path in self.data_utterance_paths:
+            ppg_cache = None
+            if getattr(hparams, "featurize_device", False):
+                ppg_cache = self.featurize_on_device()
+            for i, path in enumerate(self.data_utterance_paths):
                 ppg_feat, acoustic = self.extract_utterance_feats(
-                    path, self.is_full_ppg)
+                    path, self.is_full_ppg,
+                    precomputed_ppg=(None if ppg_cache is None
+                                     else ppg_cache[i]))
                 self.ppg_sequences.append(ppg_feat.astype(np.float32))
                 self.acoustic_sequences.append(acoustic)
         if self.is_cache_feats:
@@ -127,14 +131,30 @@ class PPGMelDataset:
             with open(self.feats_cache_path, "wb") as f:
                 pickle.dump([self.ppg_sequences, self.acoustic_sequences], f)
 
-    def extract_utterance_feats(self, path: str, is_full_ppg=False):
+    def featurize_on_device(self) -> List[np.ndarray]:
+        """Every utterance's full PPG from one DeviceFeaturizer on the
+        dataset's device, in file-list order."""
+        wavs, rates = [], set()
+        for path in self.data_utterance_paths:
+            fs, wav = feat_mod.read_wav(path)
+            rates.add(fs)
+            wavs.append(wav)
+        if len(rates) > 1:
+            raise ValueError(f"mixed corpus sample rates {sorted(rates)}")
+        featurizer = DeviceFeaturizer(self.ppg_deps, device=self.device)
+        return featurizer(wavs, rates.pop())
+
+    def extract_utterance_feats(self, path: str, is_full_ppg=False,
+                                precomputed_ppg=None):
         """wav file -> (PPG (T, D), mel (T, n_mel)) (reference
-        data_utils.py:215-258)."""
+        data_utils.py:215-258); `precomputed_ppg` (the device front end's)
+        takes the place of the host featurization."""
         fs, wav = feat_mod.read_wav(path)
         if fs != self.stft.sampling_rate:
             raise ValueError("{} SR doesn't match target {} SR".format(
                 fs, self.stft.sampling_rate))
-        ppg = get_ppg(path, self.ppg_deps, device=self.device)
+        ppg = (precomputed_ppg if precomputed_ppg is not None
+               else get_ppg(path, self.ppg_deps, device=self.device))
         audio_norm = torch.as_tensor(
             np.asarray(wav, dtype=np.float32) / self.max_wav_value,
             device=self.device)[None, :]

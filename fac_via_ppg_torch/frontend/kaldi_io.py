@@ -252,6 +252,23 @@ def write_sparse_matrix(path: str, mat: np.ndarray):
 # symbol tables & config files
 # --------------------------------------------------------------------------
 
+def read_sym_table(path: str) -> dict:
+    """Kaldi-style 'symbol index' table -> {symbol: index} (the port's own
+    copy of fac_via_ppg_tpu/io/utterance.py::read_sym_table): blank lines
+    skipped, a symbol defined twice is a ValueError."""
+    sym_table = {}
+    with open(path) as reader:
+        for line in reader:
+            if not line.strip():
+                continue
+            key, val = line.split()
+            if key in sym_table:
+                raise ValueError(
+                    f"symbol table {path} defines {key!r} twice")
+            sym_table[key] = int(val)
+    return sym_table
+
+
 def parse_config(path: str) -> dict:
     """Parse '--name=value' per line (reference feat.py:174-188)."""
     with open(path) as f:

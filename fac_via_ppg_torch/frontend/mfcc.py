@@ -1,4 +1,5 @@
-"""Kaldi-convention MFCC front-end (host side: native C++ or numpy).
+"""Kaldi-convention MFCC front-end: the host side (native C++ or numpy)
+and the device side (`MfccTorch`).
 
 `compute_mfcc(backend="auto")` runs the native C++ library
 (native/src/frontend.cc, loaded by fac_via_ppg_torch/native.py) and takes
@@ -23,13 +24,28 @@ draws as the JAX package's numpy path) and by the library's own seeded
 generator on the native path (the JAX package's native draws); the two
 backends agree to 1e-3 apart from the dither.  Pass dither=0.0 for
 deterministic features.
+
+`MfccTorch` is the port of the JAX package's `MfccJax`: whole-utterance
+MFCC on a device, one (n_frames, 512) rFFT and two small products.  Its
+dither draws from a `torch.Generator`.  It computes in float64 from the
+frames on and rounds the features to float32, as the numpy path does:
+no TF32 setting reads a float64 product (the JAX program asks for
+Precision.HIGHEST there, since log-compressed features drift under
+TF32), and a float32 MFCC moves the full-width AM's posteriors from the
+host path's by 3.3e-4 of a frame's largest posterior on an H100, where
+float64 keeps them within 2.7e-5 (chip_smoke.py phase 11 (b), 32
+speech-like utterances).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
+import torch
+
+from fac_via_ppg_torch.utils.device import resolve_device
 
 
 # --------------------------------------------------------------------------
@@ -333,3 +349,88 @@ def compute_mfcc(
             log_energy = np.maximum(log_energy, np.log(opts.energy_floor))
         feats[:, 0] = log_energy
     return feats.astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# torch implementation (device path)
+# --------------------------------------------------------------------------
+
+class MfccTorch:
+    """Whole-utterance MFCC on `device` (None means the CUDA card), the
+    port of fac_via_ppg_tpu/frontend/mfcc.py::MfccJax.
+
+    Gather frames -> dither -> DC removal -> raw log-energy ->
+    pre-emphasis -> Povey window -> rFFT -> power spectrum without the
+    Nyquist bin -> mel banks -> eps floor -> log -> DCT with the lifter
+    folded in -> energy column, in float64 (see the module doc).  The
+    constants are built once, here.
+    """
+
+    def __init__(self, opts: Optional[MfccOptions] = None, device=None):
+        self.opts = opts or MfccOptions()
+        self.device = resolve_device(device)
+        fo = self.opts.frame_opts
+        dct = dct_matrix(self.opts.num_ceps, self.opts.mel_opts.num_bins)
+        if self.opts.cepstral_lifter != 0.0:
+            dct = dct * lifter_coeffs(self.opts.num_ceps,
+                                      self.opts.cepstral_lifter)[:, None]
+
+        def const(x):
+            return torch.as_tensor(x, dtype=torch.float64,
+                                   device=self.device)
+
+        self.window = const(feature_window(fo))
+        self.banks = const(mel_banks(self.opts.mel_opts, fo))
+        self.dct = const(dct)
+
+    def compute(self, frames: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """(..., n_frames, window_size) frames on the device ->
+        (..., n_frames, num_ceps) float32, computed in the constants'
+        dtype (float64).  Dither draws from `generator` (on the device)
+        where the options ask for it; without one, no dither."""
+        opts, fo = self.opts, self.opts.frame_opts
+        frames = frames.to(self.window.dtype)
+        if fo.dither != 0.0 and generator is not None:
+            frames = frames + torch.randn(
+                frames.shape, generator=generator, dtype=frames.dtype,
+                device=frames.device) * fo.dither
+        if fo.remove_dc_offset:
+            frames = frames - frames.mean(dim=-1, keepdim=True)
+
+        def log_energy_of(x):
+            return torch.log(torch.clamp((x * x).sum(dim=-1),
+                                         min=float(np.finfo(np.float64).tiny)))
+
+        if opts.use_energy and opts.raw_energy:
+            log_energy = log_energy_of(frames)
+        if fo.preemph_coeff != 0.0:
+            shifted = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+            frames = frames - fo.preemph_coeff * shifted
+        frames = frames * self.window
+        if opts.use_energy and not opts.raw_energy:
+            log_energy = log_energy_of(frames)
+
+        spec = torch.fft.rfft(frames, n=fo.padded_window_size, dim=-1)
+        power = (spec.real ** 2 + spec.imag ** 2)[
+            ..., : fo.padded_window_size // 2]
+        mel = torch.clamp(torch.matmul(power, self.banks.T),
+                          min=float(np.finfo(np.float32).eps))
+        feats = torch.matmul(torch.log(mel), self.dct.T)
+        if opts.use_energy:
+            if opts.energy_floor > 0.0:
+                log_energy = torch.clamp(log_energy,
+                                         min=float(np.log(opts.energy_floor)))
+            feats = torch.cat([log_energy[..., None], feats[..., 1:]], dim=-1)
+        return feats.float()
+
+    def __call__(self, wav, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """(S,) waveform at the options' rate (numpy or tensor, int16
+        scale) -> (n_frames, num_ceps) float32 on the device."""
+        wav = torch.as_tensor(wav, device=self.device).to(torch.float64)
+        idx = torch.as_tensor(
+            frame_indices(wav.shape[0], self.opts.frame_opts),
+            device=self.device)
+        return self.compute(wav[idx], generator)

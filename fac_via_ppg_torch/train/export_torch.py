@@ -7,17 +7,29 @@ train/import_torch:
     (train_ppg2mel.py:143-149), which `utils/inference.load_tacotron2_model`
     and the JAX package's loader read.
   * WaveGlow: `export_waveglow_state_dict`; `torch.save` of it is a
-    checkpoint that `utils/inference.load_waveglow_model` reads.
+    checkpoint that `utils/inference.load_waveglow_model` reads.  And the
+    reference's own pickled-module format, {'model': <nn.Module>,
+    'iteration', 'optimizer', 'learning_rate'} (train_waveglow.py:56-64):
+    `save_reference_waveglow_checkpoint` loads the state dict into a
+    structural twin (`build_waveglow_module`) whose classes are named
+    glow.WaveGlow / glow.WN / glow.Invertible1x1Conv, the path the
+    reference's checkpoints record, so the reference loads it directly;
+    both packages' loaders read it too.
 """
 
 from __future__ import annotations
 
+import contextlib
+import sys
+import types
 from collections import OrderedDict
 from typing import Optional
 
 import torch
+from torch import nn
 
 from fac_via_ppg_torch.configs.hparams import Tacotron2Config, WaveGlowConfig
+from fac_via_ppg_torch.models.waveglow import flow_channels
 
 
 def _t(x) -> torch.Tensor:
@@ -54,6 +66,121 @@ def export_waveglow_state_dict(params: dict,
             wn_conv(f"WN.{k}.cond_layers.{i}", wn["cond_layers"][i])
             wn_conv(f"WN.{k}.res_skip_layers.{i}", wn["res_skip_layers"][i])
     return sd
+
+
+_TWIN_GLOW: Optional[types.ModuleType] = None
+
+
+def _twin_glow_module() -> types.ModuleType:
+    """Classes named glow.WaveGlow / glow.WN / glow.Invertible1x1Conv, so
+    the pickled module resolves to the reference's own classes where its
+    glow is on sys.path at load time."""
+    global _TWIN_GLOW
+    if _TWIN_GLOW is None:
+        mod = types.ModuleType("glow")
+        for name in ("WaveGlow", "WN", "Invertible1x1Conv"):
+            setattr(mod, name,
+                    type(name, (nn.Module,), {"__module__": "glow"}))
+        _TWIN_GLOW = mod
+    return _TWIN_GLOW
+
+
+def build_waveglow_module(cfg: WaveGlowConfig,
+                          weight_norm: bool = True) -> nn.Module:
+    """An nn.Module with the reference WaveGlow's exact submodule layout
+    (glow.py:178-206), ready for load_state_dict and pickling; its WN convs
+    carry torch.nn.utils.weight_norm (weight_g / weight_v) when
+    `weight_norm`."""
+    glow = _twin_glow_module()
+    model = glow.WaveGlow()
+    model.n_flows = cfg.n_flows
+    model.n_group = cfg.n_group
+    model.n_early_every = cfg.n_early_every
+    model.n_early_size = cfg.n_early_size
+    model.upsample = nn.ConvTranspose1d(
+        cfg.n_mel_channels, cfg.n_mel_channels, cfg.upsample_kernel_size,
+        stride=cfg.hop_length)
+    model.WN = nn.ModuleList()
+    model.convinv = nn.ModuleList()
+    chans = flow_channels(cfg)
+    cond_ch = cfg.n_mel_channels * cfg.n_group
+    C = cfg.wn_n_channels
+
+    def wn_norm(conv):
+        return nn.utils.weight_norm(conv, name="weight") if weight_norm \
+            else conv
+
+    for k in range(cfg.n_flows):
+        inv = glow.Invertible1x1Conv()
+        inv.conv = nn.Conv1d(chans[k], chans[k], 1, bias=False)
+        model.convinv.append(inv)
+
+        n_half = chans[k] // 2
+        wn = glow.WN()
+        wn.n_layers = cfg.wn_n_layers
+        wn.n_channels = C
+        wn.start = wn_norm(nn.Conv1d(n_half, C, 1))
+        wn.end = nn.Conv1d(C, 2 * n_half, 1)
+        wn.in_layers = nn.ModuleList()
+        wn.cond_layers = nn.ModuleList()
+        wn.res_skip_layers = nn.ModuleList()
+        for i in range(cfg.wn_n_layers):
+            dilation = 2 ** i
+            pad = (cfg.wn_kernel_size * dilation - dilation) // 2
+            wn.in_layers.append(wn_norm(nn.Conv1d(
+                C, 2 * C, cfg.wn_kernel_size, dilation=dilation,
+                padding=pad)))
+            wn.cond_layers.append(wn_norm(nn.Conv1d(cond_ch, 2 * C, 1)))
+            res_ch = 2 * C if i < cfg.wn_n_layers - 1 else C
+            wn.res_skip_layers.append(wn_norm(nn.Conv1d(C, res_ch, 1)))
+        model.WN.append(wn)
+    model.n_remaining_channels = chans[-1]
+    return model
+
+
+@contextlib.contextmanager
+def _pickle_as_glow():
+    """The twin classes as sys.modules['glow'] while torch.save runs
+    (pickle checks a class's identity at save time), and only then."""
+    prev = sys.modules.get("glow")
+    sys.modules["glow"] = _twin_glow_module()
+    try:
+        yield
+    finally:
+        if prev is not None:
+            sys.modules["glow"] = prev
+        else:
+            del sys.modules["glow"]
+
+
+def save_reference_waveglow_checkpoint(
+    path: str, params: dict, cfg: WaveGlowConfig,
+    iteration: int = 0, learning_rate: float = 1e-4,
+    optimizer_state: Optional[dict] = None, module: Optional[nn.Module] = None,
+):
+    """Write the reference's pickled-module checkpoint
+    (train_waveglow.py:56-64).  Weight norm is on where the params hold
+    (g, v) pairs.  `module`: a reference-layout module to load the weights
+    into (the real glow.WaveGlow where the reference is importable); by
+    default the structural twin."""
+    sd = export_waveglow_state_dict(params, cfg)
+    if module is None:
+        module = build_waveglow_module(
+            cfg, weight_norm=any("weight_g" in k for k in sd))
+    module.load_state_dict(sd)
+    payload = {
+        "model": module,
+        "iteration": int(iteration),
+        "optimizer": optimizer_state if optimizer_state is not None else {},
+        "learning_rate": float(learning_rate),
+    }
+    # the twin is installed as 'glow' only for the twin: a caller's real
+    # glow module keeps resolving to its own classes
+    if type(module) is _twin_glow_module().WaveGlow:
+        with _pickle_as_glow():
+            torch.save(payload, path)
+    else:
+        torch.save(payload, path)
 
 
 def export_tacotron2_state_dict(params: dict, model_state: dict,

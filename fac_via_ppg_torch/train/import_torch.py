@@ -202,9 +202,9 @@ def import_waveglow_state_dict(sd: Dict, cfg: WaveGlowConfig) -> dict:
     return params
 
 
-def load_reference_waveglow_checkpoint(path: str,
-                                       cfg: WaveGlowConfig) -> dict:
-    """Reference `.pt` WaveGlow checkpoint -> params tree.
+def _load_waveglow_state_dict(path: str) -> Dict:
+    """The state dict in a reference `.pt` WaveGlow file: a bare state dict
+    or a pickled module ({'model': glow.WaveGlow, ...} or the module).
 
     A bare state dict loads with `weights_only=True`.  Only a file that
     holds a pickled module is unpickled in full (with the glow shims):
@@ -220,5 +220,12 @@ def load_reference_waveglow_checkpoint(path: str,
             _remove_glow_shims(installed)
     if isinstance(payload, dict) and "model" in payload:
         payload = payload["model"]
-    sd = payload.state_dict() if hasattr(payload, "state_dict") else payload
-    return import_waveglow_state_dict(sd, cfg)
+    return payload.state_dict() if hasattr(payload, "state_dict") \
+        else payload
+
+
+def load_reference_waveglow_checkpoint(path: str,
+                                       cfg: WaveGlowConfig) -> dict:
+    """Reference `.pt` WaveGlow checkpoint -> params tree (see
+    `_load_waveglow_state_dict` for the formats it reads)."""
+    return import_waveglow_state_dict(_load_waveglow_state_dict(path), cfg)

@@ -15,6 +15,10 @@ And training: one Tacotron2 and one WaveGlow train step on the card
 against the CPU (TF32 off; chip_smoke.py's phase 10 (a) at smaller
 shapes), and the async checkpoint saver on CUDA tensors.
 
+And the data tools: MfccTorch with TF32 forced on, DeviceFeaturizer
+against the host path, the pickled-module WaveGlow written from card
+tensors, and the mel dump CLI on the card against the CPU.
+
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -562,3 +566,125 @@ def test_async_saver_on_cuda_tensors(card, tmp_path):
     fresh.load_state_dict(back["opt_state"])
     assert torch.equal(fresh.state_dict()["state"][0]["exp_avg"].cpu(),
                        back["opt_state"]["state"][0]["exp_avg"])
+
+
+def _mfcc_opts(mod):
+    return mod.MfccOptions(frame_opts=mod.FrameExtractionOptions(
+        snip_edges=False, allow_downsample=True, dither=0.0),
+        use_energy=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_samples", [16001, 40123])
+def test_mfcc_torch_ignores_tf32(card, n_samples):
+    """MfccTorch on the card with TF32 forced on for matmuls and cuDNN:
+    within the f32 tolerance of the numpy MFCC (rtol 1e-3, atol 2e-2,
+    tests/test_frontend.py's MfccJax bound), and within 1e-5 of the same
+    run with TF32 off (its products are float64, which TF32 never
+    reads)."""
+    from fac_via_ppg_torch.frontend import mfcc as t_mfcc
+
+    wav = np.random.RandomState(n_samples).randn(n_samples) * 3000
+    m = t_mfcc.MfccTorch(_mfcc_opts(t_mfcc), device=card)
+    off = m(wav)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on = m(wav)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    assert on.device.type == "cuda" and on.dtype == torch.float32
+    host = t_mfcc.compute_mfcc(wav, 16000, _mfcc_opts(t_mfcc),
+                               backend="numpy")
+    np.testing.assert_allclose(on.cpu().numpy(), host, rtol=1e-3, atol=2e-2)
+    torch.testing.assert_close(on, off, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_device_featurizer_on_card_matches_host_path(card, tmp_path):
+    """DeviceFeaturizer on the card against the host path (the MFCC on
+    the host, the AM on the card) at a small substitute AM, dither 0:
+    ragged lengths over two chunks, posteriors atol 1e-4, rows summing to
+    1 within 1e-4; seeded dither reproducible on the card."""
+    from fac_via_ppg_torch.frontend import ppg as t_ppg
+    from fac_via_ppg_torch.scripts.make_substitute_am import make_bundle
+
+    make_bundle(str(tmp_path), n_senones=96, n_phones=12, hidden_dim=64,
+                num_layers=2)
+    deps = t_ppg.DependenciesPPG(
+        nnet_path=str(tmp_path / "am" / "final.raw.txt"),
+        lda_path=str(tmp_path / "feats" / "final.mat"),
+        reduce_dim_path=str(tmp_path / "feats" / "reduce_dim.mat"),
+        splice_opts_path=str(tmp_path / "feats" / "splice_opts"))
+    rng = np.random.RandomState(3)
+    wavs = [rng.randn(int(16000 * s)) * 3000 for s in (1.3, 0.41, 2.07)]
+    got = t_ppg.DeviceFeaturizer(deps, dither=0.0, device=card)(
+        wavs, 16000, max_batch=2)
+    for w, g in zip(wavs, got):
+        want = t_ppg.compute_full_ppg_wrapper(w, 16000, deps.nnet, deps.lda,
+                                              10, dither=0.0, device=card)
+        assert g.shape == want.shape
+        np.testing.assert_allclose(g, want, atol=1e-4, rtol=0)
+        np.testing.assert_allclose(g.sum(axis=1), 1.0, atol=1e-4)
+    dith = t_ppg.DeviceFeaturizer(deps, dither=1.0, device=card)
+    a, b = dith(wavs, 16000, seed=4), dith(wavs, 16000, seed=4)
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_norm", [True, False])
+def test_pickled_module_waveglow_round_trip_from_card(card, tmp_path,
+                                                      weight_norm):
+    """save_reference_waveglow_checkpoint of params on the card: the file
+    holds CPU tensors and loads back bit for bit."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models import init_waveglow
+    from fac_via_ppg_torch.models.waveglow import weight_norm_params
+    from fac_via_ppg_torch.train.export_torch import \
+        save_reference_waveglow_checkpoint
+    from fac_via_ppg_torch.train.import_torch import \
+        load_reference_waveglow_checkpoint
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+    from fac_via_ppg_torch.weights import move
+
+    cfg = WaveGlowConfig()
+    params = init_waveglow(cfg, torch.Generator().manual_seed(8))
+    if weight_norm:
+        params = weight_norm_params(params)
+    on_card = move(params, card)
+    path = str(tmp_path / "waveglow.pt")
+    save_reference_waveglow_checkpoint(path, on_card, cfg)
+    back = load_reference_waveglow_checkpoint(path, cfg)
+    got, want = tree_leaves(back), tree_leaves(params)
+    assert len(got) == len(want)
+    assert any("g" in wn["start"] for wn in back["wn"]) == weight_norm
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu"
+        assert torch.equal(g, w.reshape(g.shape))
+
+
+@pytest.mark.cuda
+def test_mel2samp_dump_runs_on_the_card(card, tmp_path):
+    """The mel dump CLI's default device is the card: its mels against
+    device="cpu"'s, atol 1e-4 (log-mels, TF32 off)."""
+    from scipy.io import wavfile
+
+    from fac_via_ppg_torch.scripts import mel2samp_dump
+
+    rng = np.random.RandomState(6)
+    paths = []
+    for i, n in enumerate([8000, 13001]):
+        paths.append(str(tmp_path / f"a{i}.wav"))
+        wavfile.write(paths[-1], 16000,
+                      (rng.randn(n) * 3000).astype(np.int16))
+    filelist = tmp_path / "files.txt"
+    filelist.write_text("\n".join(paths) + "\n")
+    on_card = mel2samp_dump.main(["-f", str(filelist), "-o",
+                                  str(tmp_path / "card")])
+    on_cpu = mel2samp_dump.main(["-f", str(filelist), "-o",
+                                 str(tmp_path / "cpu")], device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        got, want = np.load(a), np.load(b)
+        assert got.shape == want.shape and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)

@@ -267,7 +267,12 @@ def test_port_imports_no_jax():
         "          'train.plotting', 'train.profiling', 'data.prefetch',\n"
         "          'data.ppg_mel_dataset', 'data.mel2samp', 'utils.pitch',\n"
         "          'utils.tree', 'scripts.train_ppg2mel',\n"
-        "          'scripts.train_waveglow'):\n"
+        "          'scripts.train_waveglow', 'frontend.mfcc',\n"
+        "          'frontend.ppg', 'frontend.kaldi_io',\n"
+        "          'frontend.kaldi_models', 'frontend.decode',\n"
+        "          'eval.featurize_bench', 'scripts.make_corpus',\n"
+        "          'scripts.mel2samp_dump', 'train.precision',\n"
+        "          'train.convert_model', 'train.export_torch'):\n"
         "    assert 'fac_via_ppg_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -175,10 +175,19 @@ def test_ppg_mel_dataset_f0_cache_and_subsampling(corpus, numpy_mfcc):
 
 
 def test_unported_device_featurizer_and_missing_card_raise(corpus):
+    """featurize_device=True now runs the device front end (on the CPU
+    here): the same utterances and frame counts as the host path; the
+    dataset still raises where CUDA is asked for and absent."""
     filelist, files, _ = corpus
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        t_ds.PPGMelDataset(filelist, t_hparams(featurize_device=True),
-                           device="cpu")
+    deps = t_ppg.DependenciesPPG(**files)
+    dev = t_ds.PPGMelDataset(filelist, t_hparams(featurize_device=True),
+                             deps=deps, device="cpu")
+    host = t_ds.PPGMelDataset(filelist, t_hparams(), deps=deps,
+                              device="cpu")
+    assert len(dev) == len(host) == 3
+    for i in range(3):
+        assert dev[i][0].shape == host[i][0].shape
+        np.testing.assert_array_equal(dev[i][1], host[i][1])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             t_ds.PPGMelDataset(filelist, t_hparams(),
