@@ -94,11 +94,12 @@ Phases (any failure exits nonzero; there is no CPU path):
      featurize_device=True: the device front end featurizes the training
      set, which it caches, and each run's validation set, counted; the
      bf16 run with the default preload, the host MFCC and the TDNN on the
-     card, reading that cache): 20 iterations, validation and a checkpoint every 10, then
-     checkpoint_path=auto (resumes at 11) for one epoch, in f32 and bf16;
+     card, reading that cache): 12 iterations, validation and a
+     checkpoint every 10, then checkpoint_path=auto (resumes at 11) for
+     one epoch, in f32 and bf16;
      every loss finite, the checkpoint round-trips; (c)
      scripts/train_waveglow.main at the full config,
-     batch 3, segments of 10000, 18 wavs: 24 iterations, a checkpoint
+     batch 3, segments of 10000, 18 wavs: 12 iterations, a checkpoint
      every 10, then auto-resume, f32 and bf16.  Each step timed between two
      synchronizes, the fifth profiled;
  11. the device front end and the checkpoint tools: (a) MfccTorch on the
@@ -117,12 +118,27 @@ Phases (any failure exits nonzero; there is no CPU path):
      unfused res / skip format upgraded by train/convert_model.py, each
      through the vocoder CLI (as phase 6, 8 mels): 12 flow kernel
      launches each, the pickled module's wavs bit-equal to the state
-     dict's, the old format's within OLD_WAV_TOL int16 steps.
+     dict's, the old format's within OLD_WAV_TOL int16 steps;
+ 12. the measurement tools (TF32 off): (a) the bench (fac_via_ppg_torch/
+     bench.py) in-process, 1 warm-up + 3 timed calls each: rtf at its
+     defaults (24 x 10 s, bf16, the flow kernel, int8 cond, with its
+     pipelined, dense and f32 figures), rtf --wn_impl pallas --cond_impl
+     dense (the layer kernel), e2e_fused (4 s) and train_waveglow
+     (batch 3), every figure finite and positive; (b) a torch.profiler
+     trace of one such rtf call and of one e2e_fused batch of 8 (max
+     frames 400), read by eval/roofline.py: the flow and layer kernels'
+     floors equal to flow_bound / layer_bound summed over their launches
+     at the traced shapes, their traced times within TRACE_TOL of the
+     same launches timed alone by CUDA events; (c) eval/duration_check's
+     CLI on 2 seeded wavs with a random Tacotron2 at create_hparams() in
+     the PPG trainer's checkpoint format (a random model may run to
+     CAP).
 Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
 `cli:`, `synth profile:`, `synth:`, `decode:`, `decode profile:`,
 `stream:`, `stream cli:`, `train ppg2mel:`, `train waveglow:`, `device
-featurizer:`, `featurize bench:` and `pickled:` lines, a `{"kernels":
-...}` line and, last, `{"ok": true, "device": {...}}`.
+featurizer:`, `featurize bench:`, `pickled:`, `bench <config>:`, `trace
+...:` and `measure:` lines, a `{"kernels": ...}` line and, last,
+`{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
 
     python3 chip_smoke.py --time-flow CHECKOUT
@@ -130,6 +146,7 @@ Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --time-f32 CHECKOUT
     python3 chip_smoke.py --train
     python3 chip_smoke.py --tools
+    python3 chip_smoke.py --measure
 
 run only the flow kernel (at the CLI's shape), only the layer kernel
 (bf16 at the fused batch's shape, B=4, T=10000, d=8), or both kernels'
@@ -137,8 +154,9 @@ f32 forms (at the synthesis CLI's shape, B=8, T=20000; TF32 off, atol
 1e-4) of the port in CHECKOUT (another commit unpacked with `git
 archive`): build, hold against the plain versions and time as phase 7
 does; print one JSON line.  `--train` runs phase 10 alone, `--tools`
-phase 11 (with the flow kernel's build).  Compare two versions on one
-card in one call, in turns: old, new, new, old.
+phase 11 (with the flow kernel's build), `--measure` phase 12 (with both
+kernels' builds).  Compare two versions on one card in one call, in
+turns: old, new, new, old.
 """
 
 import argparse
@@ -154,8 +172,6 @@ import numpy as np
 import torch
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM dense
-PEAK_BYTES = 3.35e12
 N_WAVS, BATCH, MAX_FRAMES, SEED = 8, 4, 500, 1234
 # the vocoder CLI's run: mels, their frame range, its batch
 N_MELS, MEL_FRAMES, CLI_BATCH = 16, (449, 512), 8
@@ -172,8 +188,8 @@ GATE_SCALE = 1e3
 # WaveGlow segment; the trainers' wavs and iterations
 T2_CHECK = (2, 96, 96)
 WG_SEGMENT = 10000
-T2_TRAIN_WAVS, T2_VAL_WAVS, T2_TRAIN_ITERS = 24, 6, 20
-WG_TRAIN_WAVS, WG_TRAIN_ITERS = 18, 24
+T2_TRAIN_WAVS, T2_VAL_WAVS, T2_TRAIN_ITERS = 24, 6, 12
+WG_TRAIN_WAVS, WG_TRAIN_ITERS = 18, 12
 # phase 11: the device PPGs against the host path's, each frame's max
 # |error| over its largest posterior (the full-width substitute AM on 32
 # utterances, on an H100: 2.7e-5 with the MFCC in float64, 3.3e-4 in
@@ -181,6 +197,8 @@ WG_TRAIN_WAVS, WG_TRAIN_ITERS = 18, 24
 # int16 steps, where its folded res_skip weights differ by rounding
 FEAT_ROW_TOL = 6e-5
 OLD_WAV_TOL = 16
+# phase 12: a traced kernel's time against its CUDA-event time
+TRACE_TOL = 0.15
 
 
 def log(*a):
@@ -335,10 +353,10 @@ def build_kernels(mods):
     t0 = time.time()
     with ThreadPoolExecutor(len(mods)) as pool:
         reports = list(pool.map(lambda m: m.build(), mods))
-    log(f"built {', '.join(m.LIBRARY.name for m in mods)} in "
+    log(f"built {', '.join(m._LIB.library.name for m in mods)} in "
         f"{time.time() - t0:.2f} s")
     for m, report in zip(mods, reports):
-        log(f"{m.LIBRARY.name}:")
+        log(f"{m._LIB.library.name}:")
         for name, regs, spill in ptxas_entries(report):
             log(f"  {name}: {regs} registers, {spill} bytes spilled")
         for line in report.splitlines():
@@ -777,18 +795,28 @@ def time_kernel(wl):
     return ms, plain_ms, bound, by, ms32
 
 
+def roofline():
+    """fac_via_ppg_torch/eval/roofline.py of the checkout beside this
+    script, loaded by path: the H100 peaks and the kernels' bounds come
+    from it whichever checkout `--time-*` imports the kernels from."""
+    import importlib.util
+
+    mod = sys.modules.get("chip_smoke_roofline")
+    if mod is None:
+        path = Path(__file__).resolve().parent / "fac_via_ppg_torch" \
+            / "eval" / "roofline.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke_roofline",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["chip_smoke_roofline"] = mod
+    return mod
+
+
 def layer_bound(B, T, dtype, C=256):
-    """The least time of one (non-last) layer: FLOP 2*B*T*(3C*2C + C*2C);
-    bytes: x, cond, both outputs once and the weights and biases once, in
-    the layer pack's dtype."""
-    esz = 2 if dtype == torch.bfloat16 else 4
-    flops = 2 * B * T * (3 * C * 2 * C + C * 2 * C)
-    nbytes = (B * T * (C + 2 * C + C + C) + 3 * C * 2 * C + 2 * C
-              + C * 2 * C + 2 * C) * esz
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, \
-        nbytes / PEAK_BYTES * 1e3
-    return flops, nbytes, max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes"
+    """(FLOP, bytes, least ms, what bounds it) of one (non-last) layer:
+    eval/roofline.py::layer_bound."""
+    return roofline().layer_bound(B, T, dtype, C)
 
 
 def time_f32_at_synth(wl, wf):
@@ -1141,20 +1169,9 @@ def profile_synth_batch(t2_pt, wg_pt, deps, wavs):
 
 
 def flow_bound(B, T, n_half, dtype, C=256, L=8):
-    """The least time of one net: FLOP per time row 2*(n_half*C + L*3C*2C
-    + (L-1)*C*2C + C*C + C*2*n_half); bytes: audio, cond and output once,
-    the weights once, biases in f32."""
-    esz = 2 if dtype == torch.bfloat16 else 4
-    flops = 2 * B * T * (n_half * C + L * 6 * C * C + (L - 1) * 2 * C * C
-                         + C * C + 2 * C * n_half)
-    nbytes = (esz * (B * T * (n_half + L * 2 * C + 2 * n_half)
-                     + n_half * C + L * 6 * C * C + L * 2 * C * C
-                     + 2 * C * n_half)
-              + 4 * (C + 4 * L * C + 2 * n_half))
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, \
-        nbytes / PEAK_BYTES * 1e3
-    return flops, nbytes, max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes"
+    """(FLOP, bytes, least ms, what bounds it) of one net:
+    eval/roofline.py::flow_bound."""
+    return roofline().flow_bound(B, T, n_half, dtype, C, L)
 
 
 def time_flow_kernel(wf):
@@ -1906,7 +1923,7 @@ def roundtrip(params, opt_state, tmp, model_state=None):
 def run_train_ppg2mel(card, tmp):
     """Phase 10 (b): train_ppg2mel.main in-process at create_hparams()'s
     defaults (full PPG, batch 6, buckets of 128) on the substitute AM,
-    24 seeded 2-4 s training wavs and 6 validation wavs: 20 iterations,
+    24 seeded 2-4 s training wavs and 6 validation wavs: 12 iterations,
     validation and a checkpoint every 10, then auto-resume for 4 more;
     in f32 and bf16."""
     import contextlib
@@ -2001,7 +2018,7 @@ def run_train_ppg2mel(card, tmp):
 def run_train_waveglow(card, tmp):
     """Phase 10 (c): train_waveglow.main in-process at the full
     WaveGlowConfig (12 flows x 8 layers, C = 256), batch 3, segments of
-    10000 samples, 18 seeded wavs: 24 iterations, a checkpoint every 10,
+    10000 samples, 18 seeded wavs: 12 iterations, a checkpoint every 10,
     then auto-resume; in f32 and bf16."""
     import contextlib
     import io
@@ -2308,6 +2325,273 @@ def run_tools(card, wf):
             "pickled": pickled}
 
 
+# ---------------------------------------------------------------- phase 12
+
+def cuda_ms_queued(fn, reps=3):
+    """CUDA-event ms per call of `fn`, its launches queued behind a
+    sleeping kernel so that the host's time between launches is not
+    timed: the card's time for the calls, as a profiler trace sees it."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(1e8))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_bench_line(name, line):
+    """Every float of a bench line (its value, each figure of its detail)
+    finite and positive."""
+    def floats(x):
+        if isinstance(x, float):
+            return [x]
+        if isinstance(x, dict):
+            x = list(x.values())
+        if isinstance(x, list):
+            return [f for v in x for f in floats(v)]
+        return []
+
+    bad = [f for f in floats([line["value"], line["detail"]])
+           if not (np.isfinite(f) and f > 0)]
+    if bad or not isinstance(line["value"], float):
+        raise AssertionError(f"bench {name}: not finite and positive: "
+                             f"{bad or line['value']}")
+
+
+def trace_row(rows, counts, event_ms, tag):
+    """The roofline rows of the kernels of `counts` (eval/roofline.py's
+    count table of the traced call): each with its launches, their floors
+    summed equal to the bounds' sum, their traced time within TRACE_TOL of
+    the same launches' CUDA-event time."""
+    rl = roofline()
+    trace_ms = floor = bound = 0.0
+    names = []
+    for key, launches in counts.items():
+        hits = [r for r in rows if key in r["name"]]
+        if len(hits) != 1 or hits[0]["count"] != len(launches):
+            raise AssertionError(f"{tag}: {key} rows {hits}, not one row of "
+                                 f"{len(launches)} launches")
+        trace_ms += hits[0]["ms"]
+        floor += hits[0]["floor_ms"]
+        bound += sum(rl.floor_ms(f, b, dt)[0] for f, b, dt in launches)
+        names.append(f"{key} x{len(launches)}")
+    if abs(floor - bound) > 1e-9 * bound:
+        raise AssertionError(f"{tag}: the roofline's floor {floor} ms is "
+                             f"not the bounds' {bound} ms")
+    ratio = trace_ms / event_ms
+    if abs(ratio - 1) > TRACE_TOL:
+        raise AssertionError(f"{tag}: traced {trace_ms:.4f} ms against "
+                             f"{event_ms:.4f} ms by CUDA events")
+    out = {"kernels": names, "trace_ms": trace_ms, "event_ms": event_ms,
+           "floor_ms": floor, "pct_of_floor": 100 * floor / trace_ms,
+           "trace_over_event": ratio}
+    log(f"{tag}: " + json.dumps(out))
+    return out
+
+
+def log_roofline(tag, rows):
+    rl = roofline()
+    log(f"{tag} roofline (ms per call, the top kernels):")
+    log(rl.format_table(rl.group_families(rows)))
+    for r in rows[:6]:
+        pct = ("-" if r["pct_of_floor"] is None
+               else f"{r['pct_of_floor']:.1f} %")
+        log(f"  {r['name'][:70]}: {r['ms']:.4f} ms x{r['count']}, floor {pct}")
+
+
+def trace_rtf_flow(wf, tmp):
+    """One bench rtf call at its defaults (B=24 x 10 s, bf16, the flow
+    kernel, int8 cond) under torch.profiler, read by eval/roofline.py:
+    the flow kernel's row against flow_bound and against the 12 launches
+    timed alone by CUDA events at the traced shapes."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models.waveglow import (
+        cast_params,
+        flow_channels,
+        init_waveglow,
+        pack_waveglow_flow,
+        pack_waveglow_int8cond,
+        remove_weightnorm,
+        waveglow_infer,
+    )
+    from fac_via_ppg_torch.weights import move
+
+    rl, bf16, dev = roofline(), torch.bfloat16, torch.device("cuda")
+    cfg, B, F = WaveGlowConfig(), 24, 1000
+    T, C, L = F * cfg.hop_length // cfg.n_group, cfg.wn_n_channels, \
+        cfg.wn_n_layers
+    params = move(remove_weightnorm(
+        init_waveglow(cfg, torch.Generator().manual_seed(0))), dev)
+    packed_cond = pack_waveglow_int8cond(cfg, params)
+    serve = cast_params(params, bf16)
+    pack = pack_waveglow_flow(cfg, serve)
+    g = torch.Generator("cuda").manual_seed(SEED + 61)
+    mel = (torch.randn((B, cfg.n_mel_channels, F), generator=g,
+                       device="cuda") * 0.5 - 5.0).to(bf16)
+
+    def call():
+        with torch.no_grad():
+            waveglow_infer(cfg, serve, mel, 0.6, g, wn_impl="flow",
+                           packed_wn=pack, cond_impl="int8",
+                           packed_cond=packed_cond).float().sum().item()
+
+    call()
+    counts = rl.waveglow_counts(cfg, B, F, bf16, "flow")
+    rows = rl.kernel_table(rl.capture(call, f"{tmp}/rtf.json"),
+                           counts=counts)
+    log_roofline("rtf (flow, bf16, int8 cond)", rows)
+    halves = {k: (torch.randn((B, flow_channels(cfg)[k] // 2, T),
+                              generator=g, device="cuda") * 0.3).to(bf16)
+              for k in range(cfg.n_flows)}
+    cond = (torch.randn((B, T, L * 2 * C), generator=g, device="cuda")
+            * 0.3).to(bf16)
+
+    def flows():
+        for k in reversed(range(cfg.n_flows)):
+            wf.wn_flow(pack[k], halves[k], cond)
+
+    event_ms = cuda_ms_queued(flows)
+    bound = sum(flow_bound(B, T, flow_channels(cfg)[k] // 2, bf16)[2]
+                for k in range(cfg.n_flows))
+    table = sum(rl.floor_ms(f, b, dt)[0]
+                for f, b, dt in counts["wn_flow_bf16_kernel"])
+    if abs(bound - table) > 1e-12 * bound:
+        raise AssertionError("the count table is not flow_bound's")
+    return trace_row(rows, counts, event_ms,
+                     f"trace rtf wn_flow B={B} T={T}")
+
+
+def trace_fused_layer(wl, models, tmp):
+    """One e2e_fused batch (8 seeded 4 s wavs, max_frames 400, bf16, the
+    layer kernel) through FusedSynthesizer under torch.profiler, read by
+    eval/roofline.py: the layer kernel's row against layer_bound and
+    against its 96 launches timed alone by CUDA events, on the synth's own
+    packs, each layer's cond a slice of one stacked projection."""
+    from fac_via_ppg_torch import bench
+
+    rl, bf16 = roofline(), torch.bfloat16
+    B, F = 8, 400
+    synth = bench.fused_synthesizer(models, F, "dense", torch.device("cuda"))
+    cfg = synth.wg_cfg
+    T, C, L = F * cfg.hop_length // cfg.n_group, cfg.wn_n_channels, \
+        cfg.wn_n_layers
+    pairs = [synth.featurize(p) for p in bench.synth_wavs(tmp, B, 4.0)]
+    g = torch.Generator("cuda").manual_seed(SEED + 62)
+
+    def call():
+        synth.synthesize_feature_pairs(pairs, g)
+
+    call()
+    counts = rl.waveglow_counts(cfg, B, F, bf16, "layer")
+    rows = rl.kernel_table(rl.capture(call, f"{tmp}/fused.json"),
+                           counts=counts)
+    log_roofline(f"e2e_fused batch of {B} (layer, bf16)", rows)
+    x = (torch.randn((B, T, C), generator=g, device="cuda") * 0.3).to(bf16)
+    cond = (torch.randn((B, T, L * 2 * C), generator=g, device="cuda")
+            * 0.3).to(bf16)
+
+    def layers():
+        for pk in synth._packed_wn:
+            for i in range(L):
+                wl.wn_layer(x, cond[:, :, 2 * C * i: 2 * C * (i + 1)],
+                            pk["in_w"][i], pk["in_b"][i], pk["rs_w"][i],
+                            pk["rs_b"][i], dilation=2 ** i, last=i == L - 1,
+                            in_img=pk["in_img"][i], rs_img=pk["rs_img"][i])
+
+    event_ms = cuda_ms_queued(layers)
+    bound = cfg.n_flows * sum(
+        rl.layer_bound(B, T, bf16, C, last=i == L - 1)[2] for i in range(L))
+    table = sum(rl.floor_ms(f, b, dt)[0] for v in counts.values()
+                for f, b, dt in v)
+    if abs(bound - table) > 1e-12 * bound:
+        raise AssertionError("the count table is not layer_bound's")
+    return trace_row(rows, counts, event_ms,
+                     f"trace e2e_fused wn_layer B={B} T={T}")
+
+
+def run_duration_check(tmp):
+    """eval/duration_check's CLI on 2 seeded wavs, with a random-weight
+    Tacotron2 at create_hparams()'s defaults in the PPG trainer's
+    checkpoint format (train/checkpoint.save_checkpoint, the trainer's
+    writer) and the substitute AM.  A random model may run to the cap."""
+    import contextlib
+    import io
+
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        create_hparams,
+    )
+    from fac_via_ppg_torch.eval import duration_check
+    from fac_via_ppg_torch.models import init_tacotron2
+    from fac_via_ppg_torch.train.checkpoint import save_checkpoint
+    from fac_via_ppg_torch.train.optim import make_optimizer
+
+    hp = create_hparams()
+    cfg = Tacotron2Config.from_hparams(hp)
+    params, state = init_tacotron2(cfg,
+                                   torch.Generator().manual_seed(SEED + 51))
+    ckpt = f"{tmp}/checkpoint_0"
+    save_checkpoint(ckpt, params, make_optimizer(hp.learning_rate).init(
+        params), hp.learning_rate, 0, model_state=state)
+    wavs = write_wavs(tmp, n=2, seed=SEED + 52)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summary = duration_check.main([ckpt, *wavs, "--hparams", "default",
+                                       "--json", f"{tmp}/durations.json"])
+    for line in buf.getvalue().splitlines():
+        log(f"  {line}")
+    rows = json.loads(Path(f"{tmp}/durations.json").read_text())["rows"]
+    if len(rows) != 2 or summary["n_utts"] != 2 or any(
+            r["stop"] not in ("GATE", "CAP")
+            or not 0 < r["out_frames"] <= cfg.max_decoder_steps
+            for r in rows):
+        raise AssertionError(f"duration check: {rows}")
+    return {"rows": [{k: r[k] for k in ("src_frames", "out_frames", "stop")}
+                     for r in rows], "summary": summary}
+
+
+def run_measure(card, wl, wf):
+    """Phase 12: the bench's rtf (defaults; then pallas + dense),
+    e2e_fused and train_waveglow lines, fewer calls than the CLI's; the
+    roofline of a traced rtf call and a traced fused batch; the duration
+    check."""
+    from fac_via_ppg_torch import bench
+
+    t0 = time.time()
+    n_l, n_f = wl.launches, wf.launches
+    models = bench.full_size_models()
+    runs = {
+        "rtf": lambda: bench.bench_waveglow_rtf(warmup=1, iters=3),
+        "rtf --wn_impl pallas --cond_impl dense":
+            lambda: bench.bench_waveglow_rtf(wn_impl="pallas",
+                                             cond_impl="dense", warmup=1,
+                                             iters=3),
+        "e2e_fused": lambda: bench.bench_e2e_fused(warmup=1, iters=3,
+                                                   models=models),
+        "train_waveglow": lambda: bench.bench_train_waveglow(warmup=1,
+                                                             iters=3),
+    }
+    lines = {}
+    for name, run in runs.items():
+        lines[name] = run()
+        check_bench_line(name, lines[name])
+        log(f"bench {name}: " + json.dumps(lines[name]))
+    with tempfile.TemporaryDirectory() as tmp:
+        traces = {"rtf_wn_flow": trace_rtf_flow(wf, tmp),
+                  "e2e_fused_wn_layer": trace_fused_layer(wl, models, tmp)}
+        durations = run_duration_check(tmp)
+    wl.launches, wf.launches = n_l, n_f
+    log("measure: " + json.dumps({
+        "card": card, "bench": {k: v["value"] for k, v in lines.items()},
+        "traces": traces, "durations": durations["summary"]}))
+    log(f"phase 12: {time.time() - t0:.1f} s")
+    return {"bench": lines, "traces": traces, "durations": durations}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
@@ -2324,6 +2608,9 @@ def main():
     ap.add_argument("--tools", action="store_true",
                     help="only run phase 11, the device front end and the "
                     "checkpoint tools")
+    ap.add_argument("--measure", action="store_true",
+                    help="only run phase 12, the bench, the roofline and "
+                    "the duration check")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2351,6 +2638,10 @@ def main():
     if args.tools:
         build_kernels((wf,))
         run_tools(card, wf)
+        return 0
+    if args.measure:
+        build_kernels((wl, wf))
+        run_measure(card, wl, wf)
         return 0
 
     reports = build_kernels((wl, wf))
@@ -2437,6 +2728,7 @@ def main():
     log("stream cli: " + json.dumps({"card": card, **stream_cli}))
     run_training(card)
     tools = run_tools(card, wf)
+    run_measure(card, wl, wf)
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",

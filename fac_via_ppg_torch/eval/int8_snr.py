@@ -1,13 +1,21 @@
-"""The serving gate of the int8 cond projection (the port of
-fac_via_ppg_tpu/eval/int8_snr.py's gate: `select_cond_impl` and its
-helpers).
+"""Quality ladder for reduced-precision WaveGlow inference modes, and the
+serving gate of the int8 cond projection (the port of
+fac_via_ppg_tpu/eval/int8_snr.py).
 
-`select_cond_impl` runs the vocoder twice on a calibration batch with the
-same noise, f32 with dense cond (the reference) and bf16 with int8 cond
-(the serving mode), and keeps int8 only when the worst utterance's SNR
-meets the budget.  `calibration_mel_from_wavs` makes that batch from a
-deployment's own wavs.  The ladder tool of the JAX package (`run_ladder`,
-its CLI) is not ported yet.
+`run_ladder` measures the SNR of each serving configuration (bf16-dense,
+bf16-int8, f32-int8, plus the opt-in per-tensor-scale rungs) against the
+f32-dense output on a checkpoint with real corpus mel and matched noise;
+the reference never measures its fp16 inference mode's precision trade
+(reference src/waveglow/inference.py:40-49), this tool does.
+`select_cond_impl` runs the same comparison for the bf16-int8 mode alone
+and keeps int8 only when the worst utterance's SNR meets the budget.
+`calibration_mel_from_wavs` makes the calibration batch from a
+deployment's own wavs.  The WN int8 rungs (`include_wn_int8`) are not
+ported (ROADMAP queue 1 item 7) and raise.
+
+Usage (on the card unless --cpu):
+    python -m fac_via_ppg_torch.eval.int8_snr \
+        --waveglow_model waveglow.pt --wav a.wav b.wav [--config config.json]
 """
 
 from __future__ import annotations
@@ -97,6 +105,70 @@ def _snr_db(ref: np.ndarray, got: np.ndarray) -> float:
     ), 2)
 
 
+def _ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor, sigma: float,
+            seed: int, wn_impl: str, rungs) -> tuple:
+    """(f32-dense audio, {name: audio}) for rungs (name, dtype, cond_impl,
+    cond_quant), on the device of `params` (f32, remove_weightnorm form),
+    every run on the same matched noise; audio as float64 numpy."""
+    dev = params["upsample"]["weight"].device
+    mel = mel.to(dev, torch.float32)
+    noise = matched_noise(cfg, mel.shape[0], mel.shape[2], seed)
+    packed = pack_waveglow_int8cond(cfg, params)
+
+    def run(dtype, cond_impl, cond_quant="column"):
+        with torch.no_grad():
+            out = waveglow_infer(
+                cfg, params, mel, sigma, dtype=dtype, noise=noise,
+                wn_impl=wn_impl, cond_impl=cond_impl, cond_quant=cond_quant,
+                packed_cond=(packed if cond_impl == "int8" else None))
+        return out.double().cpu().numpy()
+
+    return run(None, "dense"), {name: run(*rung) for name, *rung in rungs}
+
+
+def run_ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor,
+               sigma: float = 0.6, seed: int = 0,
+               include_tensorscale: bool = False,
+               include_wn_int8: bool = False, detailed: bool = False,
+               wn_impl: str = "conv") -> dict:
+    """{name: SNR dB vs f32-dense} for each reduced-precision mode, its
+    coupling nets on `wn_impl` ("conv" or "flow").
+
+    include_tensorscale adds the per-tensor activation-scale int8 rungs
+    (`cond_quant="tensor"`) for an A/B against the per-column default.
+    include_wn_int8 (the WN in_conv int8 rungs) is not ported and raises.
+
+    detailed=True returns {name: {"db", "per_utt_db", "worst_utt_db"}}
+    instead of bare floats: per_utt_db is the SNR of each batch row
+    (utterance) separately, worst_utt_db its minimum -- the quality gate
+    should be judged on the worst utterance, not the batch mean.
+    """
+    if include_wn_int8:
+        raise ValueError("include_wn_int8: the WN int8 rungs are not ported "
+                         "yet (ROADMAP queue 1 item 7)")
+    rungs = [
+        ("bf16_dense", torch.bfloat16, "dense", "column"),
+        ("bf16_int8", torch.bfloat16, "int8", "column"),
+        ("f32_int8", None, "int8", "column"),
+    ]
+    if include_tensorscale:
+        rungs += [
+            ("bf16_int8_tensorscale", torch.bfloat16, "int8", "tensor"),
+            ("f32_int8_tensorscale", None, "int8", "tensor"),
+        ]
+    ref, got = _ladder(cfg, params, mel, sigma, seed, wn_impl, rungs)
+    out = {}
+    for name, audio in got.items():
+        if detailed:
+            per_utt = [_snr_db(ref[b], audio[b])
+                       for b in range(ref.shape[0])]
+            out[name] = {"db": _snr_db(ref, audio), "per_utt_db": per_utt,
+                         "worst_utt_db": min(per_utt)}
+        else:
+            out[name] = _snr_db(ref, audio)
+    return out
+
+
 def select_cond_impl(cfg: WaveGlowConfig, params, mel: torch.Tensor,
                      budget_db: float, sigma: float = 0.6, seed: int = 0,
                      wn_impl: str = "conv") -> tuple:
@@ -105,20 +177,70 @@ def select_cond_impl(cfg: WaveGlowConfig, params, mel: torch.Tensor,
 
     Runs on the device of `params` (f32, remove_weightnorm form) with
     coupling nets `wn_impl` ("conv" or "flow")."""
-    dev = params["upsample"]["weight"].device
-    mel = mel.to(dev, torch.float32)
-    noise = matched_noise(cfg, mel.shape[0], mel.shape[2], seed)
-    packed = pack_waveglow_int8cond(cfg, params)
-
-    def run(dtype, cond_impl):
-        with torch.no_grad():
-            out = waveglow_infer(
-                cfg, params, mel, sigma, dtype=dtype, noise=noise,
-                wn_impl=wn_impl, cond_impl=cond_impl,
-                packed_cond=(packed if cond_impl == "int8" else None))
-        return out.double().cpu().numpy()
-
-    ref = run(None, "dense")
-    got = run(torch.bfloat16, "int8")
+    ref, got = _ladder(cfg, params, mel, sigma, seed, wn_impl,
+                       [("bf16_int8", torch.bfloat16, "int8", "column")])
+    got = got["bf16_int8"]
     worst = min(_snr_db(ref[b], got[b]) for b in range(ref.shape[0]))
     return ("int8" if worst >= budget_db else "dense"), worst
+
+
+def main(argv=None, device=None):
+    """The ladder CLI: one JSON line.  `device` None means the card (the
+    CPU under --cpu)."""
+    import argparse
+
+    from fac_via_ppg_torch.models.waveglow import resolve_wn_impl
+    from fac_via_ppg_torch.utils.device import device_name, resolve_device
+    from fac_via_ppg_torch.utils.inference import load_waveglow_model
+    from fac_via_ppg_torch.weights import move
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--waveglow_model", required=True,
+                        help="the reference's .pt WaveGlow checkpoint")
+    parser.add_argument("--config", default=None,
+                        help="trainer config.json (waveglow_config block); "
+                             "defaults to the full reference architecture")
+    parser.add_argument("--wav", nargs="+", required=True,
+                        help="wav files providing the conditioning mel")
+    parser.add_argument("--sigma", type=float, default=0.6)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--wn_impl", default="flow",
+                        choices=["flow", "conv", "xla"],
+                        help="coupling nets: the whole-net flow kernel "
+                             "(default, the int8 serving path's) or plain "
+                             "torch convs (conv, or the JAX package's xla)")
+    parser.add_argument("--include_tensorscale", action="store_true",
+                        help="add the per-tensor-scale A/B rungs")
+    parser.add_argument("--include_wn_int8", action="store_true",
+                        help="not ported (raises)")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run on the CPU instead of the card")
+    args = parser.parse_args(argv)
+
+    dev = resolve_device("cpu" if args.cpu else device)
+    cfg = (waveglow_config_from_json(args.config) if args.config
+           else WaveGlowConfig())
+    params = move(load_waveglow_model(args.waveglow_model, cfg), dev)
+    mels = []
+    stft = TacotronSTFT(filter_length=1024, hop_length=cfg.hop_length,
+                        win_length=1024, sampling_rate=16000,
+                        n_mel_channels=cfg.n_mel_channels,
+                        mel_fmin=0.0, mel_fmax=8000.0)
+    for p in args.wav:
+        _, wav = wavfile.read(p)
+        mels.append(get_mel(wav, stft, dev)[0])
+    F = min(m.shape[1] for m in mels)
+    mel = torch.as_tensor(np.stack([m[:, :F] for m in mels]))
+
+    ladder = run_ladder(cfg, params, mel, args.sigma, args.seed,
+                        include_tensorscale=args.include_tensorscale,
+                        include_wn_int8=args.include_wn_int8,
+                        detailed=True, wn_impl=resolve_wn_impl(args.wn_impl))
+    out = {"snr_db_vs_f32_dense": ladder, "mel_shape": list(mel.shape),
+           "device": device_name(dev)}
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

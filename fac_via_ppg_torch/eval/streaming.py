@@ -39,6 +39,7 @@ from fac_via_ppg_torch.configs.hparams import (
 )
 from fac_via_ppg_torch.frontend import ppg as ppg_mod
 from fac_via_ppg_torch.models.denoiser import Denoiser
+from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
 from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.utils.inference import (
     get_inference,
@@ -442,6 +443,11 @@ def parse_args(argv=None):
                         help="worst-utterance SNR budget (dB) for "
                              "--cond_impl auto; default "
                              "eval/int8_snr.DEFAULT_SNR_BUDGET_DB")
+    parser.add_argument("--compilation_cache_dir", default="",
+                        help="build the hand kernels' libraries into (and "
+                             "reuse them from) this directory; default "
+                             "$FACPPG_COMPILATION_CACHE, else the "
+                             "package's build/ (utils/compilation_cache.py)")
     return parser.parse_args(argv)
 
 
@@ -449,6 +455,7 @@ def main(argv=None, device=None):
     """Run the CLI on `argv` (default: sys.argv).  `device=None` means the
     CUDA card (raises without one); tests pass "cpu"."""
     args = parse_args(argv)
+    enable_compilation_cache(args.compilation_cache_dir or None)
     dev = resolve_device(device)
     hparams = create_hparams_stage()
     t2_cfg = Tacotron2Config.from_hparams(hparams)

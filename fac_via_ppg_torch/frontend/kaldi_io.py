@@ -254,8 +254,9 @@ def write_sparse_matrix(path: str, mat: np.ndarray):
 
 def read_sym_table(path: str) -> dict:
     """Kaldi-style 'symbol index' table -> {symbol: index} (the port's own
-    copy of fac_via_ppg_tpu/io/utterance.py::read_sym_table): blank lines
-    skipped, a symbol defined twice is a ValueError."""
+    copy of fac_via_ppg_tpu/io/utterance.py::read_sym_table, which
+    io/utterance.py re-exports): blank lines skipped, a symbol defined
+    twice is a ValueError."""
     sym_table = {}
     with open(path) as reader:
         for line in reader:

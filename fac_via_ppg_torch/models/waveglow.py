@@ -463,6 +463,23 @@ def waveglow_forward(cfg: WaveGlowConfig, params, spect: torch.Tensor,
 # inference
 # ==========================================================================
 
+# The JAX package's names of the coupling-net implementations, each mapped
+# to the port's: "xla" (its conv formulation) to "conv", "pallas" (its WN
+# layer kernel) to "layer"; "flow" is the same word in both.
+WN_IMPL_ALIASES = {"xla": "conv", "pallas": "layer"}
+WN_IMPLS = ("conv", "layer", "flow")
+
+
+def resolve_wn_impl(name: str) -> str:
+    """A coupling-net implementation's name, the JAX package's or the
+    port's -> the port's ("conv", "layer" or "flow")."""
+    name = WN_IMPL_ALIASES.get(name, name)
+    if name not in WN_IMPLS:
+        raise ValueError(f"unknown wn_impl {name!r}: one of "
+                         f"{list(WN_IMPLS) + list(WN_IMPL_ALIASES)}")
+    return name
+
+
 def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                    sigma: float,
                    generator: Optional[torch.Generator] = None,

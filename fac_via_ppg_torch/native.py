@@ -4,8 +4,9 @@ The port's own loader for the C++ front end that the JAX package loads
 through its `native` package (a copy of what the MFCC needs: the library's
 C ABI for `fac_num_frames` / `fac_mfcc_compute` and `supports`).  The
 library is built at first use with g++ (the flags of native/Makefile)
-into `fac_via_ppg_torch/build/libfacppg_native.so` (git-ignored), and
-rebuilt when the source is newer.  Nothing is built or loaded at import.
+into `fac_via_ppg_torch/build/libfacppg_native.so` (git-ignored; another
+directory under utils/compilation_cache.py), and rebuilt when the source
+is newer.  Nothing is built or loaded at import.
 
     from fac_via_ppg_torch import native
     if native.available():
@@ -47,7 +48,7 @@ def _build() -> None:
     cxx = shutil.which("g++")
     if cxx is None:
         raise OSError("g++ not found")
-    LIBRARY.parent.mkdir(exist_ok=True)
+    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
     tmp = LIBRARY.with_name(f".{LIBRARY.name}.{os.getpid()}")
     subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp), str(SOURCE)],
                    check=True, capture_output=True, timeout=300)

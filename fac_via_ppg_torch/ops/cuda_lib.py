@@ -2,8 +2,10 @@
 
 Each kernel's source `csrc/<name>.cu` (with the shared headers
 `csrc/*.cuh`) is compiled by nvcc for sm_90a at first use into
-`fac_via_ppg_torch/build/lib<name>.so` (git-ignored) and loaded with
-ctypes.  Nothing is built or loaded at import time.
+`BUILD_DIR/lib<name>.so` and loaded with ctypes.  `BUILD_DIR` is
+`fac_via_ppg_torch/build/` (git-ignored) unless
+utils/compilation_cache.py points it elsewhere.  Nothing is built or
+loaded at import time.
 """
 
 from __future__ import annotations
@@ -25,11 +27,16 @@ class CudaLibrary:
     ctypes argtypes (every function returns an int CUDA error code)."""
 
     def __init__(self, name: str, symbols: dict):
+        self.name = name
         self.source = CSRC / f"{name}.cu"
-        self.library = BUILD_DIR / f"lib{name}.so"
         self._symbols = symbols
         self._lock = threading.Lock()
         self._lib = None
+
+    @property
+    def library(self) -> Path:
+        """The built library's path, in the current BUILD_DIR."""
+        return BUILD_DIR / f"lib{self.name}.so"
 
     def build(self) -> str:
         """Compile the source into `library`; returns nvcc's resource
@@ -38,7 +45,7 @@ class CudaLibrary:
         if not os.path.exists(nvcc):
             raise RuntimeError(
                 f"nvcc not found: {self.source.name} cannot be built")
-        BUILD_DIR.mkdir(exist_ok=True)
+        self.library.parent.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_name(f".{self.library.name}.{os.getpid()}")
         cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -89,7 +89,6 @@ _LIB = CudaLibrary("wn_flow", {
     "wn_flow_bf16_occupancy": [_pi, _pi],
     "wn_flow_f32_gemm1_tile": [_p, _i, _i, _i, _p, _p, _p],
     "wn_flow_bf16_gemm1_tile": [_p, _i, _i, _i, _p, _p, _p]})
-LIBRARY = _LIB.library
 build = _LIB.build
 
 # Kernel launches since the last reset (the caller sets it to 0).

@@ -67,7 +67,6 @@ _LIB = CudaLibrary("wn_layer", {
     "wn_layer_bf16_tile": _LAYER, "wn_layer_bf16": _LAYER,
     "wn_layer_f32_occupancy": [_pi, _pi],
     "wn_layer_bf16_occupancy": [_pi, _pi]})
-LIBRARY = _LIB.library
 build = _LIB.build
 
 # Kernel launches since the last reset (the caller sets it to 0).

@@ -52,6 +52,7 @@ from fac_via_ppg_torch.frontend import ppg as ppg_mod
 from fac_via_ppg_torch.models.denoiser import Denoiser
 from fac_via_ppg_torch.ops import wn_flow, wn_layer
 from fac_via_ppg_torch.scripts.waveglow_inference import DTYPES
+from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
 from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.utils.inference import (
     get_inference,
@@ -97,6 +98,11 @@ def parse_args(argv=None):
                         help="worst-utterance SNR budget (dB) of "
                              "--cond_impl auto; default "
                              "eval/int8_snr.DEFAULT_SNR_BUDGET_DB")
+    parser.add_argument("--compilation_cache_dir", default="",
+                        help="build the hand kernels' libraries into (and "
+                             "reuse them from) this directory; default "
+                             "$FACPPG_COMPILATION_CACHE, else the "
+                             "package's build/ (utils/compilation_cache.py)")
     return parser.parse_args(argv)
 
 
@@ -124,6 +130,7 @@ def main(argv=None, device=None):
     device work; host clock on the CPU), the audio seconds written and
     the wall seconds from the models' load to the last wav."""
     args = parse_args(argv)
+    enable_compilation_cache(args.compilation_cache_dir or None)
     dev = resolve_device(device)
     os.makedirs(args.output_dir, exist_ok=True)
     # debug.log gets every record of the run, whatever handlers a host app

@@ -15,8 +15,9 @@ and copied to the device while a step runs.
 Each iteration's dropout masks come from a generator seeded with (seed,
 iteration), and a resumed run takes up the epoch's shuffle where it
 stood, so resuming at an epoch boundary continues the run as if it had
-not stopped.  Data / tensor parallelism, ZeRO-1 and the compilation cache
-are not ported (ROADMAP queue 1 items 6-7) and raise.
+not stopped.  `compilation_cache_dir` is where the compiled libraries
+live (utils/compilation_cache.py).  Data / tensor parallelism and ZeRO-1
+are not ported (ROADMAP queue 1 item 6) and raise.
 
     python -m fac_via_ppg_torch.scripts.train_ppg2mel key=value ...
 
@@ -53,12 +54,13 @@ from fac_via_ppg_torch.train.step import (
     make_tacotron2_eval_step,
     make_tacotron2_train_step,
 )
+from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
 from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.weights import move
 
 
 def check_single_device(data_parallel_devices, tensor_parallel_devices,
-                        zero_sharded_opt_state, compilation_cache_dir):
+                        zero_sharded_opt_state):
     """Raise on the JAX package's options the port has not ported."""
     if data_parallel_devices not in ("", None, 1) or \
             int(tensor_parallel_devices or 1) > 1 or zero_sharded_opt_state:
@@ -66,14 +68,18 @@ def check_single_device(data_parallel_devices, tensor_parallel_devices,
             "data / tensor parallel training and ZeRO-1 are not ported "
             "yet (ROADMAP queue 1 item 6: multi-GPU); the port trains on "
             "one device")
-    if compilation_cache_dir:
-        raise ValueError("compilation_cache_dir is not ported yet (ROADMAP "
-                         "queue 1 item 7: tooling)")
 
 
 def step_generator(device, seed: int, iteration: int) -> torch.Generator:
     """The generator of one iteration's dropout masks."""
     return torch.Generator(device).manual_seed(seed * 1_000_003 + iteration)
+
+
+def prepare_directories_and_logger(output_directory, log_directory):
+    """Create the run's directory and its TensorBoard logger (one process:
+    the JAX package's rank-0 branch)."""
+    os.makedirs(output_directory, exist_ok=True)
+    return Tacotron2Logger(os.path.join(output_directory, log_directory))
 
 
 def prepare_dataloaders(hparams, device):
@@ -120,8 +126,8 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
     device = resolve_device(device)
     check_single_device(hparams.data_parallel_devices,
                         hparams.tensor_parallel_devices,
-                        hparams.zero_sharded_opt_state,
-                        hparams.compilation_cache_dir)
+                        hparams.zero_sharded_opt_state)
+    enable_compilation_cache(hparams.compilation_cache_dir or None)
     cfg = Tacotron2Config.from_hparams(hparams)
     params, model_state = init_tacotron2(
         cfg, torch.Generator().manual_seed(hparams.seed))
@@ -137,8 +143,7 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
     eval_step = make_tacotron2_eval_step(cfg, hparams.mel_weight,
                                          hparams.gate_weight)
 
-    os.makedirs(output_directory, exist_ok=True)
-    logger = Tacotron2Logger(os.path.join(output_directory, log_directory))
+    logger = prepare_directories_and_logger(output_directory, log_directory)
     train_loader, valset = prepare_dataloaders(hparams, device)
     pad_to = hparams.length_bucket_size
 

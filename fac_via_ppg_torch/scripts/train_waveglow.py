@@ -13,8 +13,9 @@ The WN convs train in their weight-norm form on the conv formulation
         [key=value ...]
 
 (overrides of train_config / data_config keys, plus `device`; the card by
-default).  Data / tensor parallelism, ZeRO-1 and the compilation cache
-raise (ROADMAP queue 1 items 6-7).
+default).  `compilation_cache_dir` is where the compiled libraries live
+(utils/compilation_cache.py).  Data / tensor parallelism and ZeRO-1
+raise (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from fac_via_ppg_torch.train.optim import (
     set_learning_rate,
 )
 from fac_via_ppg_torch.train.step import make_waveglow_train_step
+from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
 from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.weights import move
 
@@ -64,7 +66,8 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
     del num_gpus, rank, group_name  # one process, one device
     device = resolve_device(device)
     check_single_device(data_parallel_devices, tensor_parallel_devices,
-                        zero_sharded_opt_state, compilation_cache_dir)
+                        zero_sharded_opt_state)
+    enable_compilation_cache(compilation_cache_dir or None)
     cfg = WaveGlowConfig.from_dict(waveglow_config or {})
     params = weight_norm_params(
         init_waveglow(cfg, torch.Generator().manual_seed(seed)))
@@ -167,12 +170,12 @@ def main(config_file_path: str = DEFAULT_WAVEGLOW_CONFIG_PATH, device=None,
     with open(config_file_path) as f:
         config = json.load(f)
     train_config = dict(config["train_config"])
-    # the parallel options are override-only keys (absent from the
-    # reference's config.json sections)
-    parallel_keys = ("tensor_parallel_devices", "data_parallel_devices",
-                     "zero_sharded_opt_state")
+    # the parallel options and the compilation cache are override-only
+    # keys (absent from the reference's config.json sections)
+    extra_keys = ("tensor_parallel_devices", "data_parallel_devices",
+                  "zero_sharded_opt_state", "compilation_cache_dir")
     train_config.update({k: v for k, v in overrides.items()
-                         if k in train_config or k in parallel_keys})
+                         if k in train_config or k in extra_keys})
     data_config = dict(config["data_config"])
     data_config.update({k: v for k, v in overrides.items()
                         if k in data_config})

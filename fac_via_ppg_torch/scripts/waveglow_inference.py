@@ -43,9 +43,11 @@ from fac_via_ppg_torch.models.waveglow import (
     pack_waveglow_flow,
     pack_waveglow_int8cond,
     pack_waveglow_layer,
+    resolve_wn_impl,
     waveglow_infer,
 )
 from fac_via_ppg_torch.ops import wn_flow
+from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
 from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.utils.inference import load_waveglow_model
 from fac_via_ppg_torch.utils.numeric import round_batch_to_grid, round_up
@@ -96,10 +98,12 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     worst-utterance SNR under "auto"); per batch its rows, its flow kernel
     launches and its vocoder seconds (CUDA events around the batch's
     device work; host clock on the CPU); the audio seconds written; the
-    wall seconds."""
-    if wn_impl not in ("conv", "layer", "flow"):
-        raise SystemExit(f"--wn_impl must be conv/layer/flow, got "
-                         f"{wn_impl!r}")
+    wall seconds.  `wn_impl` also takes the JAX CLI's names, "xla" for
+    "conv" and "pallas" for "layer"."""
+    try:
+        wn_impl = resolve_wn_impl(wn_impl)
+    except ValueError as e:
+        raise SystemExit(f"--wn_impl: {e}") from None
     if cond_impl not in ("dense", "int8", "auto"):
         raise SystemExit(f"--cond_impl must be dense/int8/auto, got "
                          f"{cond_impl!r}")
@@ -273,11 +277,12 @@ def parse_args(argv=None):
     parser.add_argument("--compute_dtype", default="float32",
                         choices=list(DTYPES))
     parser.add_argument("--wn_impl", default="flow",
-                        choices=["conv", "layer", "flow"],
+                        choices=["conv", "layer", "flow", "xla", "pallas"],
                         help="coupling nets: flow = the whole-net kernel, "
-                             "one launch per flow (default); layer = the "
-                             "WN layer kernel, one launch per layer; conv "
-                             "= plain torch convs")
+                             "one launch per flow (default); layer (or the "
+                             "JAX CLI's pallas) = the WN layer kernel, one "
+                             "launch per layer; conv (or xla) = plain "
+                             "torch convs")
     parser.add_argument("--cond_impl", default="dense",
                         choices=["dense", "int8", "auto"],
                         help="int8: cond projections as int8 matmuls; "
@@ -303,11 +308,17 @@ def parse_args(argv=None):
                              "(> 8, not a multiple of 8) up to the 8-grid; "
                              "full also pads partial tail chunks to the "
                              "batch size; none = exact sizes")
+    parser.add_argument("--compilation_cache_dir", default="",
+                        help="build the hand kernels' libraries into (and "
+                             "reuse them from) this directory; default "
+                             "$FACPPG_COMPILATION_CACHE, else the "
+                             "package's build/ (utils/compilation_cache.py)")
     return parser.parse_args(argv)
 
 
 if __name__ == "__main__":
     args = parse_args()
+    enable_compilation_cache(args.compilation_cache_dir or None)
     main(args.filelist_path, args.waveglow_path, args.output_dir, args.sigma,
          args.denoiser_strength, args.batch_size, args.sampling_rate,
          args.compute_dtype, args.wn_impl, args.cond_impl, args.config,

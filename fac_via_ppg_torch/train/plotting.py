@@ -51,6 +51,17 @@ def plot_spectrogram_to_numpy(spectrogram: np.ndarray) -> np.ndarray:
     return _fig_to_numpy(plt, fig)
 
 
+def plot_ppg_to_numpy(ppg: np.ndarray) -> np.ndarray:
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(12, 3))
+    im = ax.imshow(ppg, aspect="auto", origin="lower", interpolation="none")
+    plt.colorbar(im, ax=ax)
+    plt.xlabel("Frames")
+    plt.ylabel("PPG index")
+    plt.tight_layout()
+    return _fig_to_numpy(plt, fig)
+
+
 def plot_gate_outputs_to_numpy(gate_targets, gate_outputs) -> np.ndarray:
     plt = _plt()
     fig, ax = plt.subplots(figsize=(12, 3))

@@ -15,3 +15,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name as torch.cuda.get_device_name gives it; "cpu"."""
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)

@@ -5,7 +5,8 @@ Same public surface: get_mask_from_lengths, load_filepaths,
 notch_filtering, get_mel, waveglow_audio, get_inference,
 load_tacotron2_model, load_waveglow_model.  The checkpoints are the
 reference's own `.pt` files (the JAX package's orbax directories are not
-read here; its `train/export_torch` writes the `.pt` form).  Randomness
+read here; its `train/export_torch` writes the `.pt` form), and the
+port's PPG trainer's for Tacotron2.  Randomness
 comes from a torch.Generator; the prenet keep-masks and the WaveGlow noise
 can be injected instead (`masks`, `noise`).
 """
@@ -13,6 +14,7 @@ can be injected instead (`masks`, `noise`).
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -25,6 +27,7 @@ from fac_via_ppg_torch.dsp.stft import TacotronSTFT
 from fac_via_ppg_torch.models.tacotron2 import tacotron2_inference
 from fac_via_ppg_torch.models.waveglow import remove_weightnorm, waveglow_infer
 from fac_via_ppg_torch.train.import_torch import (
+    import_tacotron2_state_dict,
     load_reference_tacotron2_checkpoint,
     load_reference_waveglow_checkpoint,
 )
@@ -125,9 +128,18 @@ def get_inference(seq: np.ndarray, cfg: Tacotron2Config, params, model_state,
 
 
 def load_tacotron2_model(path: str, cfg: Tacotron2Config) -> Tuple[dict, dict]:
-    """The reference's Tacotron2 `.pt` checkpoint ({'state_dict', ...},
-    reference train_ppg2mel.py:143-149) -> (params, model_state) on the
-    CPU."""
+    """A Tacotron2 checkpoint -> (params, model_state) on the CPU: the
+    reference's `.pt` ({'state_dict', ...}, reference
+    train_ppg2mel.py:143-149) or one the port's trainer writes
+    ({'params', 'model_state', ...}, train/checkpoint.py)."""
+    try:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:  # a reference file that holds more
+        payload = None
+    if isinstance(payload, dict) and "params" in payload:
+        return payload["params"], payload.get("model_state")
+    if isinstance(payload, dict) and "state_dict" in payload:
+        return import_tacotron2_state_dict(payload["state_dict"], cfg)
     params, model_state, _, _ = load_reference_tacotron2_checkpoint(path, cfg)
     return params, model_state
 

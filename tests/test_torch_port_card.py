@@ -19,6 +19,11 @@ And the data tools: MfccTorch with TF32 forced on, DeviceFeaturizer
 against the host path, the pickled-module WaveGlow written from card
 tensors, and the mel dump CLI on the card against the CPU.
 
+And the measurement tools: eval/rtf.py's `timed` against a CUDA-event
+loop of the same calls (within 15 %), and eval/roofline.py's reader
+finding both hand kernels in a real torch.profiler trace, with their
+launch counts and floors.
+
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -688,3 +693,78 @@ def test_mel2samp_dump_runs_on_the_card(card, tmp_path):
         got, want = np.load(a), np.load(b)
         assert got.shape == want.shape and got.dtype == np.float32
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_timed_matches_a_cuda_event_loop(card):
+    """eval/rtf.timed (each call's scalar read back) against CUDA events
+    around the same calls, each also read back: within 15 %."""
+    from fac_via_ppg_torch.eval.rtf import timed
+
+    a = torch.randn(2048, 2048, device=card)
+
+    def fn(x):
+        return (x @ x).relu()
+
+    s = timed(fn, a, warmup=2, iters=20)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(20):
+        fn(a).sum().item()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 20
+    assert s * 1e3 == pytest.approx(ms, rel=0.15)
+
+
+@pytest.mark.cuda
+def test_roofline_reads_both_kernels_from_a_trace(card, tmp_path):
+    """One tiny-batch WaveGlow at full width on the layer kernel, then on
+    the flow kernel, under torch.profiler: the reader finds each kernel
+    with its launches (the layer kernel's two instances 84 and 12, the
+    last layer's apart; the flow kernel's 12) and the floors the count
+    table gives."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.eval import roofline as rl
+    from fac_via_ppg_torch.models.waveglow import (
+        cast_params,
+        init_waveglow,
+        pack_waveglow_flow,
+        pack_waveglow_layer,
+        remove_weightnorm,
+        waveglow_infer,
+    )
+    from fac_via_ppg_torch.weights import move
+
+    cfg, B, F = WaveGlowConfig(), 2, 64
+    params = cast_params(move(remove_weightnorm(init_waveglow(
+        cfg, torch.Generator().manual_seed(0))), card), torch.bfloat16)
+    mel = (torch.randn(B, 80, F, device=card) - 5).to(torch.bfloat16)
+    packs = {"layer": pack_waveglow_layer(cfg, params),
+             "flow": pack_waveglow_flow(cfg, params)}
+
+    def run():
+        with torch.no_grad():
+            for impl, pack in packs.items():
+                waveglow_infer(cfg, params, mel, 0.6, wn_impl=impl,
+                               packed_wn=pack).float().sum().item()
+
+    run()
+    counts = {**rl.waveglow_counts(cfg, B, F, torch.bfloat16, "layer"),
+              **rl.waveglow_counts(cfg, B, F, torch.bfloat16, "flow")}
+    rows = rl.kernel_table(rl.capture(run, str(tmp_path / "t.json"),
+                                      calls=2), calls=2, counts=counts)
+    found = {k: [r for r in rows if k in r["name"]] for k in counts}
+    for name, n in (("wn_layer_bf16_kernel<false>", 84),
+                    ("wn_layer_bf16_kernel<true>", 12),
+                    ("wn_flow_bf16_kernel", 12)):
+        assert len(found[name]) == 1, (name, [r["name"] for r in rows])
+        row = found[name][0]
+        assert row["count"] == n and row["ms"] > 0
+        floor = sum(rl.floor_ms(f, b, dt)[0] for f, b, dt in counts[name])
+        assert row["floor_ms"] == pytest.approx(floor, rel=1e-12)
+        assert 0 < row["pct_of_floor"] <= 100
+    fams = rl.group_families(rows)
+    assert fams["wn_layer (hand)"]["kernels"] == 96
+    assert fams["wn_flow (hand)"]["kernels"] == 12

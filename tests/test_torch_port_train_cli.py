@@ -317,18 +317,16 @@ def test_trainers_default_to_cuda(tmp_path, monkeypatch, trainer):
     ("data_parallel_devices", 2, "queue 1 item 6"),
     ("tensor_parallel_devices", 2, "queue 1 item 6"),
     ("zero_sharded_opt_state", True, "queue 1 item 6"),
-    ("compilation_cache_dir", "/tmp/cache", "queue 1 item 7"),
 ])
 def test_unported_options_raise(tmp_path, option, value, match):
     with pytest.raises(ValueError, match=match):
         train_ppg2mel.main(device="cpu",
                            output_directory=str(tmp_path / "run"),
                            **{option: value})
-    if option != "compilation_cache_dir":
-        with pytest.raises(ValueError, match=match):
-            train_waveglow.main(device="cpu",
-                                output_directory=str(tmp_path / "wg"),
-                                **{option: value})
+    with pytest.raises(ValueError, match=match):
+        train_waveglow.main(device="cpu",
+                            output_directory=str(tmp_path / "wg"),
+                            **{option: value})
 
 
 def test_profiling_trace_and_timer(tmp_path):
