@@ -132,12 +132,32 @@ Phases (any failure exits nonzero; there is no CPU path):
      same launches timed alone by CUDA events; (c) eval/duration_check's
      CLI on 2 seeded wavs with a random Tacotron2 at create_hparams() in
      the PPG trainer's checkpoint format (a random model may run to
-     CAP).
+     CAP);
+ 13. the rest of the JAX package's tooling (TF32 off; published WaveGlow
+     widths, seeded random weights): (a) waveglow_infer on the port's one
+     upsampler layout (the grouped spect) against the two-step spect
+     swapped in, at B=8 x 512 frames, bf16 on the flow kernel and f32 on
+     the layer kernel: the spect and the audio bit for bit, each call
+     timed A B B A; bench train_waveglow --grouped_upsample (1 + 3 calls,
+     A B B A against the two-step spect) and one f32 step on each, losses
+     within 1e-5 relative; (b) the WN int8 rungs: the vocoder CLI with --wn_impl
+     conv --cond_impl int8 --wn_int8_flows 4 over 8 mels x 512 frames;
+     bench rtf --wn_impl conv --cond_impl int8 with --wn_int8_flows 0, 12,
+     12 --wn_int8_quant tensor and --wn_int8_rs_flows 12 (1 + 2 calls,
+     batch WN8_BENCH_BATCH x 10 s); run_ladder(include_wn_int8=True) on 4
+     mels x 2 s, every rung's SNR; (c) Denoiser(mode="normal") on the card
+     against the CPU, the bias template within 1e-4; (d) eval/runbook.py
+     --stages am on the substitute AM and 4 wavs; trained_parity's
+     framework_serve (full width, SERVE_STEPS steps, gate held off) on the
+     card against the CPU: the same stop step, the mel within
+     SERVE_MEL_TOL; run_trained_parity only where FACPPG_REFERENCE_SRC
+     names the reference's sources.
 Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
 `cli:`, `synth profile:`, `synth:`, `decode:`, `decode profile:`,
 `stream:`, `stream cli:`, `train ppg2mel:`, `train waveglow:`, `device
 featurizer:`, `featurize bench:`, `pickled:`, `bench <config>:`, `trace
-...:` and `measure:` lines, a `{"kernels": ...}` line and, last,
+...:`, `measure:` and `slice12:` lines, a `{"kernels": ...}` line and,
+last,
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
 
@@ -147,6 +167,7 @@ Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --train
     python3 chip_smoke.py --tools
     python3 chip_smoke.py --measure
+    python3 chip_smoke.py --tools2
 
 run only the flow kernel (at the CLI's shape), only the layer kernel
 (bf16 at the fused batch's shape, B=4, T=10000, d=8), or both kernels'
@@ -154,12 +175,13 @@ f32 forms (at the synthesis CLI's shape, B=8, T=20000; TF32 off, atol
 1e-4) of the port in CHECKOUT (another commit unpacked with `git
 archive`): build, hold against the plain versions and time as phase 7
 does; print one JSON line.  `--train` runs phase 10 alone, `--tools`
-phase 11 (with the flow kernel's build), `--measure` phase 12 (with both
-kernels' builds).  Compare two versions on one card in one call, in
+phase 11 (with the flow kernel's build), `--measure` phase 12 and
+`--tools2` phase 13 (each with both kernels' builds).  Compare two versions on one card in one call, in
 turns: old, new, new, old.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -199,6 +221,10 @@ FEAT_ROW_TOL = 6e-5
 OLD_WAV_TOL = 16
 # phase 12: a traced kernel's time against its CUDA-event time
 TRACE_TOL = 0.15
+# phase 13: the WN int8 rungs' bench batch (x 10 s; the bench's default
+# is 24), the framework_serve decode's steps and its card-vs-CPU mel bound
+WN8_BENCH_BATCH = 4
+SERVE_STEPS, SERVE_MEL_TOL = 100, 1e-4
 
 
 def log(*a):
@@ -2393,6 +2419,26 @@ def trace_row(rows, counts, event_ms, tag):
     return out
 
 
+def traced_rows(call, path, counts, tag):
+    """eval/roofline.py's kernel table of one `call` under torch.profiler.
+    torch.profiler has been seen to lose one flow's kernel records from
+    such a trace (11 of 12 flow launches, and the elementwise kernels
+    around the lost one): where the trace holds another number of
+    launches of a counted kernel than `counts` lists, that is logged and
+    the call traced once more.  trace_row then holds the table to the
+    launches as before, so a second short trace still fails."""
+    rl = roofline()
+    rows = rl.kernel_table(rl.capture(call, path), counts=counts)
+    held = {k: sum(r["count"] for r in rows if k in r["name"])
+            for k in counts}
+    short = {k: f"{n} of {len(counts[k])}" for k, n in held.items()
+             if n != len(counts[k])}
+    if short:
+        log(f"{tag}: the trace held {short} launches; tracing again")
+        rows = rl.kernel_table(rl.capture(call, path), counts=counts)
+    return rows
+
+
 def log_roofline(tag, rows):
     rl = roofline()
     log(f"{tag} roofline (ms per call, the top kernels):")
@@ -2441,8 +2487,8 @@ def trace_rtf_flow(wf, tmp):
 
     call()
     counts = rl.waveglow_counts(cfg, B, F, bf16, "flow")
-    rows = rl.kernel_table(rl.capture(call, f"{tmp}/rtf.json"),
-                           counts=counts)
+    rows = traced_rows(call, f"{tmp}/rtf.json", counts,
+                       f"trace rtf wn_flow B={B} T={T}")
     log_roofline("rtf (flow, bf16, int8 cond)", rows)
     halves = {k: (torch.randn((B, flow_channels(cfg)[k] // 2, T),
                               generator=g, device="cuda") * 0.3).to(bf16)
@@ -2487,8 +2533,8 @@ def trace_fused_layer(wl, models, tmp):
 
     call()
     counts = rl.waveglow_counts(cfg, B, F, bf16, "layer")
-    rows = rl.kernel_table(rl.capture(call, f"{tmp}/fused.json"),
-                           counts=counts)
+    rows = traced_rows(call, f"{tmp}/fused.json", counts,
+                       f"trace e2e_fused wn_layer B={B} T={T}")
     log_roofline(f"e2e_fused batch of {B} (layer, bf16)", rows)
     x = (torch.randn((B, T, C), generator=g, device="cuda") * 0.3).to(bf16)
     cond = (torch.randn((B, T, L * 2 * C), generator=g, device="cuda")
@@ -2592,6 +2638,402 @@ def run_measure(card, wl, wf):
     return {"bench": lines, "traces": traces, "durations": durations}
 
 
+# ---------------------------------------------------------------- phase 13
+
+@contextlib.contextmanager
+def two_step_upsampler():
+    """Swaps the two-step spect, group_spect(upsample_phase_matmul(...)),
+    in for models/waveglow.py::upsample_grouped, the port's one upsampler
+    layout: the reference that layout is held and timed against."""
+    from fac_via_ppg_torch.models import waveglow
+
+    def two_step(p, spect, hop, n_group, t_samples=None):
+        up = waveglow.upsample_phase_matmul(p, spect, hop)
+        if t_samples is not None:
+            up = up[:, :, :t_samples]
+        return waveglow.group_spect(up, n_group)
+
+    grouped = waveglow.upsample_grouped
+    waveglow.upsample_grouped = two_step
+    try:
+        yield
+    finally:
+        waveglow.upsample_grouped = grouped
+
+
+# The order of the grouped (True) and two-step (False) runs in a timed
+# comparison: A B B A, so that drift over the phase falls on both.
+ABBA = (True, False, False, True)
+
+
+def check_grouped_upsample(wl, wf):
+    """waveglow_infer on its grouped spect against the two-step spect at
+    the vocoder CLI's batch (B=8 x 512 frames, full WaveGlowConfig, seeded
+    weights): bf16 on the flow kernel, f32 on the layer kernel.  The
+    grouped spect equals the two-step spect bit for bit, in the same
+    strides, and so does the audio (the same seeded noise); each call
+    timed with CUDA events, A B B A.  Returns each kernel's launches in
+    the grouped calls."""
+    from fac_via_ppg_torch.models.waveglow import (
+        cast_params,
+        group_spect,
+        pack_waveglow_flow,
+        pack_waveglow_layer,
+        remove_weightnorm,
+        upsample_grouped,
+        upsample_phase_matmul,
+        waveglow_infer,
+    )
+    from fac_via_ppg_torch.weights import move
+
+    cfg, params = waveglow_params(SEED + 71)
+    params = move(remove_weightnorm(params), torch.device("cuda"))
+    B, F = CLI_BATCH, MEL_FRAMES[1]
+    mel = torch.as_tensor(np.random.RandomState(SEED + 72).randn(
+        B, cfg.n_mel_channels, F) * 0.5 - 5.0, dtype=torch.float32,
+        device="cuda")
+    out = {}
+    for dtype, impl, pack in ((torch.bfloat16, "flow", pack_waveglow_flow),
+                              (torch.float32, "layer", pack_waveglow_layer)):
+        name = "wn_layer" if impl == "layer" else "wn_flow"
+        want = cfg.n_flows * (cfg.wn_n_layers if impl == "layer" else 1)
+        serve = params if dtype == torch.float32 else cast_params(params,
+                                                                  dtype)
+        m = mel.to(dtype)
+        with torch.no_grad():
+            two = group_spect(upsample_phase_matmul(
+                serve["upsample"], m, cfg.hop_length), cfg.n_group)
+            one = upsample_grouped(serve["upsample"], m, cfg.hop_length,
+                                   cfg.n_group)
+            if not torch.equal(one, two) or one.stride() != two.stride():
+                raise AssertionError(f"grouped spect ({dtype}) is not the "
+                                     f"two-step spect bit for bit")
+            pk = pack(cfg, serve)
+            audio, ms = [], {True: [], False: []}
+            out[name] = 0
+            for grouped in ABBA:
+                n_l, n_f = wl.launches, wf.launches
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                with contextlib.nullcontext() if grouped \
+                        else two_step_upsampler():
+                    ev[0].record()
+                    audio.append(waveglow_infer(
+                        cfg, serve, m, 0.6,
+                        torch.Generator("cuda").manual_seed(SEED + 73),
+                        wn_impl=impl, packed_wn=pk))
+                    ev[1].record()
+                torch.cuda.synchronize()
+                ms[grouped].append(ev[0].elapsed_time(ev[1]))
+                n = {"wn_layer": wl.launches - n_l,
+                     "wn_flow": wf.launches - n_f}[name]
+                if n != want:
+                    raise AssertionError(f"{impl}: {n} launches of {name}, "
+                                         f"not {want}")
+                out[name] += n if grouped else 0
+        if not all(torch.equal(a, audio[0]) for a in audio) or not bool(
+                torch.isfinite(audio[0]).all()):
+            raise AssertionError(f"grouped {impl} ({dtype}) audio is not "
+                                 f"the two-step audio bit for bit")
+        log(f"slice12: grouped upsample {impl} {str(dtype)[6:]} B={B} "
+            f"F={F}: spect and audio bit-equal, {out[name]} launches; "
+            f"waveglow_infer ms grouped {ms[True]} two-step {ms[False]} "
+            f"(A B B A)")
+    return out
+
+
+def check_grouped_train_step():
+    """bench train_waveglow --grouped_upsample (the flag is recorded only)
+    on the grouped and the two-step spect, A B B A, 1 warm-up + 3 calls
+    each; and one f32 step (TF32 off) from the bench's seeded params and
+    batch on each: losses within 1e-5 relative."""
+    from fac_via_ppg_torch import bench
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models.waveglow import (
+        init_waveglow,
+        weight_norm_params,
+    )
+    from fac_via_ppg_torch.train.optim import make_optimizer
+    from fac_via_ppg_torch.train.step import make_waveglow_train_step
+    from fac_via_ppg_torch.weights import move
+
+    lines = {True: [], False: []}
+    for grouped in ABBA:
+        with contextlib.nullcontext() if grouped else two_step_upsampler():
+            line = bench.bench_train_waveglow(warmup=1, iters=3,
+                                              grouped_upsample=True)
+        check_bench_line("train_waveglow --grouped_upsample", line)
+        lines[grouped].append(line["value"])
+    log("slice12: bench train_waveglow --grouped_upsample: "
+        + json.dumps(line))
+    log(f"slice12: bench train_waveglow s per step grouped {lines[True]} "
+        f"two-step {lines[False]} (A B B A)")
+    cfg, dev = WaveGlowConfig(), torch.device("cuda")
+    rng = np.random.RandomState(0)
+    F = -(-WG_SEGMENT // cfg.hop_length)
+    batch = (torch.as_tensor(rng.randn(3, cfg.n_mel_channels, F) * 0.5 - 5.0,
+                             dtype=torch.float32, device=dev),
+             torch.as_tensor(rng.randn(3, WG_SEGMENT) * 0.1,
+                             dtype=torch.float32, device=dev))
+    losses = {}
+    for grouped in (False, True):
+        params = move(weight_norm_params(
+            init_waveglow(cfg, torch.Generator().manual_seed(0))), dev)
+        opt = make_optimizer(1e-5)
+        step = make_waveglow_train_step(cfg, opt, sigma=0.7071)
+        with contextlib.nullcontext() if grouped else two_step_upsampler():
+            losses[grouped] = float(step(params, opt.init(params),
+                                         batch).loss)
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    log(f"slice12: train step grouped loss {losses[True]!r} vs "
+        f"{losses[False]!r} two-step, rel {rel:.3g} (<= 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"grouped train step loss off by {rel}")
+    return {"bench_s": lines, "loss_rel": rel}
+
+
+def run_wn_int8_cli(tmp):
+    """The vocoder CLI in-process with --wn_impl conv --cond_impl int8
+    --wn_int8_flows 4 over 8 mels bucketed to 512 frames (-b 8, bf16, -s
+    0.6, -d 0.005): every wav 16 kHz int16, not constant, 512 * hop long."""
+    from fac_via_ppg_torch.scripts import waveglow_inference as cli
+
+    cfg, ckpt, paths, frames = write_cli_inputs(tmp)
+    filelist = f"{tmp}/first8.txt"
+    with open(filelist, "w") as fh:
+        fh.write("\n".join(paths[:8]) + "\n")
+    t0 = time.time()
+    summary = cli.main(filelist, ckpt, f"{tmp}/wn8", 0.6, 0.005,
+                       batch_size=CLI_BATCH, compute_dtype="bfloat16",
+                       wn_impl="conv", cond_impl="int8", mel_bucket=64,
+                       wn_int8_flows=4)
+    check_wavs(f"{tmp}/wn8", paths[:8], frames[:8], cfg.hop_length)
+    out = {"batches": [(b["rows"], b["frames"]) for b in summary["batches"]],
+           "vocoder_s": [b["vocoder_s"] for b in summary["batches"]],
+           "wall_s": time.time() - t0}
+    if out["batches"] != [(8, 512)]:
+        raise AssertionError(f"wn int8 cli batches {out['batches']}")
+    log("slice12: cli --wn_impl conv --cond_impl int8 --wn_int8_flows 4: "
+        + json.dumps(out))
+    return out
+
+
+def run_wn_int8_bench():
+    """bench rtf --wn_impl conv --cond_impl int8 with --wn_int8_flows 0,
+    12, 12 --wn_int8_quant tensor and --wn_int8_rs_flows 12, 1 + 2 calls
+    each, batch cut to 4 x 10 s (the CLI's 24) for the phase's time."""
+    from fac_via_ppg_torch import bench
+
+    lines = {}
+    for name, kw in (("wn_int8_flows 0", {}),
+                     ("wn_int8_flows 12", dict(wn_int8_flows=12)),
+                     ("wn_int8_flows 12 --wn_int8_quant tensor",
+                      dict(wn_int8_flows=12, wn_int8_quant="tensor")),
+                     ("wn_int8_rs_flows 12", dict(wn_int8_rs_flows=12))):
+        lines[name] = bench.bench_waveglow_rtf(
+            batch=WN8_BENCH_BATCH, warmup=1, iters=2, wn_impl="conv",
+            cond_impl="int8", **kw)
+        check_bench_line(name, lines[name])
+        log(f"slice12: bench rtf --wn_impl conv --cond_impl int8 --{name} "
+            f"(batch {WN8_BENCH_BATCH}): " + json.dumps(lines[name]))
+    return {k: v["value"] for k, v in lines.items()}
+
+
+def run_wn_int8_ladder():
+    """run_ladder(include_wn_int8=True, detailed=True) at full width on 4
+    seeded mels x 2 s, the base rungs on the flow kernel: every rung's SNR
+    finite; the WN rungs on the conv formulation."""
+    from fac_via_ppg_torch.eval.int8_snr import run_ladder
+    from fac_via_ppg_torch.models.waveglow import remove_weightnorm
+    from fac_via_ppg_torch.weights import move
+
+    cfg, params = waveglow_params(SEED + 74)
+    params = move(remove_weightnorm(params), torch.device("cuda"))
+    mel = torch.as_tensor(np.random.RandomState(SEED + 75).randn(
+        4, cfg.n_mel_channels, 200) * 0.5 - 5.0, dtype=torch.float32)
+    ladder = run_ladder(cfg, params, mel, 0.6, seed=0, include_wn_int8=True,
+                        detailed=True, wn_impl="flow")
+    n = cfg.n_flows
+    want = {"bf16_dense", "bf16_int8", "f32_int8", "bf16_int8_wn4",
+            "bf16_int8_wn8", f"bf16_int8_wn{n}", f"bf16_int8_wn{n}t",
+            f"bf16_int8_rs{n}"}
+    if set(ladder) != want:
+        raise AssertionError(f"ladder rungs {sorted(ladder)}")
+    for name, r in ladder.items():
+        log(f"slice12: ladder {name}: {r['db']} dB (worst utterance "
+            f"{r['worst_utt_db']} dB){' on conv' if 'wn_impl' in r else ''}")
+        if not np.isfinite(r["db"]) or (("_wn" in name or "_rs" in name)
+                                        and r.get("wn_impl") != "conv"):
+            raise AssertionError(f"ladder {name}: {r}")
+    return {k: v["db"] for k, v in ladder.items()}
+
+
+def check_denoiser_normal():
+    """Denoiser(mode="normal") on the card (the f32 layer kernel) against
+    the CPU (its plain version), one seeded generator each: the bias
+    template within 1e-4."""
+    from fac_via_ppg_torch.models.denoiser import Denoiser
+    from fac_via_ppg_torch.models.waveglow import remove_weightnorm
+    from fac_via_ppg_torch.weights import move
+
+    cfg, params = waveglow_params(SEED + 76)
+    params = remove_weightnorm(params)
+    with torch.no_grad():
+        spec = {dev: Denoiser(cfg, move(params, torch.device(dev)),
+                              mode="normal",
+                              generator=torch.Generator().manual_seed(7)
+                              ).bias_spec.cpu()
+                for dev in ("cuda", "cpu")}
+        zeros = Denoiser(cfg, move(params, torch.device("cuda"))).bias_spec
+    err = (spec["cuda"] - spec["cpu"]).abs().max().item()
+    log(f"slice12: denoiser normal card vs cpu: max_abs_err {err:.3g} "
+        f"(atol 1e-4), template max {spec['cpu'].abs().max().item():.4g}")
+    if not err <= 1e-4 or torch.equal(spec["cuda"], zeros.cpu()):
+        raise AssertionError(f"denoiser normal: card vs cpu {err}")
+    return err
+
+
+def run_runbook_am(tmp):
+    """eval/runbook.py's CLI, --stages am, on the substitute AM (data/,
+    the reference's am/ + feats/ layout) and 4 of the smoke's wavs."""
+    import contextlib
+    import io
+
+    from fac_via_ppg_torch.eval import runbook
+    from fac_via_ppg_torch.frontend import ppg as ppg_mod
+
+    deps = ppg_mod.DependenciesPPG()  # writes the substitute if missing
+    wavs = write_wavs(tmp, n=4, seed=SEED + 77)
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report = runbook.main(["--am_dir", ppg_mod.DATA_DIR, "--wavs", *wavs,
+                               "--stages", "am", "--output",
+                               f"{tmp}/runbook.json"])
+    am = report["am"]
+    out = {"n_senones": am["n_senones"], "n_monophones": am["n_monophones"],
+           "frames": [u["frames"] for u in am["per_utterance"]],
+           "max_row_sum_err": max(u["max_row_sum_err"]
+                                  for u in am["per_utterance"]),
+           "wall_s": time.time() - t0}
+    log("slice12: runbook --stages am: " + json.dumps(out))
+    if not am["invariants_ok"] or len(am["per_utterance"]) != 4 or \
+            am["n_senones"] != 5816:
+        raise AssertionError(f"runbook am: {am}")
+    return deps, wavs, out
+
+
+def check_framework_serve(deps, wav):
+    """eval/trained_parity.framework_serve at full width (seeded
+    Tacotron2 at create_hparams_stage(), its gate held off, capped at
+    SERVE_STEPS; the f32 WaveGlow and denoiser), on the PPG of one wav,
+    on the card against the CPU: the same stop step, the mel within
+    SERVE_MEL_TOL (TF32 off)."""
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        create_hparams_stage,
+    )
+    from fac_via_ppg_torch.eval import trained_parity as tp
+    from fac_via_ppg_torch.frontend import ppg as ppg_mod
+    from fac_via_ppg_torch.models import init_tacotron2
+    from fac_via_ppg_torch.models.denoiser import Denoiser
+    from fac_via_ppg_torch.models.waveglow import remove_weightnorm
+    from fac_via_ppg_torch.weights import move
+
+    t2_cfg = Tacotron2Config.from_hparams(
+        create_hparams_stage(max_decoder_steps=SERVE_STEPS))
+    t2_params, t2_state = init_tacotron2(
+        t2_cfg, torch.Generator().manual_seed(SEED + 78))
+    t2_params["decoder"]["gate_layer"]["bias"].fill_(-10.0)
+    wg_cfg, wg_params = waveglow_params(SEED + 79)
+    wg_params = remove_weightnorm(wg_params)
+    ppg = ppg_mod.get_ppg(wav, deps, dither=0.0, device="cuda")
+    ppg_b = ppg.T[None].astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = torch.device(dev)
+        wp = move(wg_params, d)
+        t0 = time.time()
+        out[dev] = tp.framework_serve(
+            t2_cfg, move(t2_params, d), move(t2_state, d), wg_cfg, wp,
+            Denoiser(wg_cfg, wp), ppg_b, 0.6, 0.005,
+            noise=lambda f: tp._matched_noise(wg_cfg, f, 16807))
+        out[dev + "_s"] = time.time() - t0
+    (mel_c, audio_c, end_c), (mel_h, audio_h, end_h) = out["cuda"], out["cpu"]
+    err = float(np.abs(mel_c - mel_h).max())
+    res = {"stop_step": [end_c, end_h], "mel_max_abs_err": err,
+           "mel_tol": SERVE_MEL_TOL,
+           "audio_max_abs_err": float(np.abs(audio_c - audio_h).max()),
+           "audio_lsd_db": tp._log_spectral_distance(audio_c[0], audio_h[0]),
+           "card_s": out["cuda_s"], "cpu_s": out["cpu_s"]}
+    log("slice12: framework_serve card vs cpu: " + json.dumps(res))
+    if end_c != end_h or end_c != SERVE_STEPS or not err <= SERVE_MEL_TOL \
+            or not np.isfinite(audio_c).all():
+        raise AssertionError(f"framework_serve card vs cpu: {res}")
+    return res
+
+
+def run_trained_parity_if_mounted(tmp, deps, wavs):
+    """run_trained_parity when the reference's sources are named by
+    FACPPG_REFERENCE_SRC; otherwise a line that says they are not."""
+    import os
+
+    if not os.environ.get("FACPPG_REFERENCE_SRC"):
+        log("slice12: trained_parity: the reference is not mounted "
+            "(FACPPG_REFERENCE_SRC unset); not run")
+        return None
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        create_hparams_stage,
+    )
+    from fac_via_ppg_torch.eval.trained_parity import run_trained_parity
+    from fac_via_ppg_torch.models import init_tacotron2
+    from fac_via_ppg_torch.train.export_torch import \
+        save_reference_tacotron2_checkpoint
+
+    cfg = Tacotron2Config.from_hparams(create_hparams_stage())
+    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(SEED))
+    t2_pt = f"{tmp}/t2.pt"
+    save_reference_tacotron2_checkpoint(t2_pt, params, state, cfg)
+    wg_pt = f"{tmp}/wg.pt"
+    write_waveglow_pt(wg_pt, SEED + 80)
+    res = run_trained_parity(t2_pt, wg_pt, wavs[:2], deps=deps,
+                             max_decoder_steps=SERVE_STEPS)
+    log("slice12: trained_parity: " + json.dumps(
+        {k: v for k, v in res.items() if k != "per_utterance"}))
+    return res
+
+
+def run_slice12(card, wl, wf):
+    """Phase 13: the grouped upsampler, the WN int8 rungs, the denoiser's
+    normal mode, the runbook's am stage and trained_parity's serve path,
+    at published WaveGlow widths with seeded random weights.  Returns the
+    kernels' launches in the grouped-spect checks."""
+    t0 = time.time()
+    grouped = check_grouped_upsample(wl, wf)
+    train = check_grouped_train_step()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = run_wn_int8_cli(tmp)
+    bench_rtf = run_wn_int8_bench()
+    ladder = run_wn_int8_ladder()
+    den_err = check_denoiser_normal()
+    with tempfile.TemporaryDirectory() as tmp:
+        deps, wavs, am = run_runbook_am(tmp)
+        serve = check_framework_serve(deps, wavs[0])
+        parity = run_trained_parity_if_mounted(tmp, deps, wavs)
+    log("slice12: " + json.dumps({
+        "card": card, "grouped_launches": grouped,
+        "grouped_train_loss_rel": train["loss_rel"],
+        "train_waveglow_s": train["bench_s"],
+        "wn_int8_cli_vocoder_s": cli["vocoder_s"],
+        "wn_int8_rtf_batch": WN8_BENCH_BATCH, "wn_int8_rtf": bench_rtf,
+        "ladder_db": ladder, "denoiser_normal_err": den_err,
+        "runbook_am": am, "framework_serve": serve,
+        "trained_parity": None if parity is None
+        else parity["passes_baseline"]}))
+    log(f"phase 13: {time.time() - t0:.1f} s")
+    return grouped
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
@@ -2611,6 +3053,10 @@ def main():
     ap.add_argument("--measure", action="store_true",
                     help="only run phase 12, the bench, the roofline and "
                     "the duration check")
+    ap.add_argument("--tools2", action="store_true",
+                    help="only run phase 13, the grouped upsampler, the WN "
+                    "int8 rungs, the denoiser's normal mode, the runbook "
+                    "and trained_parity's serve path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2642,6 +3088,10 @@ def main():
     if args.measure:
         build_kernels((wl, wf))
         run_measure(card, wl, wf)
+        return 0
+    if args.tools2:
+        build_kernels((wl, wf))
+        run_slice12(card, wl, wf)
         return 0
 
     reports = build_kernels((wl, wf))
@@ -2729,6 +3179,7 @@ def main():
     run_training(card)
     tools = run_tools(card, wf)
     run_measure(card, wl, wf)
+    grouped = run_slice12(card, wl, wf)
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
@@ -2742,6 +3193,7 @@ def main():
         **f32_synth["wn_layer"],
         "launches_synth": synth_launches["wn_layer"],
         "launches_stream": stream["wn_layer_launches"],
+        "launches_grouped": grouped["wn_layer"],
         **layer_res, "library_ms": None}, {
         "name": "wn_flow", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_flow.cu",
@@ -2757,6 +3209,7 @@ def main():
         "launches_stream_int8": stream["int8_wn_flow_launches"],
         "launches_pickled_cli": sum(
             tools["pickled"]["flow_launches"].values()),
+        "launches_grouped": grouped["wn_flow"],
         **flow_res, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

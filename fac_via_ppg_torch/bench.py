@@ -28,10 +28,15 @@ Other configurations (one JSON line each):
     --config train_waveglow   the WaveGlow train step
 
 `--wn_impl` takes the JAX bench's names too: xla (the port's conv
-formulation) and pallas (the WN layer kernel).  The WN int8 rungs and the
-grouped upsampler are not ported (ROADMAP queue 1 item 7); their flags
-raise.  Every function takes its sizes as arguments, so that a test can
-run it tiny with `device="cpu"`.
+formulation) and pallas (the WN layer kernel).  The WN int8 rungs
+(`--wn_int8_flows N`, `--wn_int8_rs_flows N`, `--wn_int8_quant tensor`)
+run on the conv formulation only (`--wn_impl conv` or `xla`); as in the
+JAX bench, a rung's line leaves out the dense and f32 figures.
+`--grouped_upsample` is taken for the JAX bench's sake and changes
+nothing: the port has one upsampler layout, the JAX package's grouped one
+(models/waveglow.py::upsample_grouped), and the line records the flag.
+Every function takes its sizes as arguments, so
+that a test can run it tiny with `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -56,27 +61,9 @@ from fac_via_ppg_torch.eval.rtf import Window, readback, scalar
 from fac_via_ppg_torch.models.waveglow import resolve_wn_impl
 from fac_via_ppg_torch.utils.device import device_name, resolve_device
 
-_UNPORTED = "is not ported yet (ROADMAP queue 1 item 7: the WN int8 rungs " \
-            "and the grouped upsampler)"
-
-
 def tf32_state() -> dict:
     return {"matmul": torch.backends.cuda.matmul.allow_tf32,
             "cudnn": torch.backends.cudnn.allow_tf32}
-
-
-def check_unported(wn_int8_flows: int = 0, wn_int8_rs_flows: int = 0,
-                   wn_int8_quant: str = "column",
-                   grouped_upsample: bool = False) -> None:
-    """Raise on the JAX bench's flags whose machinery the port lacks."""
-    if wn_int8_flows:
-        raise ValueError(f"--wn_int8_flows {_UNPORTED}")
-    if wn_int8_rs_flows:
-        raise ValueError(f"--wn_int8_rs_flows {_UNPORTED}")
-    if wn_int8_quant != "column":
-        raise ValueError(f"--wn_int8_quant {wn_int8_quant} {_UNPORTED}")
-    if grouped_upsample:
-        raise ValueError(f"--grouped_upsample {_UNPORTED}")
 
 
 def _runs(detail: dict, key: str, runs: list) -> None:
@@ -98,18 +85,23 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
         pack_waveglow_flow,
         pack_waveglow_int8cond,
         pack_waveglow_layer,
+        pack_waveglow_wn_int8,
         remove_weightnorm,
         waveglow_infer,
     )
     from fac_via_ppg_torch.weights import move
 
-    check_unported(wn_int8_flows, wn_int8_rs_flows, wn_int8_quant)
     wn_impl = resolve_wn_impl(wn_impl)
     if cond_impl not in ("dense", "int8"):
         raise ValueError(f"unknown cond_impl {cond_impl!r}")
     if cond_impl == "int8" and wn_impl == "layer":
         raise ValueError("--cond_impl int8 requires --wn_impl flow or conv "
                          "(xla); the WN layer kernel takes the dense cond")
+    rung = bool(wn_int8_flows or wn_int8_rs_flows)
+    if rung and wn_impl != "conv":
+        raise ValueError("--wn_int8_flows / --wn_int8_rs_flows need "
+                         "--wn_impl conv (xla): wn_int8_flows/rs requires "
+                         "wn_impl='xla'")
     dev = resolve_device(device)
     cfg = cfg or WaveGlowConfig()
     sr = 16000
@@ -122,6 +114,7 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
     # int8 weights from the un-cast params, as the serving paths do
     packed_cond = (pack_waveglow_int8cond(cfg, params)
                    if cond_impl == "int8" else None)
+    packed_wn8 = pack_waveglow_wn_int8(cfg, params) if rung else None
     pack = {"flow": pack_waveglow_flow, "layer": pack_waveglow_layer}.get(
         wn_impl)
     served = {}
@@ -151,7 +144,9 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
             g = torch.Generator(dev).manual_seed(i)
             return scalar(waveglow_infer(
                 cfg, p, mel_b, 0.6, g, wn_impl=wn_impl, packed_wn=pk,
-                cond_impl=ci, packed_cond=pc))
+                cond_impl=ci, packed_cond=pc, wn_int8_flows=wn_int8_flows,
+                packed_wn_int8=packed_wn8, wn_int8_quant=wn_int8_quant,
+                wn_int8_rs_flows=wn_int8_rs_flows))
 
         with torch.no_grad():
             for i in range(warmup):
@@ -201,6 +196,11 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
     rtf_p2, _, p2_runs = measure(torch.bfloat16, pipelined=True, depth=2)
     detail["rtf_pipelined_depth2"] = round(rtf_p2, 2)
     _runs(detail, "rtf_pipelined_depth2_runs", p2_runs)
+    line = {"metric": "waveglow_rtf", "value": round(rtf_bf16, 2),
+            "unit": "x_realtime", "detail": detail}
+    if rung:
+        # a rung's line: its comparators are the plain line's figures
+        return line
     if cond_impl != "dense":
         # the dense bf16 figure, so the int8 gain shows in one line
         detail["rtf_bf16_dense"] = round(
@@ -223,12 +223,7 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
         detail["f32_note"] = (f"f32 measured at batch {f32_batch}, not the "
                               f"headline batch {batch}: batch {2 * f32_batch}"
                               " did not fit the card's memory")
-    return {
-        "metric": "waveglow_rtf",
-        "value": round(rtf_bf16, 2),
-        "unit": "x_realtime",
-        "detail": detail,
-    }
+    return line
 
 
 class Models(NamedTuple):
@@ -552,7 +547,9 @@ def bench_train_waveglow(warmup: int = 3, iters: int = 20,
                          cfg: Optional[WaveGlowConfig] = None,
                          device=None) -> dict:
     """The WaveGlow training step at the reference config (batch 3,
-    10000-sample segments, sigma 0.7071)."""
+    10000-sample segments, sigma 0.7071).  `grouped_upsample` is only
+    recorded: the step always takes the grouped spect straight from the
+    upsampler's phases."""
     from fac_via_ppg_torch.models.waveglow import (
         init_waveglow,
         weight_norm_params,
@@ -561,7 +558,6 @@ def bench_train_waveglow(warmup: int = 3, iters: int = 20,
     from fac_via_ppg_torch.train.step import make_waveglow_train_step
     from fac_via_ppg_torch.weights import move
 
-    check_unported(grouped_upsample=grouped_upsample)
     dev = resolve_device(device)
     cfg = cfg or WaveGlowConfig()
     params = move(weight_norm_params(
@@ -632,14 +628,22 @@ def parse_args(argv=None):
     parser.add_argument("--pipeline_depth", type=int, default=2,
                         help="streaming_fused micro-batches in flight")
     parser.add_argument("--grouped_upsample", action="store_true",
-                        help="not ported (raises)")
+                        help="train_waveglow: recorded only; the port's "
+                             "one upsampler already takes the grouped "
+                             "spect straight from its phases")
     parser.add_argument("--wn_int8_flows", type=int, default=0,
-                        help="not ported (raises unless 0)")
+                        help="rtf: the WN in_layer convs of the N narrowest "
+                             "flows on int8 codes (needs --wn_impl conv; "
+                             "lossy: measure eval/int8_snr.py "
+                             "--include_wn_int8 first)")
     parser.add_argument("--wn_int8_rs_flows", type=int, default=0,
-                        help="not ported (raises unless 0)")
+                        help="rtf: the res_skip convs of the N narrowest "
+                             "flows on int8 codes (needs --wn_impl conv)")
     parser.add_argument("--wn_int8_quant", default="column",
                         choices=["column", "tensor"],
-                        help="tensor is not ported (raises)")
+                        help="the in_layer rung's activation scale: per "
+                             "column (three tap products) or per tensor "
+                             "(one stacked product)")
     parser.add_argument("--repeats", type=int, default=1,
                         help="rtf: time the window N times; the value is "
                              "the median, the detail holds each run and "

@@ -10,8 +10,9 @@ the reference never measures its fp16 inference mode's precision trade
 `select_cond_impl` runs the same comparison for the bf16-int8 mode alone
 and keeps int8 only when the worst utterance's SNR meets the budget.
 `calibration_mel_from_wavs` makes the calibration batch from a
-deployment's own wavs.  The WN int8 rungs (`include_wn_int8`) are not
-ported (ROADMAP queue 1 item 7) and raise.
+deployment's own wavs.  The WN int8 rungs (`include_wn_int8`) run on
+the conv formulation whatever the ladder's `wn_impl`, as the JAX package
+runs them on its xla path.
 
 Usage (on the card unless --cpu):
     python -m fac_via_ppg_torch.eval.int8_snr \
@@ -32,6 +33,7 @@ from fac_via_ppg_torch.dsp.stft import TacotronSTFT
 from fac_via_ppg_torch.models.waveglow import (
     flow_channels,
     pack_waveglow_int8cond,
+    pack_waveglow_wn_int8,
     waveglow_infer,
 )
 from fac_via_ppg_torch.utils.inference import get_mel
@@ -108,19 +110,28 @@ def _snr_db(ref: np.ndarray, got: np.ndarray) -> float:
 def _ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor, sigma: float,
             seed: int, wn_impl: str, rungs) -> tuple:
     """(f32-dense audio, {name: audio}) for rungs (name, dtype, cond_impl,
-    cond_quant), on the device of `params` (f32, remove_weightnorm form),
-    every run on the same matched noise; audio as float64 numpy."""
+    cond_quant[, wn_n, rs_n]), on the device of `params` (f32,
+    remove_weightnorm form), every run on the same matched noise; audio as
+    float64 numpy.  A rung with WN int8 flows (wn_n in_layer flows, the
+    per-tensor variant where negative; rs_n res_skip flows) runs on the
+    conv formulation."""
     dev = params["upsample"]["weight"].device
     mel = mel.to(dev, torch.float32)
     noise = matched_noise(cfg, mel.shape[0], mel.shape[2], seed)
     packed = pack_waveglow_int8cond(cfg, params)
+    wn8 = (pack_waveglow_wn_int8(cfg, params)
+           if any(len(r) > 4 for r in rungs) else None)
 
-    def run(dtype, cond_impl, cond_quant="column"):
+    def run(dtype, cond_impl, cond_quant="column", wn_n=0, rs_n=0):
         with torch.no_grad():
             out = waveglow_infer(
                 cfg, params, mel, sigma, dtype=dtype, noise=noise,
-                wn_impl=wn_impl, cond_impl=cond_impl, cond_quant=cond_quant,
-                packed_cond=(packed if cond_impl == "int8" else None))
+                wn_impl="conv" if wn_n or rs_n else wn_impl,
+                cond_impl=cond_impl, cond_quant=cond_quant,
+                packed_cond=(packed if cond_impl == "int8" else None),
+                wn_int8_flows=abs(wn_n), packed_wn_int8=wn8,
+                wn_int8_quant="tensor" if wn_n < 0 else "column",
+                wn_int8_rs_flows=rs_n)
         return out.double().cpu().numpy()
 
     return run(None, "dense"), {name: run(*rung) for name, *rung in rungs}
@@ -136,16 +147,18 @@ def run_ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor,
 
     include_tensorscale adds the per-tensor activation-scale int8 rungs
     (`cond_quant="tensor"`) for an A/B against the per-column default.
-    include_wn_int8 (the WN in_conv int8 rungs) is not ported and raises.
+    include_wn_int8 adds the WN int8 rungs, each on bf16 with int8 cond:
+    the in_layer convs of 4, 8 and all flows (`bf16_int8_wn{n}`), of all
+    flows with the per-tensor stacked variant (`bf16_int8_wn{n}t`) and the
+    res_skip convs of all flows (`bf16_int8_rs{n}`).  They run on the
+    conv formulation whatever `wn_impl`; their detailed entries say so
+    (`"wn_impl": "conv"`).
 
     detailed=True returns {name: {"db", "per_utt_db", "worst_utt_db"}}
     instead of bare floats: per_utt_db is the SNR of each batch row
     (utterance) separately, worst_utt_db its minimum -- the quality gate
     should be judged on the worst utterance, not the batch mean.
     """
-    if include_wn_int8:
-        raise ValueError("include_wn_int8: the WN int8 rungs are not ported "
-                         "yet (ROADMAP queue 1 item 7)")
     rungs = [
         ("bf16_dense", torch.bfloat16, "dense", "column"),
         ("bf16_int8", torch.bfloat16, "int8", "column"),
@@ -156,6 +169,16 @@ def run_ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor,
             ("bf16_int8_tensorscale", torch.bfloat16, "int8", "tensor"),
             ("f32_int8_tensorscale", None, "int8", "tensor"),
         ]
+    if include_wn_int8:
+        n = cfg.n_flows
+        # a negative in_layer count encodes the per-tensor variant
+        rungs += [(f"bf16_int8_wn{k}", torch.bfloat16, "int8", "column", k,
+                   0) for k in (4, 8, n) if k <= n]
+        rungs += [(f"bf16_int8_wn{n}t", torch.bfloat16, "int8", "column",
+                   -n, 0),
+                  (f"bf16_int8_rs{n}", torch.bfloat16, "int8", "column", 0,
+                   n)]
+    on_conv = {r[0] for r in rungs if len(r) > 4}
     ref, got = _ladder(cfg, params, mel, sigma, seed, wn_impl, rungs)
     out = {}
     for name, audio in got.items():
@@ -164,6 +187,8 @@ def run_ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor,
                        for b in range(ref.shape[0])]
             out[name] = {"db": _snr_db(ref, audio), "per_utt_db": per_utt,
                          "worst_utt_db": min(per_utt)}
+            if name in on_conv:
+                out[name]["wn_impl"] = "conv"
         else:
             out[name] = _snr_db(ref, audio)
     return out
@@ -212,7 +237,8 @@ def main(argv=None, device=None):
     parser.add_argument("--include_tensorscale", action="store_true",
                         help="add the per-tensor-scale A/B rungs")
     parser.add_argument("--include_wn_int8", action="store_true",
-                        help="not ported (raises)")
+                        help="add the WN int8 rungs (run on the conv "
+                             "formulation whatever --wn_impl)")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU instead of the card")
     args = parser.parse_args(argv)

@@ -114,3 +114,37 @@ def reference_tacotron2_module():
     model.get_mask_from_lengths = get_mask_from_lengths
     model.get_mask_from_lengths_window_and_time_step = get_mask_window
     return model
+
+
+class on_cpu:
+    """Context manager for running the reference's inference code on the
+    CPU: its legacy `torch.cuda.*Tensor` constructors (glow.py:261-268,
+    284-289; model.py:598) point at their CPU twins, `.cuda()` is a no-op
+    (denoiser.py:42-64) and torch.nn.functional.dropout is off (the
+    reference's prenet hardcodes training=True, model.py:134).  Everything
+    is restored on exit, so that the port's own CUDA code runs beside it."""
+
+    _NAMES = ("FloatTensor", "HalfTensor", "LongTensor")
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        self._saved = ({n: getattr(torch.cuda, n) for n in self._NAMES},
+                       torch.Tensor.cuda, torch.nn.Module.cuda, F.dropout)
+        for n in self._NAMES:
+            setattr(torch.cuda, n, getattr(torch, n))
+        torch.Tensor.cuda = lambda self, *a, **k: self
+        torch.nn.Module.cuda = lambda self, *a, **k: self
+        F.dropout = lambda x, p=0.5, training=False, inplace=False: x
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        import torch.nn.functional as F
+
+        ctors, torch.Tensor.cuda, torch.nn.Module.cuda, F.dropout = \
+            self._saved
+        for n, c in ctors.items():
+            setattr(torch.cuda, n, c)
+        return False

@@ -21,7 +21,11 @@ Three coupling-net implementations:
 
 The cond projection runs dense or, with `cond_impl="int8"`, as an int8
 matmul with int32 accumulation (per-column activation scales,
-per-out-channel weight scales) and exact dequantization.
+per-out-channel weight scales) and exact dequantization.  The WN int8
+rungs (conv formulation only, as in the JAX package) also run the dilated
+in_layer convs and the res_skip convs of chosen flows on int8 codes
+(`pack_waveglow_wn_int8`).  Training and inference both take the grouped
+spect straight from the upsampler's phases (`upsample_grouped`).
 
 Training takes the train form (`weight_norm_params`): every WN conv but
 the end conv as weight-norm (g, v, bias), folded inside the forward's
@@ -165,15 +169,12 @@ def cast_params(params, dtype: torch.dtype):
 # upsampler and grouping
 # ==========================================================================
 
-def upsample_phase_matmul(p: dict, spect: torch.Tensor,
-                          hop: int) -> torch.Tensor:
-    """ConvTranspose1d(k, stride=hop) as one phase-decomposed matmul:
-
-        out[b, q*hop + r, o] = sum_{j, i} spect[b, q - j, i] * W[i, o, j*hop + r]
-
-    with J = ceil(k / hop) shifted copies of the mel frames.  Yields
-    exactly F*hop samples, i.e. the reference's artifact cutoff (k - hop)
-    is built in (glow.py:254-256).  (B, C_in, F) -> (B, C_out, F*hop)."""
+def _upsample_phases(p: dict, spect: torch.Tensor,
+                     hop: int) -> torch.Tensor:
+    """The phase-decomposed transpose conv's one matmul (see
+    upsample_phase_matmul): (B, C_in, F) -> (B, F, hop, C_out), f32
+    products and accumulation, the bias added in f32, rounded to the
+    spect's dtype."""
     weight = p["weight"]  # (C_in, C_out, K)
     c_in, c_out, k = weight.shape
     j_taps = -(-k // hop)
@@ -186,8 +187,44 @@ def upsample_phase_matmul(p: dict, spect: torch.Tensor,
     x_cat = torch.cat([x_pad[:, j_taps - 1 - j: j_taps - 1 - j + F_]
                        for j in range(j_taps)], dim=-1)  # (B, F, J*C_in)
     out = torch.matmul(x_cat.float(), w_mat.float()).reshape(B, F_, hop, c_out)
-    out = (out + p["bias"].float()).to(spect.dtype)
+    return (out + p["bias"].float()).to(spect.dtype)
+
+
+def upsample_phase_matmul(p: dict, spect: torch.Tensor,
+                          hop: int) -> torch.Tensor:
+    """ConvTranspose1d(k, stride=hop) as one phase-decomposed matmul:
+
+        out[b, q*hop + r, o] = sum_{j, i} spect[b, q - j, i] * W[i, o, j*hop + r]
+
+    with J = ceil(k / hop) shifted copies of the mel frames.  Yields
+    exactly F*hop samples, i.e. the reference's artifact cutoff (k - hop)
+    is built in (glow.py:254-256).  (B, C_in, F) -> (B, C_out, F*hop)."""
+    out = _upsample_phases(p, spect, hop)
+    B, F_, _, c_out = out.shape
     return out.reshape(B, F_ * hop, c_out).transpose(1, 2)
+
+
+def upsample_grouped(p: dict, spect: torch.Tensor, hop: int, n_group: int,
+                     t_samples: Optional[int] = None) -> torch.Tensor:
+    """upsample_phase_matmul + group_spect in one layout step (JAX
+    `upsample_grouped`): the matmul's (B, F, hop, C) phases go straight to
+    the grouped spect, sample t = g*n_group + n landing at
+    [b, m*n_group + n, g].  The values are the two-step path's, bit for
+    bit, and so is the layout: one contiguous (B, G, C*n_group) copy,
+    returned as its (B, C*n_group, G) transpose, as group_spect returns
+    it, so that the cond projection reads the same bytes in the same order.
+
+    `t_samples` keeps its whole groups, sliced before the one copy.  Any
+    hop works: the JAX form splits hop into (hop/n_group, n_group) and
+    raises unless hop % n_group == 0, this one splits the flat sample
+    axis, which is a view for every hop."""
+    out = _upsample_phases(p, spect, hop)        # (B, F, hop, C)
+    B, F_, _, C = out.shape
+    T = F_ * hop if t_samples is None else min(t_samples, F_ * hop)
+    G = T // n_group
+    x = (out.reshape(B, F_ * hop, C)[:, :G * n_group]
+         .reshape(B, G, n_group, C))             # a view
+    return x.permute(0, 1, 3, 2).reshape(B, G, C * n_group).transpose(1, 2)
 
 
 def group_spect(spect_up: torch.Tensor, n_group: int) -> torch.Tensor:
@@ -234,6 +271,16 @@ def quantize_per_column_int8(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+def _per_row_int8(w: torch.Tensor):
+    """Symmetric int8 codes of an f32 weight, one scale per output row
+    (dim 0): (codes, scales)."""
+    dims = tuple(range(1, w.dim()))
+    scale = torch.clamp(w.abs().amax(dim=dims), min=1e-8) / 127.0
+    shape = (-1,) + (1,) * len(dims)
+    q = torch.clamp(torch.round(w / scale.view(shape)), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def pack_waveglow_int8cond(cfg: WaveGlowConfig, params: dict) -> list:
     """Per flow, the stacked cond weights (L*2C, n_mel*n_group) as int8
     with per-out-channel symmetric scales, and the bias in f32.  Computed
@@ -245,19 +292,116 @@ def pack_waveglow_int8cond(cfg: WaveGlowConfig, params: dict) -> list:
         w = torch.cat([p["weight"] for p in wn["cond_layers"]],
                       dim=0)[:, :, 0].float()
         b = torch.cat([p["bias"] for p in wn["cond_layers"]], dim=0)
-        w_scale = torch.clamp(w.abs().amax(dim=1), min=1e-8) / 127.0
-        wq = torch.clamp(torch.round(w / w_scale[:, None]), -127, 127)
-        packed.append({"wq": wq.to(torch.int8), "w_scale": w_scale,
-                       "bias": b.float()})
+        wq, w_scale = _per_row_int8(w)
+        packed.append({"wq": wq, "w_scale": w_scale, "bias": b.float()})
     return packed
 
 
 def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact: torch._int_mm
-    on CUDA, an int32 matmul on the CPU (|sums| < 2^31 for K < 2^17)."""
+    on CUDA (M > 16, K and N multiples of 8, else ValueError), an int32
+    matmul on the CPU (|sums| < 2^31 for K < 2^17)."""
     if a.device.type == "cuda":
+        (M, K), N = a.shape, b.shape[1]
+        if M <= 16 or K % 8 or N % 8:
+            raise ValueError(f"torch._int_mm needs M > 16 and K, N multiples"
+                             f" of 8; got M={M}, K={K}, N={N}")
         return torch._int_mm(a.contiguous(), b.contiguous())
     return torch.matmul(a.to(torch.int32), b.to(torch.int32))
+
+
+def pack_waveglow_wn_int8(cfg: WaveGlowConfig, params: dict) -> list:
+    """Per flow, per layer, the WN in_layer dilated conv and res_skip 1x1
+    conv as int8 codes with per-out-channel scales (the in conv's scale
+    shared by its 3 taps), biases in f32 (JAX `pack_waveglow_wn_int8`).
+    Computed once outside the call; feed to waveglow_infer(wn_int8_flows=n
+    or wn_int8_rs_flows=n, packed_wn_int8=...).  Lossy, and the error
+    feeds back through the later flows: measure the SNR ladder
+    (eval/int8_snr.run_ladder(include_wn_int8=True)) first.
+
+    Per layer: "wq" (3, 2C, C) tap-major, "wq_stacked" (2C, 3C) for the
+    per-tensor variant, "w_scale" (2C,), "bias", "rs_wq" (2C|C, C),
+    "rs_w_scale", "rs_bias"."""
+    packed = []
+    for wn in (fold_wn(wn) for wn in params["wn"]):
+        layers = []
+        for p, rs in zip(wn["in_layers"], wn["res_skip_layers"]):
+            wq, w_scale = _per_row_int8(p["weight"].float())   # (2C, C, 3)
+            rs_q, rs_scale = _per_row_int8(rs["weight"][:, :, 0].float())
+            layers.append({
+                "wq": wq.permute(2, 0, 1).contiguous(),
+                "wq_stacked": wq.permute(0, 2, 1).reshape(wq.shape[0], -1),
+                "w_scale": w_scale,
+                "bias": p["bias"].float(),
+                "rs_wq": rs_q,
+                "rs_w_scale": rs_scale,
+                "rs_bias": rs["bias"].float(),
+            })
+        packed.append(layers)
+    return packed
+
+
+def _int8_conv1x1(wq: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """einsum("oc,bcg->bog") of int8 codes with int32 accumulation, as
+    one (B*G, C) @ (C, O) matmul: (B, G, O) int32, channels-last."""
+    B, C, G = xq.shape
+    return _int8_matmul(xq.transpose(1, 2).reshape(B * G, C),
+                        wq.T).reshape(B, G, -1)
+
+
+def _rs_conv_int8(pk: dict, acts: torch.Tensor) -> torch.Tensor:
+    """The res_skip 1x1 conv on int8 codes (JAX `_rs_conv_int8`): the gate
+    output lies in (-1, 1), so round(acts * 127) is its code with the
+    static scale 1/127; one int32 product, dequantized through
+    rs_w_scale / 127 with the bias in f32, rounded to the acts' dtype.
+    (B, C, G) -> (B, 2C|C, G)."""
+    aq = torch.clamp(torch.round(acts.float() * 127.0), -127, 127)
+    acc = _int8_conv1x1(pk["rs_wq"], aq.to(torch.int8))
+    out = acc.float() * (pk["rs_w_scale"] / 127.0) + pk["rs_bias"]
+    return out.to(acts.dtype).transpose(1, 2)
+
+
+def _shift3(t: torch.Tensor, dilation: int) -> list:
+    """The k=3 conv's three taps of t's last axis, zero outside [0, G):
+    tap j holds t[..., g + (j - 1) * dilation] (JAX `shift3`)."""
+    G = t.shape[-1]
+    outs = []
+    for j in range(3):
+        s = (j - 1) * dilation
+        if s < 0:
+            outs.append(F.pad(t, (-s, 0))[..., :G])
+        elif s > 0:
+            outs.append(F.pad(t, (0, s))[..., s:])
+        else:
+            outs.append(t)
+    return outs
+
+
+def _in_conv_int8(pk: dict, x: torch.Tensor, dilation: int,
+                  quant: str = "column") -> torch.Tensor:
+    """The WN in_layer k=3 dilated conv on int8 codes (JAX
+    `_in_conv_int8`), as its three taps, out[t] = sum_j W[:, :, j] @
+    x[t + (j-1)*d], the shifts zero-padded at the sequence edges.
+
+    quant="column": x quantized per (batch, position) column; each tap is
+    its own int32 product, dequantized through its shifted column scale,
+    the three summed in f32, then * w_scale + bias.  quant="tensor": one
+    per-tensor scale and one stacked (2C, 3C) product over the
+    tap-concatenated codes.  (B, C, G) -> (B, 2C, G) in x's dtype."""
+    if quant == "tensor":
+        xq, xs = quantize_per_tensor_int8(x)
+        acc = _int8_conv1x1(pk["wq_stacked"],
+                            torch.cat(_shift3(xq, dilation), dim=1))
+        out = acc.float() * (xs * pk["w_scale"]) + pk["bias"]
+        return out.to(x.dtype).transpose(1, 2)
+    xq, xs = quantize_per_column_int8(x)                   # int8, (B, G)
+    acc = None
+    for wq, q, s in zip(pk["wq"], _shift3(xq, dilation),
+                        _shift3(xs, dilation)):
+        term = _int8_conv1x1(wq, q).float() * s[:, :, None]
+        acc = term if acc is None else acc + term
+    out = acc * pk["w_scale"] + pk["bias"]
+    return out.to(x.dtype).transpose(1, 2)
 
 
 def _cond_int8(sq: torch.Tensor, s_scale: torch.Tensor, pk: dict,
@@ -266,9 +410,7 @@ def _cond_int8(sq: torch.Tensor, s_scale: torch.Tensor, pk: dict,
     (B, G, L*2C): int32 accumulation, then acc * s_scale * w_scale + bias
     in f32 (the JAX package's order), rounded to out_dtype.  s_scale is a
     scalar (per-tensor) or (B, G) (per-column)."""
-    B, K, G = sq.shape
-    acc = _int8_matmul(sq.transpose(1, 2).reshape(B * G, K), pk["wq"].T)
-    acc = acc.reshape(B, G, -1)
+    acc = _int8_conv1x1(pk["wq"], sq)
     s = s_scale if s_scale.dim() == 0 else s_scale[:, :, None]
     return (acc.float() * s * pk["w_scale"] + pk["bias"]).to(out_dtype)
 
@@ -286,8 +428,13 @@ def _cond_all(wn: dict, spect_grouped: torch.Tensor,
 
 
 def wn_apply(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
-             spect_grouped: torch.Tensor, cond_int8=None) -> torch.Tensor:
-    """(B, n_half, T) x (B, 640, T) -> (B, 2*n_half, T), conv formulation."""
+             spect_grouped: torch.Tensor, cond_int8=None, in_int8=None,
+             in_int8_quant: str = "column", rs_int8=None) -> torch.Tensor:
+    """(B, n_half, T) x (B, 640, T) -> (B, 2*n_half, T), conv formulation.
+
+    `in_int8` / `rs_int8` (this flow's pack_waveglow_wn_int8 entry) run
+    the dilated in_layer convs (k=3 only; `in_int8_quant` "column" or
+    "tensor") / the res_skip convs on int8 codes, the WN int8 rungs."""
     C = cfg.wn_n_channels
     audio = conv1d(wn["start"], audio_half)
     cond = _cond_all(wn, spect_grouped, cond_int8)
@@ -295,11 +442,18 @@ def wn_apply(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
     for i in range(cfg.wn_n_layers):
         dilation = 2 ** i
         pad = (cfg.wn_kernel_size * dilation - dilation) // 2
-        in_act = (conv1d(wn["in_layers"][i], audio, padding=pad,
-                         dilation=dilation)
-                  + cond[:, 2 * C * i: 2 * C * (i + 1)])
+        if in_int8 is not None and cfg.wn_kernel_size == 3:
+            in_act = _in_conv_int8(in_int8[i], audio, dilation,
+                                   in_int8_quant)
+        else:
+            in_act = conv1d(wn["in_layers"][i], audio, padding=pad,
+                            dilation=dilation)
+        in_act = in_act + cond[:, 2 * C * i: 2 * C * (i + 1)]
         acts = torch.tanh(in_act[:, :C]) * torch.sigmoid(in_act[:, C:])
-        res_skip = conv1d(wn["res_skip_layers"][i], acts)
+        if rs_int8 is not None:
+            res_skip = _rs_conv_int8(rs_int8[i], acts)
+        else:
+            res_skip = conv1d(wn["res_skip_layers"][i], acts)
         if i < cfg.wn_n_layers - 1:
             audio = audio + res_skip[:, :C]
             skip = res_skip[:, C:]
@@ -433,11 +587,13 @@ def waveglow_forward(cfg: WaveGlowConfig, params, spect: torch.Tensor,
 
     `params` is the train form (weight_norm_params).  `remat=True` runs
     each flow under torch.utils.checkpoint: the backward pass recomputes
-    the flow's WN activations instead of keeping them."""
+    the flow's WN activations instead of keeping them.  The grouped spect
+    comes straight from the upsampler's phases (upsample_grouped; the JAX
+    package's `grouped_upsample=True`, whose values its False path shares
+    bit for bit)."""
     T = audio.shape[1]
-    spect_up = upsample_phase_matmul(params["upsample"], spect,
-                                     cfg.hop_length)
-    spect_g = group_spect(spect_up[:, :, :T], cfg.n_group)
+    spect_g = upsample_grouped(params["upsample"], spect, cfg.hop_length,
+                               cfg.n_group, t_samples=T)
     audio_g = group_audio(audio, cfg.n_group)
     B, _, G = audio_g.shape
     chunks, log_s_list, log_det_list = [], [], []
@@ -488,7 +644,11 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                    packed_wn: Optional[list] = None,
                    cond_impl: str = "dense",
                    packed_cond: Optional[list] = None,
-                   cond_quant: str = "column") -> torch.Tensor:
+                   cond_quant: str = "column",
+                   wn_int8_flows: int = 0,
+                   packed_wn_int8: Optional[list] = None,
+                   wn_int8_quant: str = "column",
+                   wn_int8_rs_flows: int = 0) -> torch.Tensor:
     """(B, 80, F) mel -> (B, F*hop) audio (reference glow.py:252-293).
 
     `dtype=torch.bfloat16` runs the flows in bf16 with f32 matmul
@@ -510,6 +670,18 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     (batch, position) column (`cond_quant="tensor"`: one scale), the
     weights per out channel (`packed_cond` from pack_waveglow_int8cond).
     Lossy: gate it on a measured SNR (eval/int8_snr.select_cond_impl).
+
+    The WN int8 rungs (conv only, the JAX package's xla): `wn_int8_flows=n`
+    runs the dilated in_layer convs of the n narrowest flows (k < n, the
+    last run) on int8 codes (k=3 only; `wn_int8_quant` "column" or
+    "tensor"), `wn_int8_rs_flows=n` their res_skip convs; `packed_wn_int8`
+    from pack_waveglow_wn_int8.  Lossy, and the error feeds back through
+    the later flows: measure eval/int8_snr.run_ladder(include_wn_int8=True)
+    first.
+
+    The grouped spect comes straight from the upsampler's phases
+    (upsample_grouped; the JAX package's `grouped_upsample=True`, whose
+    values its False path shares bit for bit).
     """
     if wn_impl not in ("layer", "conv", "flow"):
         raise ValueError(f"unknown wn_impl {wn_impl!r}")
@@ -519,13 +691,21 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         raise ValueError(f"unknown cond_quant {cond_quant!r}")
     if cond_impl == "int8" and wn_impl == "layer":
         raise ValueError("cond_impl='int8' requires wn_impl conv or flow")
+    if wn_int8_quant not in ("column", "tensor"):
+        raise ValueError(f"unknown wn_int8_quant {wn_int8_quant!r}")
+    if wn_int8_flows or wn_int8_rs_flows:
+        if wn_impl != "conv":
+            raise ValueError("wn_int8_flows/rs requires wn_impl='xla' (the "
+                             "port's 'conv')")
+        if wn_int8_flows and cfg.wn_kernel_size != 3:
+            raise ValueError("wn_int8_flows supports wn_kernel_size=3 "
+                             f"only, got {cfg.wn_kernel_size}")
     if dtype is not None:
         params = cast_params(params, dtype)
         spect = spect.to(dtype)
     dev = spect.device
-    spect_g = group_spect(
-        upsample_phase_matmul(params["upsample"], spect, cfg.hop_length),
-        cfg.n_group)
+    spect_g = upsample_grouped(params["upsample"], spect, cfg.hop_length,
+                               cfg.n_group)
     dt = spect_g.dtype
     B, _, G = spect_g.shape
     noise_iter = iter(noise) if noise is not None else None
@@ -542,6 +722,9 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         packed = packed_wn or pack_waveglow_layer(cfg, params)
     elif wn_impl == "flow":
         packed = packed_wn or pack_waveglow_flow(cfg, params)
+    wn8 = None
+    if wn_int8_flows or wn_int8_rs_flows:
+        wn8 = packed_wn_int8 or pack_waveglow_wn_int8(cfg, params)
     cond_q = None
     if cond_impl == "int8":
         pack_c = packed_cond or pack_waveglow_int8cond(cfg, params)
@@ -559,7 +742,11 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         elif wn_impl == "flow":
             wn_out = wn_apply_flow(cfg, packed[k], audio_0, spect_g, c8)
         else:
-            wn_out = wn_apply(cfg, params["wn"][k], audio_0, spect_g, c8)
+            wn_out = wn_apply(
+                cfg, params["wn"][k], audio_0, spect_g, c8,
+                in_int8=wn8[k] if k < wn_int8_flows else None,
+                in_int8_quant=wn_int8_quant,
+                rs_int8=wn8[k] if k < wn_int8_rs_flows else None)
         s, b = wn_out[:, n_half:], wn_out[:, :n_half]
         audio_1 = (audio_1 - b) * torch.exp(-s)
         audio = torch.cat([audio_0, audio_1], dim=1)

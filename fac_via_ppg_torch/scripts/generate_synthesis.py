@@ -300,7 +300,7 @@ def _synthesize(args, dev):
                                     waveglow_sigma, gen, dtype=serving_dtype)
             # built here, not up front: the fused and batch routes build
             # their own bias spectrum inside FusedSynthesizer
-            denoiser = Denoiser(wg_cfg, wg_params)
+            denoiser = Denoiser(wg_cfg, wg_params, mode=denoiser_mode)
             with torch.no_grad():
                 ac_wav = denoiser(ac_wav.float(),
                                   strength=denoiser_strength)[0, 0]

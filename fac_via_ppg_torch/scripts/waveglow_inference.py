@@ -13,7 +13,9 @@ package writes it from its own checkpoints with
 checkpoint directories are not read here.
 
 Runs on the CUDA card, with the coupling nets on the whole-net flow kernel
-(`--wn_impl flow`: one kernel launch per flow).  Same-length mels form one
+(`--wn_impl flow`: one kernel launch per flow); `--wn_int8_flows N` (the
+WN int8 rung, lossy) needs `--wn_impl conv` (or the JAX CLI's `xla`), as in
+the JAX CLI.  Same-length mels form one
 batch; `--mel_bucket` pads lengths into shared buckets first.  One batch
 stays in flight: batch N is copied to pinned host memory behind an event,
 batch N+1 is enqueued, and only then are batch N's wavs written.
@@ -43,6 +45,7 @@ from fac_via_ppg_torch.models.waveglow import (
     pack_waveglow_flow,
     pack_waveglow_int8cond,
     pack_waveglow_layer,
+    pack_waveglow_wn_int8,
     resolve_wn_impl,
     waveglow_infer,
 )
@@ -89,7 +92,8 @@ def bucket_mels(mels, mel_bucket: int):
 def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
          batch_size=1, sampling_rate=16000, compute_dtype="float32",
          wn_impl="flow", cond_impl="dense", config_path=None,
-         snr_budget_db=None, pad_batches="grid", mel_bucket=0, device=None):
+         snr_budget_db=None, pad_batches="grid", mel_bucket=0,
+         wn_int8_flows=0, device=None):
     """Vocode every mel of the filelist `mel_files`.  `device=None` means
     the CUDA card (raises without one); tests pass "cpu".  Noise comes from
     a torch.Generator seeded with 0 (the JAX CLI's PRNGKey(0)).
@@ -99,7 +103,9 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     launches and its vocoder seconds (CUDA events around the batch's
     device work; host clock on the CPU); the audio seconds written; the
     wall seconds.  `wn_impl` also takes the JAX CLI's names, "xla" for
-    "conv" and "pallas" for "layer"."""
+    "conv" and "pallas" for "layer".  `wn_int8_flows` runs the WN
+    in_layer convs of that many of the narrowest flows on int8 codes
+    (conv only; measure eval/int8_snr.py --include_wn_int8 first)."""
     try:
         wn_impl = resolve_wn_impl(wn_impl)
     except ValueError as e:
@@ -110,6 +116,9 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     if cond_impl != "dense" and wn_impl == "layer":
         raise SystemExit("--cond_impl int8/auto requires --wn_impl conv "
                          "or flow")
+    if wn_int8_flows and wn_impl != "conv":
+        raise SystemExit("--wn_int8_flows: wn_int8_flows/rs requires "
+                         "wn_impl='xla' (the port's 'conv')")
     if pad_batches not in ("grid", "full", "none"):
         raise SystemExit(f"--pad_batches must be grid/full/none, "
                          f"got {pad_batches!r}")
@@ -160,6 +169,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     # int8 weights from the f32 params
     packed_cond = (pack_waveglow_int8cond(cfg, params)
                    if cond_impl == "int8" else None)
+    packed_wn8 = (pack_waveglow_wn_int8(cfg, params) if wn_int8_flows
+                  else None)
 
     if (batch_size > 1 and not mel_bucket and len(files) > 1
             and len(by_len) > len(files) // 2):
@@ -188,7 +199,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
             audio = waveglow_infer(
                 cfg, serve, mel.to(dtype or torch.float32), sigma, gen,
                 wn_impl=wn_impl, packed_wn=packed_wn, cond_impl=cond_impl,
-                packed_cond=packed_cond)[: len(chunk)].float()
+                packed_cond=packed_cond, wn_int8_flows=wn_int8_flows,
+                packed_wn_int8=packed_wn8)[: len(chunk)].float()
             if denoiser is not None:
                 audio = denoiser(audio, strength=denoiser_strength)[:, 0, :]
             audio = audio * MAX_WAV_VALUE
@@ -293,6 +305,11 @@ def parse_args(argv=None):
                         help="worst-utterance SNR budget (dB) of "
                              "--cond_impl auto; default "
                              "eval/int8_snr.DEFAULT_SNR_BUDGET_DB")
+    parser.add_argument("--wn_int8_flows", type=int, default=0,
+                        help="run the WN in_layer convs of the N narrowest "
+                             "flows on int8 codes (needs --wn_impl conv or "
+                             "xla; lossy: measure eval/int8_snr.py "
+                             "--include_wn_int8 first)")
     parser.add_argument("-c", "--config", default=None,
                         help="config.json naming a non-default architecture "
                              "(reference waveglow/config.json schema)")
@@ -322,4 +339,5 @@ if __name__ == "__main__":
     main(args.filelist_path, args.waveglow_path, args.output_dir, args.sigma,
          args.denoiser_strength, args.batch_size, args.sampling_rate,
          args.compute_dtype, args.wn_impl, args.cond_impl, args.config,
-         args.snr_budget_db, args.pad_batches, args.mel_bucket)
+         args.snr_budget_db, args.pad_batches, args.mel_bucket,
+         args.wn_int8_flows)

@@ -42,14 +42,38 @@ def test_bench_line_has_the_jax_keys(config, t_models, jax_tiny):
     (dict(wn_int8_quant="tensor"), "--wn_int8_quant"),
 ])
 def test_bench_unported_rtf_flags_raise(kw, flag):
-    with pytest.raises(ValueError, match=f"{flag}.*queue 1 item 7"):
-        t_bench.bench_waveglow_rtf(device="cpu", **kw)
+    """(The name is older than the rungs, which raised then.)  The WN int8
+    rung flags run on the conv formulation (tiny, on the CPU): a rung's line records them and, as the JAX bench's, leaves out
+    the dense and f32 figures.  On the flow kernel a rung raises the JAX
+    package's error (its waveglow_infer refuses them off its xla path)."""
+    tiny = dict(batch=2, seconds=0.1, warmup=1, iters=1,
+                cfg=t_hp.WaveGlowConfig(**WG), device="cpu")
+    line = t_bench.bench_waveglow_rtf(wn_impl="conv", **tiny, **kw)
+    d = line["detail"]
+    assert line["value"] > 0 and d["wn_impl"] == "conv"
+    rung = bool(kw.get("wn_int8_flows") or kw.get("wn_int8_rs_flows"))
+    assert d["wn_int8_flows"] == kw.get("wn_int8_flows", 0)
+    assert d["wn_int8_rs_flows"] == kw.get("wn_int8_rs_flows", 0)
+    assert ("rtf_bf16_dense" in d) is not rung
+    assert ("rtf_float32" in d) is not rung
+    if rung:
+        with pytest.raises(ValueError, match=f"{flag}.*requires wn_impl"
+                                              "='xla'"):
+            t_bench.bench_waveglow_rtf(**tiny, **kw)
 
 
 def test_bench_unported_grouped_upsample_raises():
-    with pytest.raises(ValueError,
-                       match="--grouped_upsample.*queue 1 item 7"):
-        t_bench.bench_train_waveglow(grouped_upsample=True, device="cpu")
+    """(The name is older than the flag, which raised then.)  The CLI takes
+    --grouped_upsample for the JAX bench's sake; the train step (tiny, on
+    the CPU) runs the port's one upsampler, and the line records the
+    flag."""
+    assert t_bench.parse_args(["--config", "train_waveglow",
+                               "--grouped_upsample"]).grouped_upsample
+    line = t_bench.bench_train_waveglow(
+        warmup=1, iters=1, batch=1, segment=1600, grouped_upsample=True,
+        cfg=t_hp.WaveGlowConfig(**WG), device="cpu")
+    assert line["value"] > 0
+    assert line["detail"]["grouped_upsample"] is True
 
 
 def test_bench_layer_kernel_takes_no_int8_cond():

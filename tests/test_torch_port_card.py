@@ -24,6 +24,12 @@ loop of the same calls (within 15 %), and eval/roofline.py's reader
 finding both hand kernels in a real torch.profiler trace, with their
 launch counts and floors.
 
+And the WN int8 rungs' products: torch._int_mm at the rungs' shapes of
+the vocoder CLI's batch (exact against a float64 product of the codes),
+its shape guard, the tap products on the card against the CPU (the same
+codes, within 1e-6 of the output's scale); and the grouped upsampler's
+spect feeding both kernels, bit for bit equal to the two-step spect's.
+
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -768,3 +774,165 @@ def test_roofline_reads_both_kernels_from_a_trace(card, tmp_path):
     fams = rl.group_families(rows)
     assert fams["wn_layer (hand)"]["kernels"] == 96
     assert fams["wn_flow (hand)"]["kernels"] == 12
+
+
+# ---------------------------------------------- WN int8 rungs, grouped spect
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(256, 512), (768, 512), (256, 256)])
+def test_wn_int8_int_mm_shapes(card, K, N):
+    """_int8_matmul (torch._int_mm) at the rungs' shapes of the vocoder
+    CLI's batch, M = 8 x 10240 rows: K = C (a tap, res_skip) or 3C (the
+    stacked taps), N = 2C, or C (the last layer's res_skip); exact
+    against the float64 product of the same codes (|sums| < 2^53)."""
+    from fac_via_ppg_torch.models.waveglow import _int8_matmul
+
+    g = torch.Generator("cuda").manual_seed(K + N)
+    a = torch.randint(-127, 128, (8 * 10240, K), generator=g, device=card,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=g, device=card,
+                      dtype=torch.int8)
+    got = _int8_matmul(a, b)
+    assert got.dtype == torch.int32 and got.shape == (8 * 10240, N)
+    assert torch.equal(got.double(), a.double() @ b.double())
+
+
+@pytest.mark.cuda
+def test_int8_matmul_names_a_shape_int_mm_refuses(card):
+    from fac_via_ppg_torch.models.waveglow import _int8_matmul
+
+    a = torch.zeros((16, 256), dtype=torch.int8, device=card)
+    b = torch.zeros((256, 512), dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="M=16, K=256, N=512"):
+        _int8_matmul(a, b)
+    with pytest.raises(ValueError, match="M=32, K=12, N=512"):
+        _int8_matmul(torch.zeros((32, 12), dtype=torch.int8, device=card),
+                     torch.zeros((12, 512), dtype=torch.int8, device=card))
+
+
+def _wn8_layer(seed):
+    """One full-width WN layer's int8 pack (C = 256) from seeded weights."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models.waveglow import (
+        init_waveglow,
+        pack_waveglow_wn_int8,
+    )
+
+    cfg = WaveGlowConfig(n_flows=1)
+    params = init_waveglow(cfg, torch.Generator().manual_seed(seed))
+    return pack_waveglow_wn_int8(cfg, params)[0]
+
+
+def _shifted(t, s):
+    """t[..., g + s] at each g, zero outside: one tap of a dilated conv."""
+    out, G = torch.zeros_like(t), t.shape[-1]
+    if s >= 0:
+        out[..., :G - s] = t[..., s:]
+    else:
+        out[..., -s:] = t[..., :G + s]
+    return out
+
+
+def _in_conv_reference(pk, xq, xs, dilation, quant):
+    """The in_layer rung's output from given codes and scales, in float64
+    on the CPU (the int sums are exact there): each tap's product through
+    its shifted column scale, or one stacked product with the tensor
+    scale; then the weight scale and the bias."""
+    taps = [_shifted(xq.double(), (j - 1) * dilation) for j in range(3)]
+    if quant == "tensor":
+        acc = torch.einsum("oc,bcg->bog", pk["wq_stacked"].double(),
+                           torch.cat(taps, dim=1))
+        return acc * (xs.double() * pk["w_scale"].double())[:, None] \
+            + pk["bias"].double()[:, None]
+    acc = sum(torch.einsum("oc,bcg->bog", pk["wq"][j].double(), taps[j])
+              * _shifted(xs.double(), (j - 1) * dilation)[:, None, :]
+              for j in range(3))
+    return acc * pk["w_scale"].double()[:, None] \
+        + pk["bias"].double()[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["column", "tensor"])
+@pytest.mark.parametrize("dilation", [1, 128])
+def test_in_conv_int8_card_matches_cpu(card, quant, dilation):
+    """The in_layer rung at C = 256 (B=2, G=2048) on the card against a
+    float64 CPU product of the card's own codes and scales, within 1e-6
+    of the output's scale (dilation 128 reads a sixteenth of G from the
+    zero padding, where a column scale shifted one off shows).  Not
+    against the CPU's quantizer: CUDA divides by the scalar 127 as a
+    product with its reciprocal, so a scale may differ by one ulp and a
+    code at a rounding boundary flip.  The res_skip rung (a product by
+    127, no division) on the card against the CPU, first and last layer."""
+    from fac_via_ppg_torch.models.waveglow import (
+        _in_conv_int8,
+        _rs_conv_int8,
+        quantize_per_column_int8,
+        quantize_per_tensor_int8,
+    )
+    from fac_via_ppg_torch.weights import move
+
+    layers = _wn8_layer(dilation)
+    x = torch.randn((2, 256, 2048), generator=torch.Generator().manual_seed(
+        dilation)) * torch.linspace(0.1, 2.0, 2048)
+    quantize = (quantize_per_column_int8 if quant == "column"
+                else quantize_per_tensor_int8)
+    xq, xs = quantize(x.to(card))
+    got = _in_conv_int8(move(layers[0], card), x.to(card), dilation,
+                        quant).cpu()
+    want = _in_conv_reference(layers[0], xq.cpu(), xs.cpu(), dilation, quant)
+    assert got.shape == want.shape == (2, 512, 2048)
+    torch.testing.assert_close(got.double(), want, rtol=0,
+                               atol=1e-6 * want.abs().max().item())
+    acts = torch.tanh(x)
+    for i in (0, 7):
+        got = _rs_conv_int8(move(layers[i], card), acts.to(card)).cpu()
+        want = _rs_conv_int8(layers[i], acts)
+        assert got.shape == (2, 512 if i < 7 else 256, 2048)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,impl", [(torch.bfloat16, "flow"),
+                                        (torch.float32, "layer")])
+def test_grouped_spect_feeds_both_kernels(card, dtype, impl, monkeypatch):
+    """waveglow_infer at the full WaveGlowConfig (B=2 x 128 frames,
+    seeded) on each kernel, on its grouped spect and on the two-step one
+    (group_spect(upsample_phase_matmul(...)) swapped in): the kernel
+    launched as often, the audio bit for bit equal."""
+    import chip_smoke as smoke
+    from fac_via_ppg_torch.models import waveglow
+    from fac_via_ppg_torch.models.waveglow import (
+        cast_params,
+        group_spect,
+        pack_waveglow_flow,
+        pack_waveglow_layer,
+        remove_weightnorm,
+        upsample_phase_matmul,
+        waveglow_infer,
+    )
+    from fac_via_ppg_torch.weights import move
+
+    def two_step(p, spect, hop, n_group, t_samples=None):
+        return group_spect(upsample_phase_matmul(p, spect, hop), n_group)
+
+    cfg, params = smoke.waveglow_params(21)
+    params = cast_params(move(remove_weightnorm(params), card), dtype)
+    pack = (pack_waveglow_flow if impl == "flow"
+            else pack_waveglow_layer)(cfg, params)
+    mel = (torch.randn((2, 80, 128), device=card) * 0.5 - 5).to(dtype)
+    mod = wf if impl == "flow" else wl
+    outs, counts = [], []
+    for upsampler in (waveglow.upsample_grouped, two_step):
+        monkeypatch.setattr(waveglow, "upsample_grouped", upsampler)
+        n0 = mod.launches
+        with torch.no_grad():
+            outs.append(waveglow_infer(
+                cfg, params, mel, 0.6,
+                torch.Generator("cuda").manual_seed(3), wn_impl=impl,
+                packed_wn=pack))
+        torch.cuda.synchronize()
+        counts.append(mod.launches - n0)
+    assert counts[0] == counts[1] == cfg.n_flows * (
+        1 if impl == "flow" else cfg.wn_n_layers)
+    assert torch.equal(outs[0], outs[1])

@@ -262,10 +262,28 @@ def test_run_ladder_matches_jax(wg_models, sigma, tensorscale):
 
 
 def test_run_ladder_wn_int8_raises(wg_models):
-    _, _, t_params, mel = wg_models
-    with pytest.raises(ValueError, match="queue 1 item 7"):
-        t_snr.run_ladder(t_hp.WaveGlowConfig(**WG), t_params,
-                         torch.from_numpy(mel), include_wn_int8=True)
+    """(The name is older than the rungs, which raised then.)
+    include_wn_int8 adds the JAX package's WN int8 rungs, names in its
+    order, each SNR (batch, worst and each utterance's) within 0.5 dB of
+    its; they run on the conv formulation whatever the ladder's wn_impl
+    (here flow) and say so in their detail."""
+    cfg, params, t_params, mel = wg_models
+    want = j_snr.run_ladder(cfg, params, jnp.asarray(mel), 0.6, seed=4,
+                            include_wn_int8=True, detailed=True)
+    got = t_snr.run_ladder(t_hp.WaveGlowConfig(**WG), t_params,
+                           torch.from_numpy(mel), 0.6, seed=4,
+                           include_wn_int8=True, detailed=True,
+                           wn_impl="flow")
+    assert list(got) == list(want)
+    assert {"bf16_int8_wn2", "bf16_int8_wn2t", "bf16_int8_rs2"} <= set(got)
+    for name, w in want.items():
+        if "_wn" in name or "_rs" in name:
+            assert got[name].pop("wn_impl") == "conv", name
+            assert got[name]["db"] == pytest.approx(w["db"], abs=0.5), name
+            assert got[name]["worst_utt_db"] == pytest.approx(
+                w["worst_utt_db"], abs=0.5), name
+            np.testing.assert_allclose(got[name]["per_utt_db"],
+                                       w["per_utt_db"], atol=0.5)
 
 
 def test_int8_snr_cli(wg_models, tmp_path, capsys):
