@@ -151,12 +151,37 @@ Phases (any failure exits nonzero; there is no CPU path):
      framework_serve (full width, SERVE_STEPS steps, gate held off) on the
      card against the CPU: the same stop step, the mel within
      SERVE_MEL_TOL; run_trained_parity only where FACPPG_REFERENCE_SRC
-     names the reference's sources.
+     names the reference's sources;
+ 14. several GPUs' paths on the one card (TF32 off; NCCL refuses two
+     ranks on one card, so the card holds (a) one NCCL rank and (b) two
+     gloo ranks): (a) a 1-rank NCCL group in this process:
+     FusedSynthesizer(data_parallel=True) over phase 5's 4 x 500 frames
+     against the same synthesizer without a mesh (PCM within 1 step,
+     lengths exact, >= 96 layer kernel launches) and one DP + ZeRO-1 step
+     of each trainer (global batch PAR_STEP_B x PAR_RANKS at phase 10's
+     widths) against the one-process step, phase 10's rule; (b)
+     PAR_RANKS spawned ranks sharing cuda:0 over gloo (the backend asked
+     for): the DP fused batch against the one-process batch (PCM within 1
+     step, lengths exact, >= 96 layer kernel launches a rank); one DP and
+     one DP + ZeRO-1 step of each trainer on each rank's PAR_STEP_B rows
+     against the one-process step on the whole batch (phase 10's rule:
+     loss 1e-5 relative, gradients 1e-4 of a leaf's norm, params); a
+     ZeRO-1 checkpoint written at world 2 and read at world 1, the next
+     loss within 1e-5; waveglow_infer tensor parallel over the ranks
+     (conv formulation) at PAR_TP_B x PAR_TP_FRAMES against the
+     one-process conv call: f32 within 1e-4 of the audio's max, bf16
+     within PAR_TP_BF16_TOL, int8 cond within 25 dB SNR of dense; the
+     vocoder CLI with --data_parallel (PAR_CLI: the flow kernel, int8
+     cond) against the one-process CLI (wavs within 1 step, n_flows flow
+     launches a batch on every rank); train_waveglow.main under the mesh
+     (ZeRO-1, PAR_TRAIN_ITERS iterations: loss lines on rank 0 alone,
+     params equal on every rank, its checkpoint whole).  Two ranks on
+     one card show correctness and overhead, not scaling.
 Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
 `cli:`, `synth profile:`, `synth:`, `decode:`, `decode profile:`,
 `stream:`, `stream cli:`, `train ppg2mel:`, `train waveglow:`, `device
 featurizer:`, `featurize bench:`, `pickled:`, `bench <config>:`, `trace
-...:`, `measure:` and `slice12:` lines, a `{"kernels": ...}` line and,
+...:`, `measure:`, `slice12:` and `parallel:` lines, a `{"kernels": ...}` line and,
 last,
 `{"ok": true, "device": {...}}`.
 Imports nothing of JAX or of the JAX package.
@@ -168,6 +193,8 @@ Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --tools
     python3 chip_smoke.py --measure
     python3 chip_smoke.py --tools2
+    python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --cards 4
 
 run only the flow kernel (at the CLI's shape), only the layer kernel
 (bf16 at the fused batch's shape, B=4, T=10000, d=8), or both kernels'
@@ -175,13 +202,16 @@ f32 forms (at the synthesis CLI's shape, B=8, T=20000; TF32 off, atol
 1e-4) of the port in CHECKOUT (another commit unpacked with `git
 archive`): build, hold against the plain versions and time as phase 7
 does; print one JSON line.  `--train` runs phase 10 alone, `--tools`
-phase 11 (with the flow kernel's build), `--measure` phase 12 and
-`--tools2` phase 13 (each with both kernels' builds).  Compare two versions on one card in one call, in
+phase 11 (with the flow kernel's build), `--measure` phase 12,
+`--tools2` phase 13 and `--parallel` phase 14 (each with both kernels'
+builds); `--cards N` runs phase 14 (b)'s rank checks on N NCCL ranks,
+one card each, on a machine of N cards (not part of the one-card run).  Compare two versions on one card in one call, in
 turns: old, new, new, old.
 """
 
 import argparse
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -225,6 +255,19 @@ TRACE_TOL = 0.15
 # is 24), the framework_serve decode's steps and its card-vs-CPU mel bound
 WN8_BENCH_BATCH = 4
 SERVE_STEPS, SERVE_MEL_TOL = 100, 1e-4
+# phase 14: two ranks sharing the card (NCCL refuses two ranks on one
+# card); the train steps' per-rank batch (the global batch is phase 10's
+# trainers' 6) and Adam's rate; the tensor-parallel vocoder's batch and
+# its bf16 bound (max |error| over max |audio|: the smoke's bf16 bound;
+# found 1.55e-2 on an H100, 700 W); a rank's time limit; the vocoder
+# CLI's data-parallel run (phase 6's first CLI_BATCH mels, the flow
+# kernel with int8 cond); the vocoder trainer's iterations under the mesh
+PAR_RANKS, PAR_STEP_B, PAR_LR = 2, 3, 1e-4
+PAR_TP_B, PAR_TP_FRAMES, PAR_TP_BF16_TOL = 8, 512, 3e-2
+PAR_RANK_TIMEOUT = 300
+PAR_CLI = dict(batch_size=CLI_BATCH, compute_dtype="bfloat16",
+               wn_impl="flow", cond_impl="int8", mel_bucket=64)
+PAR_TRAIN_ITERS = 2
 
 
 def log(*a):
@@ -1704,10 +1747,12 @@ class relu_inputs:
 
 
 def one_step(make_step, cfg, params, batch, device, lr, state=None,
-             masks=None, dtype=torch.float32):
+             masks=None, dtype=torch.float32, mesh=None, zero=False):
     """One train step of a fresh Adam on `device`, params, state and batch
     in `dtype`: (loss, the gradients fed to the optimizer, the params
-    after it, the params before it, the relu inputs), all on the CPU."""
+    after it, the params before it, the relu inputs), all on the CPU.
+    With a `mesh` (phase 14) the step is data parallel (`batch` this
+    rank's rows, `masks` the global batch's) and `zero` shards Adam."""
     from fac_via_ppg_torch.train.optim import Optimizer
     from fac_via_ppg_torch.utils.tree import tree_leaves, tree_map
 
@@ -1727,12 +1772,13 @@ def one_step(make_step, cfg, params, batch, device, lr, state=None,
     params = tree_map(put, params)
     before = [x.cpu() for x in tree_leaves(params)]
     batch = tuple(put(x) for x in batch)
-    step = make_step(cfg, opt)
+    step = make_step(cfg, opt, **({"mesh": mesh} if mesh else {}))
+    opt_state = opt.init(params, mesh=mesh, zero=zero)
     with relu_inputs() as pre:
         if state is None:
-            out = step(params, opt.init(params), batch)
+            out = step(params, opt_state, batch)
         else:
-            out = step(params, tree_map(put, state), opt.init(params),
+            out = step(params, tree_map(put, state), opt_state,
                        batch, masks=masks)
     return (float(out.loss), opt.grads,
             [x.detach().cpu() for x in tree_leaves(out.params)], before,
@@ -1740,7 +1786,22 @@ def one_step(make_step, cfg, params, batch, device, lr, state=None,
 
 
 def hold_step_against_cpu(name, run, paths, lr, noise=()):
-    """A train step on the card against the same step on the CPU: the
+    """`hold_steps` of a step on the card against the same step on the
+    CPU."""
+    t0 = time.time()
+    card = run("cuda")
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    cpu = run("cpu")
+    t_cpu = time.time() - t0
+    return hold_steps(f"{name}, card vs CPU", card, cpu, paths, lr, noise,
+                      {"card_s": t_card, "cpu_s": t_cpu})
+
+
+def hold_steps(name, card, cpu, paths, lr, noise=(), extra=None):
+    """A train step (`card`) against a reference run of it (`cpu`; phase
+    10: the same step on the CPU, phase 14: the one-process step): the
     loss to 1e-5 relative; each gradient leaf to 1e-4 of its norm (a leaf
     under a path in `noise`, a conv bias that a training batch norm
     follows, whose gradient is zero but for rounding: to 1e-4 of the
@@ -1755,14 +1816,9 @@ def hold_step_against_cpu(name, run, paths, lr, noise=()):
     different pieces and a leaf upstream may differ by far more than
     rounding.  The check counts the relu inputs whose sign differs
     between the devices; the per-leaf gradient bound holds where there is
-    none (the f64 step is the one that holds it then)."""
-    t0 = time.time()
-    card = run("cuda")
-    torch.cuda.synchronize()
-    t_card = time.time() - t0
-    t0 = time.time()
-    cpu = run("cpu")
-    t_cpu = time.time() - t0
+    none (the f64 step is the one that holds it then).  Relu inputs of
+    other shapes (a data-parallel rank's rows) are not compared: they
+    count no flip, and the gradient bound holds."""
     loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
 
     def norm(grads):
@@ -1771,7 +1827,7 @@ def hold_step_against_cpu(name, run, paths, lr, noise=()):
     total = norm(cpu[1])
     clip = [min(1.0, STEP_CLIP / (norm(r[1]) + 1e-6)) for r in (card, cpu)]
     flips = sum(int(((a > 0) != (b > 0)).sum())
-                for a, b in zip(card[4], cpu[4]))
+                for a, b in zip(card[4], cpu[4]) if a.shape == b.shape)
     rels = []
     p_det, p_und, n_und, n_all = 0.0, 0.0, 0, 0
     for path, ga, gb, a, b, p0 in zip(paths, card[1], cpu[1], card[2],
@@ -1796,14 +1852,12 @@ def hold_step_against_cpu(name, run, paths, lr, noise=()):
            "relu_sign_flips": flips, "grad_norm_cpu": total,
            "param_max_abs_err": p_det,
            "param_max_abs_err_sign_undetermined": p_und,
-           "sign_undetermined_share": n_und / n_all,
-           "card_s": t_card, "cpu_s": t_cpu}
-    log(f"train step {name}, card vs CPU: {json.dumps(res)}")
+           "sign_undetermined_share": n_und / n_all, **(extra or {})}
+    log(f"train step {name}: {json.dumps(res)}")
     if not (np.isfinite(card[0]) and loss_rel <= 1e-5
             and (grad_rel <= 1e-4 or flips > 0)
             and p_det <= 1e-5 and p_und <= 2 * lr * (1 + 1e-3)):
-        raise AssertionError(f"{name} train step on the card disagrees "
-                             f"with the CPU: {res}")
+        raise AssertionError(f"{name}: the train steps disagree: {res}")
     return res
 
 
@@ -3034,6 +3088,562 @@ def run_slice12(card, wl, wf):
     return grouped
 
 
+# ---------------------------------------------------------------- phase 14
+
+def par_synth(mesh=None):
+    """Phase 5's synthesizer (seeded weights, bf16 WaveGlow, 500 frames),
+    data parallel over `mesh` when given."""
+    from fac_via_ppg_torch.eval.fused import FusedSynthesizer
+
+    t2_cfg, t2_params, t2_state, wg_cfg, wg_params = serving_models()
+    par = {} if mesh is None else {"data_parallel": True, "mesh": mesh}
+    return FusedSynthesizer(t2_cfg, t2_params, t2_state, wg_cfg, wg_params,
+                            serving_dtype=torch.bfloat16,
+                            max_frames=MAX_FRAMES, device="cuda", **par)
+
+
+def par_serve(synth, pairs, wl, **draws):
+    """One fused batch from SEED (or the given `dropout_masks` / `noise`):
+    (PCM list, mel lengths, layer kernel launches, wall s)."""
+    torch.cuda.synchronize()
+    wl.launches = 0
+    t0 = time.time()
+    handle = synth.launch_feature_pairs(
+        pairs, torch.Generator("cuda").manual_seed(SEED), **draws)
+    pcms = synth.collect_feature_pairs(handle)
+    torch.cuda.synchronize()
+    return (pcms, [len(p) for p in pcms], wl.launches, time.time() - t0)
+
+
+def pcm_diff(a, b):
+    """The largest int16 step between two lists of PCM arrays."""
+    return max(int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max())
+               for x, y in zip(a, b))
+
+
+def par_rank_rows(synth, pairs, wl, world):
+    """Each phase-14 rank's rows of the fused batch run by one process on
+    their own: the features padded to the whole batch's length, the whole
+    batch's masks and noise from SEED, cut to the rows.  Each rank's own
+    rows must equal these; against the batch of 4 itself they differ by
+    cuBLAS's reduction order at another batch size, which the 500-step
+    decode carries on."""
+    t_max = max(f.shape[0] for f, _ in pairs)
+    padded = [(np.concatenate([f, np.repeat(f[-1:], t_max - f.shape[0], 0)]),
+               n) for f, n in pairs]
+    masks, noise = synth.global_draws(
+        len(pairs), t_max, torch.Generator("cuda").manual_seed(SEED))
+    out = []
+    for r in range(world):
+        rows = slice(r * len(pairs) // world, (r + 1) * len(pairs) // world)
+        pcms, lens, _, _ = par_serve(
+            synth, padded[rows], wl, dropout_masks=[m[rows] for m in masks],
+            noise=[z[rows] for z in noise])
+        out.append((pcms, lens))
+    return out
+
+
+def par_step_inputs(world):
+    """The phase-14 train steps' inputs: Tacotron2 (phase 10 (a)'s
+    seeded params, a global batch of PAR_STEP_B x `world` at T2_CHECK's
+    lengths, every mask) and WaveGlow (its seeded params in the train
+    form, PAR_STEP_B x `world` segments of WG_SEGMENT), two WaveGlow
+    batches for the checkpoint's resume."""
+    from fac_via_ppg_torch.configs.hparams import (
+        Tacotron2Config,
+        WaveGlowConfig,
+    )
+    from fac_via_ppg_torch.models import init_tacotron2, init_waveglow
+    from fac_via_ppg_torch.models.waveglow import weight_norm_params
+
+    B = PAR_STEP_B * world
+    cfg = Tacotron2Config()
+    params, state = init_tacotron2(cfg, torch.Generator().manual_seed(SEED))
+    _, T_in, T_out = T2_CHECK
+    wg_cfg = WaveGlowConfig()
+    g = torch.Generator().manual_seed(SEED + 23)
+    wg = init_waveglow(wg_cfg, g)
+    for wn in wg["wn"]:
+        wn["end"]["weight"] = torch.randn(wn["end"]["weight"].shape,
+                                          generator=g) * 1e-2
+    rng = np.random.RandomState(SEED + 24)
+    frames = WG_SEGMENT // wg_cfg.hop_length + 1
+
+    def wg_batch():
+        return ((rng.randn(B, wg_cfg.n_mel_channels, frames) - 4).astype(
+            np.float32), (rng.randn(B, WG_SEGMENT) * 0.1).astype(np.float32))
+
+    return {"t2": (cfg, params, state,
+                   t2_train_batch(cfg, B, T_in, T_out, SEED + 61),
+                   t2_masks(cfg, B, T_in, T_out, SEED + 62)),
+            "wg": (wg_cfg, weight_norm_params(wg),
+                   [wg_batch() for _ in range(3)])}
+
+
+def par_steps(inputs, mesh=None, zero=False, rows=slice(None)):
+    """One step of each trainer (one_step, f32, on the card), data
+    parallel over `mesh` on the global batch's `rows` when given: the
+    one_step tuple and the wall s of each."""
+    from fac_via_ppg_torch.train.step import (
+        make_tacotron2_train_step,
+        make_waveglow_train_step,
+    )
+
+    cfg, params, state, batch, masks = inputs["t2"]
+    wg_cfg, wg, wg_batches = inputs["wg"]
+    out = {}
+    for name, run in (
+            ("tacotron2", lambda: one_step(
+                make_tacotron2_train_step, cfg, params,
+                tuple(x[rows] for x in batch), "cuda", PAR_LR, state, masks,
+                mesh=mesh, zero=zero)),
+            ("waveglow", lambda: one_step(
+                lambda c, o, **k: make_waveglow_train_step(
+                    c, o, sigma=0.7071, **k),
+                wg_cfg, wg, tuple(x[rows] for x in wg_batches[0]), "cuda",
+                PAR_LR, mesh=mesh, zero=zero))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = run()
+        torch.cuda.synchronize()
+        out[name] = (res, time.time() - t0)
+    return out
+
+
+def par_zero_resume(inputs, mesh, rows, path):
+    """WaveGlow with ZeRO-1 over `mesh`: a step on batch 1, the checkpoint
+    written to `path` (rank 0 writes), a step on batch 2; that step's
+    loss.  Without a mesh: the checkpoint read, one step on batch 2."""
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.train.optim import make_optimizer
+    from fac_via_ppg_torch.train.step import make_waveglow_train_step
+    from fac_via_ppg_torch.weights import move
+
+    wg_cfg, wg, batches = inputs["wg"]
+    opt = make_optimizer(PAR_LR)
+    step = make_waveglow_train_step(wg_cfg, opt, sigma=0.7071, mesh=mesh)
+
+    def put(batch):
+        return tuple(torch.as_tensor(x[rows]).cuda() for x in batch)
+
+    if mesh is None:
+        payload = ckpt.load_checkpoint(path)
+        params = move(payload["params"], torch.device("cuda"))
+        opt_state = opt.init(params)
+        opt_state.load_state_dict(payload["opt_state"])
+    else:
+        params = move(wg, torch.device("cuda"))
+        opt_state = opt.init(params, mesh=mesh, zero=True)
+        step(params, opt_state, put(batches[1]))
+        ckpt.save_checkpoint(path, params, opt_state, PAR_LR, 1, mesh=mesh)
+    return float(step(params, opt_state, put(batches[2])).loss)
+
+
+def par_tp(mesh):
+    """waveglow_infer at PAR_TP_B x PAR_TP_FRAMES, tensor parallel over
+    `mesh` on the conv formulation, against the same call without it, in
+    f32 and bf16, and int8 cond against dense under TP (bf16): each one's
+    max |error| over max |reference|, the SNR, each call's wall s and its
+    all-reduces."""
+    from fac_via_ppg_torch.models import waveglow as tw
+    from fac_via_ppg_torch.parallel.mesh import collectives
+    from fac_via_ppg_torch.weights import move
+
+    cfg, params = waveglow_params(SEED + 71)
+    params = move(tw.remove_weightnorm(params), torch.device("cuda"))
+    mel = (torch.as_tensor(np.random.RandomState(SEED + 72).randn(
+        PAR_TP_B, cfg.n_mel_channels, PAR_TP_FRAMES)) * 0.5 - 5).float()
+    out = {}
+
+    def call(p, **kw):
+        torch.cuda.synchronize()
+        n0 = collectives["all_reduce"]
+        t0 = time.time()
+        with torch.no_grad():
+            a = tw.waveglow_infer(cfg, p, mel.cuda().to(
+                p["upsample"]["weight"].dtype), 0.6,
+                torch.Generator("cuda").manual_seed(SEED), wn_impl="conv",
+                **kw).float()
+        torch.cuda.synchronize()
+        return a, time.time() - t0, collectives["all_reduce"] - n0
+
+    for dtype in (torch.float32, torch.bfloat16):
+        p = tw.cast_params(params, dtype)
+        local = tw.tp_shard_waveglow(p, mesh)
+        ref, ref_s, _ = call(p)
+        dense, s, n = call(p, mesh=mesh, packed_wn=local)
+        key = str(dtype).split(".")[1]
+        out[key] = {"err_rel": float((dense - ref).abs().max()
+                                     / ref.abs().max()),
+                    "one_process_s": ref_s, "tp_s": s, "all_reduces": n}
+    # int8 cond against the bf16 dense call above, both tensor parallel
+    pk = tw.tp_shard_int8cond(cfg, tw.pack_waveglow_int8cond(cfg, params),
+                              mesh)
+    int8, s, _ = call(p, mesh=mesh, packed_wn=local, cond_impl="int8",
+                      packed_cond=pk)
+    err = (int8 - dense).double()
+    out["int8_snr_db"] = float(10 * torch.log10(
+        (dense.double() ** 2).sum() / (err ** 2).sum()))
+    out["int8_tp_s"] = s
+    return out
+
+
+STEP_NOISE = ("encoder/convolutions", "postnet/convolutions")
+
+
+def write_par_inputs(tmp, world):
+    """Phase 14's entry-point inputs under `tmp`: the vocoder CLI's
+    (write_cli_inputs: a seeded full-width WaveGlow .pt; its first
+    CLI_BATCH mels in cli_mels.txt) and the vocoder trainer's (seeded
+    wavs for PAR_TRAIN_ITERS iterations of PAR_STEP_B a rank at `world`
+    ranks, its default config at WG_SEGMENT in f32, a checkpoint at
+    iteration 0, written to wg_par.json).  Returns the CLI's mels' frames."""
+    from fac_via_ppg_torch.configs import DEFAULT_WAVEGLOW_CONFIG_PATH
+
+    _, _, paths, frames = write_cli_inputs(tmp)
+    Path(f"{tmp}/cli_mels.txt").write_text(
+        "\n".join(paths[:CLI_BATCH]) + "\n")
+    wavs = write_wavs(tmp, n=PAR_TRAIN_ITERS * PAR_STEP_B * world,
+                      seed=SEED + 81)
+    Path(f"{tmp}/wg_par.txt").write_text("\n".join(wavs) + "\n")
+    config = json.loads(Path(DEFAULT_WAVEGLOW_CONFIG_PATH).read_text())
+    config["train_config"].update(
+        output_directory=f"{tmp}/wg_par", train_dtype="float32",
+        batch_size=PAR_STEP_B, epochs=1, iters_per_checkpoint=PAR_TRAIN_ITERS)
+    config["data_config"].update(training_files=f"{tmp}/wg_par.txt",
+                                 segment_length=WG_SEGMENT)
+    Path(f"{tmp}/wg_par.json").write_text(json.dumps(config))
+    return frames[:CLI_BATCH]
+
+
+def par_cli(tmp, out, **kw):
+    """The vocoder CLI (scripts/waveglow_inference.main) as a user runs
+    it with PAR_CLI's options on write_par_inputs' files, writing to
+    tmp/out: its flow kernel launches, each batch's launches and rows,
+    its wall s and the mesh line it printed."""
+    from fac_via_ppg_torch.ops import wn_flow as wf
+    from fac_via_ppg_torch.scripts import waveglow_inference as cli
+
+    wf.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s = cli.main(f"{tmp}/cli_mels.txt", f"{tmp}/waveglow.pt",
+                     f"{tmp}/{out}", 0.6, 0.005, **PAR_CLI, **kw)
+    return {"launches": wf.launches,
+            "launches_per_batch": [b["launches"] for b in s["batches"]],
+            "rows_per_batch": [b["rows"] for b in s["batches"]],
+            "wall_s": s["wall_s"],
+            "mesh": [ln for ln in buf.getvalue().splitlines()
+                     if ln.startswith("vocoder mesh")]}
+
+
+def par_trainer(tmp, device):
+    """train_waveglow.main on this rank under the job's data-parallel mesh,
+    ZeRO-1 on (write_par_inputs' config): its iterations, the loss lines
+    it printed, a digest of its params after the run, its wall s."""
+    import hashlib
+
+    from fac_via_ppg_torch.scripts import train_waveglow
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        params, _, it = train_waveglow.main(
+            f"{tmp}/wg_par.json", device=device, zero_sharded_opt_state=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        digest.update(leaf.detach().cpu().numpy().tobytes())
+    return {"iterations": it, "wall_s": wall,
+            "loss_lines": [ln for ln in buf.getvalue().splitlines()
+                           if "s/it)" in ln],
+            "params_sha256": digest.hexdigest()}
+
+
+def rank_parallel(rank, world, pairs, tmp):
+    """Phase 14 (b) on one of `world` ranks (gloo ranks sharing cuda:0, or
+    `--cards`' NCCL ranks, one card each): the data-parallel fused batch
+    (its rows, the layer kernel's launches); one DP and one DP + ZeRO-1
+    step of each trainer on this rank's rows of the global batch, which
+    rank 0 holds against the one-process step on the whole batch
+    (hold_steps; the averaged gradients and the params after the step are
+    every rank's); the ZeRO-1 checkpoint's resume step; waveglow_infer
+    tensor parallel over the ranks; the vocoder CLI with --data_parallel
+    (the flow kernel, int8 cond; rank 0 writes tmp/cli_dp) and the vocoder
+    trainer's main() under the mesh (write_par_inputs).  Returns small
+    summaries only (no tensor crosses the process boundary)."""
+    from fac_via_ppg_torch.ops import wn_layer as wl
+    from fac_via_ppg_torch.parallel.mesh import collectives, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    dp = make_mesh(device=device)
+    n0 = dict(collectives)
+    pcms, lens, launches, s = par_serve(par_synth(dp), pairs, wl)
+    out = {"serve": {"pcm": pcms, "lens": lens, "launches": launches,
+                     "wall_s": s, "collectives": {
+                         k: collectives[k] - n0[k] for k in n0}}}
+    torch.cuda.empty_cache()
+    inputs = par_step_inputs(world)
+    paths = {"tacotron2": tree_paths(inputs["t2"][1]),
+             "waveglow": tree_paths(inputs["wg"][1])}
+    ref = par_steps(inputs) if rank == 0 else None
+    rows = slice(rank * PAR_STEP_B, (rank + 1) * PAR_STEP_B)
+    for kind, zero in (("dp", False), ("zero", True)):
+        steps = par_steps(inputs, dp, zero, rows)
+        for name, (got, secs) in steps.items():
+            res = {"loss": got[0], "step_s": secs}
+            if ref is not None:
+                h = hold_steps(
+                    f"{name} rank 0 of {world} {dist_backend()} {kind} vs "
+                    "one process", (*got[:4], []), ref[name][0],
+                    paths[name], PAR_LR, STEP_NOISE)
+                res.update(loss_rel=h["loss_rel"],
+                           grad_rel_max=h["grad_rel_max"],
+                           param_max_abs_err=h["param_max_abs_err"],
+                           one_process_step_s=ref[name][1])
+            out[f"{name}_{kind}"] = res
+        del steps
+    out["resume_loss"] = par_zero_resume(inputs, dp, rows,
+                                         f"{tmp}/zero_ckpt")
+    del inputs, ref
+    torch.cuda.empty_cache()
+    out["tp"] = par_tp(make_mesh(model=world, device=device))
+    torch.cuda.empty_cache()
+    out["cli"] = par_cli(tmp, "cli_dp", data_parallel=True, device=device)
+    torch.cuda.empty_cache()
+    out["trainer"] = par_trainer(tmp, device)
+    return out
+
+
+def dist_backend():
+    import torch.distributed as dist
+
+    return dist.get_backend()
+
+
+def wav_diff(dir_a, dir_b, names):
+    """The largest int16 step between the wavs of the same names in two
+    directories, and whether every pair is byte-equal."""
+    from scipy.io import wavfile
+
+    diff, same = 0, True
+    for name in names:
+        a, b = (Path(d, name).read_bytes() for d in (dir_a, dir_b))
+        same = same and a == b
+        x, y = (wavfile.read(f"{d}/{name}")[1].astype(np.int32)
+                for d in (dir_a, dir_b))
+        if x.shape != y.shape:
+            return None, False
+        diff = max(diff, int(np.abs(x - y).max()))
+    return diff, same
+
+
+def check_ranks(card, res, one, rows_ref, resume, cli_one, tmp, frames,
+                backend, spread=False):
+    """Phase 14's checks of the spawned ranks' results (rank_parallel)
+    against the one-process runs: each rank's rows of the fused batch
+    within 1 step of the same rows run alone (`rows_ref`) and every rank
+    returning every row, the lengths exact, >= 96 layer launches a rank;
+    TP f32 within 1e-4 of the audio's max, bf16 within PAR_TP_BF16_TOL,
+    int8 cond 25 dB from dense; the ZeRO-1 checkpoint's next loss within
+    1e-5 of the one-process resume; the data-parallel vocoder CLI's wavs
+    (tmp/cli_dp) within 1 step of the one-process CLI's (`cli_one`,
+    tmp/cli_one) at the mels' lengths, n_flows flow kernel launches a
+    batch on every rank; the trainer's iterations on every rank, its loss
+    lines on rank 0 alone, its params equal on every rank and its
+    checkpoint loading at world 1.  Prints a `parallel:` line a rank, then
+    fails on the first rank that disagrees; returns the ranks' layer
+    launches in the fused batch and flow launches in the CLI."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.train.optim import make_optimizer
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    world = len(res)
+    n_flows = WaveGlowConfig().n_flows
+    names = sorted(p.name for p in Path(f"{tmp}/cli_one").iterdir())
+    cli_diff, cli_same = wav_diff(f"{tmp}/cli_one", f"{tmp}/cli_dp", names)
+    # the trainer's ZeRO-1 checkpoint holds every moment whole and loads
+    # into one process's Adam
+    payload = ckpt.load_checkpoint(f"{tmp}/wg_par/waveglow_0")
+    leaves = tree_leaves(payload["params"])
+    moments = payload["opt_state"]["state"]
+    ckpt_whole = len(moments) == len(leaves) and all(
+        moments[i][k].shape == p.shape for i, p in enumerate(leaves)
+        for k in ("exp_avg", "exp_avg_sq"))
+    make_optimizer(PAR_LR).init(payload["params"]).load_state_dict(
+        payload["opt_state"])
+    failed = []
+    for rank, r in enumerate(res):
+        sv, cli, tr = r["serve"], r["cli"], r["trainer"]
+        mine = slice(rank * BATCH // world, (rank + 1) * BATCH // world)
+        diff = max(pcm_diff(sv["pcm"][mine], rows_ref[rank][0]),
+                   pcm_diff(sv["pcm"], res[0]["serve"]["pcm"]))
+        b = {"world": world, "rank": rank, "backend": backend,
+             "device": f"cuda:{rank if spread else 0}",
+             "pcm_max_diff": diff,
+             "pcm_max_diff_vs_whole_batch": pcm_diff(sv["pcm"], one[0]),
+             "launches": sv["launches"], "serve_wall_s": sv["wall_s"],
+             "one_process_wall_s": one[3],
+             "serve_collectives": sv["collectives"],
+             "resume_loss": r["resume_loss"], "resume_loss_world1": resume,
+             "resume_loss_rel": abs(r["resume_loss"] - resume) / abs(resume),
+             **{k: r[k] for k in r if k.startswith(("tacotron2",
+                                                    "waveglow"))},
+             "tp": r["tp"],
+             "cli": {**cli, "wavs": len(names), "pcm_max_diff": cli_diff,
+                     "bytes_equal": cli_same,
+                     "one_process_wall_s": cli_one["wall_s"],
+                     "one_process_launches": cli_one["launches"]},
+             "trainer": {k: tr[k] for k in ("iterations", "wall_s")}
+             | {"loss_lines": len(tr["loss_lines"]),
+                "params_equal_rank0": tr["params_sha256"]
+                == res[0]["trainer"]["params_sha256"],
+                "checkpoint_moments_whole": ckpt_whole}}
+        tp = r["tp"]
+        want_lines = PAR_TRAIN_ITERS if rank == 0 else 0
+        if sv["lens"][mine] != rows_ref[rank][1] or sv["lens"] != one[1] \
+                or diff > 1 or sv["launches"] < 96 \
+                or tp["float32"]["err_rel"] > 1e-4 \
+                or tp["bfloat16"]["err_rel"] > PAR_TP_BF16_TOL \
+                or tp["int8_snr_db"] < 25.0 or b["resume_loss_rel"] > 1e-5 \
+                or len(names) != len(frames) or cli_diff is None \
+                or cli_diff > 1 \
+                or cli["launches_per_batch"] != [n_flows] * len(
+                    cli["launches_per_batch"]) \
+                or cli["mesh"] != [f"vocoder mesh: {world} data x 1 model"] \
+                or tr["iterations"] != PAR_TRAIN_ITERS \
+                or len(tr["loss_lines"]) != want_lines \
+                or not b["trainer"]["params_equal_rank0"] or not ckpt_whole \
+                or not all(np.isfinite(float(ln.split()[1]))
+                           for ln in tr["loss_lines"]):
+            failed.append(rank)
+        log("parallel: " + json.dumps({"card": card, **b}))
+    if failed:
+        raise AssertionError(f"phase 14: rank {failed[0]} of {world} "
+                             "disagrees (its parallel: line above)")
+    return ([r["serve"]["launches"] for r in res],
+            [r["cli"]["launches"] for r in res])
+
+
+def run_ranks_on_cards(card, world, backend, devices, pairs, tmp):
+    """The one-process references phase 14 (b) is held against (the fused
+    batch, each rank's rows of it, the vocoder CLI), then rank_parallel on
+    `world` ranks of `backend` on `devices`, then the one-process resume
+    of their ZeRO-1 checkpoint, then check_ranks."""
+    from fac_via_ppg_torch.ops import wn_layer as wl
+    from fac_via_ppg_torch.parallel.spawn import run_ranks
+
+    plain = par_synth()
+    one = par_serve(plain, pairs, wl)
+    rows_ref = par_rank_rows(plain, pairs, wl, world)
+    del plain
+    frames = write_par_inputs(tmp, world)
+    cli_one = par_cli(tmp, "cli_one")
+    inputs = par_step_inputs(world)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = run_ranks(world, rank_parallel, pairs, tmp, backend=backend,
+                    device=devices, timeout=PAR_RANK_TIMEOUT)
+    ranks_s = time.time() - t0
+    resume = par_zero_resume(inputs, None, slice(None), f"{tmp}/zero_ckpt")
+    launches = check_ranks(card, res, one, rows_ref, resume, cli_one, tmp,
+                           frames, backend, spread=backend == "nccl")
+    return launches, ranks_s
+
+
+def run_cards(card, n):
+    """`--cards N`: phase 14 (b) on N NCCL ranks, one card each (a
+    machine of N cards, where the collectives cross NVLink): the same
+    checks against the same one-process runs on cuda:0, and the times
+    one card cannot give (a rank's fused batch, a DP step per rank, a TP
+    call over N cards)."""
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"--cards {n}: only "
+                             f"{torch.cuda.device_count()} cards")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = par_synth()
+        pairs = [plain.featurize(p) for p in write_wavs(tmp, n=BATCH)]
+        del plain
+        run_ranks_on_cards(card, n, "nccl", [f"cuda:{r}" for r in range(n)],
+                           pairs, tmp)
+    log(f"cards: {n} NCCL ranks in {time.time() - t0:.1f} s")
+
+
+def run_parallel(card):
+    """Phase 14: (a) a 1-rank NCCL group on cuda:0 in this process: the
+    fused batch data parallel against the same synthesizer without a
+    mesh, one DP + ZeRO-1 step of each trainer against the one-process
+    step; (b) PAR_RANKS spawned gloo ranks sharing cuda:0 (rank_parallel)
+    against the one-process runs.  Returns the ranks' layer kernel
+    launches in their fused batch and flow kernel launches in the vocoder
+    CLI."""
+    import torch.distributed as dist
+
+    from fac_via_ppg_torch.ops import wn_layer as wl
+    from fac_via_ppg_torch.parallel.mesh import (
+        collectives,
+        init_distributed,
+        make_mesh,
+    )
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_wavs(tmp, n=BATCH)
+        plain = par_synth()
+        pairs = [plain.featurize(p) for p in paths]
+        one = par_serve(plain, pairs, wl)
+        del plain
+        inputs = par_step_inputs(PAR_RANKS)
+        ref = par_steps(inputs)
+        paths_t2 = tree_paths(inputs["t2"][1])
+        paths_wg = tree_paths(inputs["wg"][1])
+
+        # (a) one rank, NCCL, every collective issued
+        init_distributed(backend="nccl", init_method=f"file://{tmp}/store",
+                         world_size=1, rank=0, device="cuda:0")
+        try:
+            mesh = make_mesh(device="cuda:0")
+            n0 = dict(collectives)
+            got = par_serve(par_synth(mesh), pairs, wl)
+            a = {"world": 1, "backend": dist.get_backend(),
+                 "device": "cuda:0", "serve_wall_s": got[3],
+                 "one_process_wall_s": one[3], "launches": got[2],
+                 "pcm_max_diff": pcm_diff(got[0], one[0])}
+            if got[1] != one[1] or a["pcm_max_diff"] > 1 or got[2] < 96:
+                raise AssertionError(f"phase 14 (a): the 1-rank fused batch "
+                                     f"disagrees: {a}, lengths {got[1]} vs "
+                                     f"{one[1]}")
+            steps = par_steps(inputs, mesh, zero=True)
+            a["collectives"] = {k: collectives[k] - n0[k] for k in n0}
+            for name, paths_ in (("tacotron2", paths_t2),
+                                 ("waveglow", paths_wg)):
+                r = hold_steps(f"{name} 1-rank NCCL DP + ZeRO-1 vs one "
+                               f"process", steps[name][0], ref[name][0],
+                               paths_, PAR_LR, STEP_NOISE)
+                a[f"{name}_loss_rel"] = r["loss_rel"]
+                a[f"{name}_grad_rel_max"] = r["grad_rel_max"]
+                a[f"{name}_param_max_abs_err"] = r["param_max_abs_err"]
+                a[f"{name}_step_s"] = steps[name][1]
+                a[f"{name}_one_process_step_s"] = ref[name][1]
+        finally:
+            dist.destroy_process_group()
+        log("parallel: " + json.dumps({"card": card, **a}))
+
+        # (b) PAR_RANKS gloo ranks sharing cuda:0
+        del ref, steps, inputs
+        torch.cuda.empty_cache()
+        launches, ranks_s = run_ranks_on_cards(
+            card, PAR_RANKS, "gloo", "cuda:0", pairs, tmp)
+    log(f"phase 14: {time.time() - t0:.1f} s (the ranks: {ranks_s:.1f} s)")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-flow", metavar="CHECKOUT",
@@ -3057,6 +3667,13 @@ def main():
                     help="only run phase 13, the grouped upsampler, the WN "
                     "int8 rungs, the denoiser's normal mode, the runbook "
                     "and trained_parity's serve path")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only run phase 14, multi-GPU serving and "
+                    "data-parallel training on one card (a 1-rank NCCL "
+                    "group, then 2 gloo ranks sharing it)")
+    ap.add_argument("--cards", type=int, metavar="N",
+                    help="only run phase 14's rank checks on N NCCL ranks, "
+                    "one card each (a machine of N cards)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3092,6 +3709,14 @@ def main():
     if args.tools2:
         build_kernels((wl, wf))
         run_slice12(card, wl, wf)
+        return 0
+    if args.parallel:
+        build_kernels((wl, wf))
+        run_parallel(card)
+        return 0
+    if args.cards:
+        build_kernels((wl, wf))
+        run_cards(card, args.cards)
         return 0
 
     reports = build_kernels((wl, wf))
@@ -3180,6 +3805,7 @@ def main():
     tools = run_tools(card, wf)
     run_measure(card, wl, wf)
     grouped = run_slice12(card, wl, wf)
+    par_layer, par_flow = run_parallel(card)
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
@@ -3194,6 +3820,7 @@ def main():
         "launches_synth": synth_launches["wn_layer"],
         "launches_stream": stream["wn_layer_launches"],
         "launches_grouped": grouped["wn_layer"],
+        "launches_parallel_per_rank": par_layer,
         **layer_res, "library_ms": None}, {
         "name": "wn_flow", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_flow.cu",
@@ -3210,6 +3837,7 @@ def main():
         "launches_pickled_cli": sum(
             tools["pickled"]["flow_launches"].values()),
         "launches_grouped": grouped["wn_flow"],
+        "launches_parallel_cli_per_rank": par_flow,
         **flow_res, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

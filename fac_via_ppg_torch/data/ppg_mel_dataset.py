@@ -181,24 +181,29 @@ class PPGMelDataset:
         return len(self.ppg_sequences)
 
 
-def ppg_acoustics_collate(batch, pad_to: int = 1):
+def ppg_acoustics_collate(batch, pad_to: int = 1, pad_dims=None):
     """Zero-pad a list of (ppg (T1, D1), mel (T2, D2)) pairs.
 
     Returns (ppg_padded (B, D1, T1max), input_lengths, acoustic_padded
     (B, D2, T2max), gate_padded (B, T2max), output_lengths), sorted by
     input length, descending (reference data_utils.py:281-334); `pad_to`
-    rounds both padded lengths up to a multiple."""
+    rounds both padded lengths up to a multiple.  `pad_dims` = (input_len,
+    target_len) pins both padded lengths exactly (already rounded): the
+    data-parallel ranks' shards of one global batch agree on their shapes
+    (JAX :207-218)."""
     input_lengths = np.array([x[0].shape[0] for x in batch], dtype=np.int64)
     order = np.argsort(-input_lengths)
     input_lengths = input_lengths[order]
-    max_input_len = round_up(int(input_lengths[0]), pad_to)
+    max_input_len = (pad_dims[0] if pad_dims
+                     else round_up(int(input_lengths[0]), pad_to))
     B = len(batch)
     ppg_padded = np.zeros((B, max_input_len, batch[0][0].shape[1]),
                           np.float32)
     for i, j in enumerate(order):
         ppg = batch[j][0]
         ppg_padded[i, :ppg.shape[0]] = ppg
-    max_target_len = round_up(max(x[1].shape[0] for x in batch), pad_to)
+    max_target_len = (pad_dims[1] if pad_dims else
+                      round_up(max(x[1].shape[0] for x in batch), pad_to))
     acoustic_padded = np.zeros((B, max_target_len, batch[0][1].shape[1]),
                                np.float32)
     gate_padded = np.zeros((B, max_target_len), np.float32)
@@ -219,23 +224,42 @@ def utt_to_sequence(ppg: np.ndarray) -> np.ndarray:
 
 
 class EpochBatcher:
-    """Shuffled fixed-size batches, one process (torch DataLoader's
-    role): the order is a pure function of (seed, epoch), the JAX
-    package's, which also shards it across hosts (ROADMAP queue 1 item 6
-    for the port)."""
+    """Shuffled fixed-size batches (torch DataLoader + DistributedSampler's
+    role), one shard per data-parallel rank: the order is a pure function
+    of (seed, epoch), the JAX package's, and rank `shard` of `num_shards`
+    takes the strided slice order[shard::num_shards].  `batch_size` is per
+    rank, as in the JAX package's multi-process run and the reference's
+    DP.
+
+    Lockstep across shards (JAX :262-330): every shard can compute every
+    other shard's batches locally, so
+      * every shard runs the same number of batches an epoch, the
+        minimum over shards (a straggler would hang the collectives);
+      * with `length_fn` (item -> its lengths), each batch is padded to
+        the maximum over all shards' concurrent batches, rounded to
+        `pad_to` (`pad_dims` to the collate), so the shards of one global
+        batch share their shapes without communication.
+    More than one shard requires `drop_last`."""
 
     def __init__(self, dataset, batch_size: int, seed: int, collate_fn,
-                 drop_last: bool = True, pad_to: int = 1):
+                 drop_last: bool = True, shard: int = 0, num_shards: int = 1,
+                 pad_to: int = 1, length_fn=None):
+        if num_shards > 1 and not drop_last:
+            raise ValueError(
+                "multi-shard EpochBatcher requires drop_last=True")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.collate_fn = collate_fn
         self.drop_last = drop_last
+        self.shard = shard
+        self.num_shards = num_shards
         self.pad_to = pad_to
+        self.length_fn = length_fn
         self.epoch = 0
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -243,9 +267,23 @@ class EpochBatcher:
     def __iter__(self):
         order = list(range(len(self.dataset)))
         random.Random(self.seed + self.epoch).shuffle(order)
+        shards = [order[s::self.num_shards] for s in range(self.num_shards)]
         B = self.batch_size
         for step in range(len(self)):
-            idx = order[step * B:(step + 1) * B]
-            yield self.collate_fn([self.dataset[j] for j in idx],
-                                  pad_to=self.pad_to)
+            idx = shards[self.shard][step * B:(step + 1) * B]
+            if not idx or (self.drop_last and len(idx) < B):
+                break
+            kwargs = {"pad_to": self.pad_to}
+            if self.num_shards > 1 and self.length_fn is not None:
+                dims = [self.length_fn(self.dataset[j]) for s in shards
+                        for j in s[step * B:(step + 1) * B]]
+                kwargs["pad_dims"] = tuple(
+                    round_up(max(d), self.pad_to) for d in zip(*dims))
+            yield self.collate_fn([self.dataset[j] for j in idx], **kwargs)
         self.epoch += 1
+
+
+def ppg_mel_lengths(item) -> tuple:
+    """A (ppg, mel) item's (input, target) lengths: `EpochBatcher`'s
+    `length_fn` for `ppg_acoustics_collate`."""
+    return item[0].shape[0], item[1].shape[0]

@@ -28,6 +28,21 @@ Randomness comes from a torch.Generator (the JAX package's `key`).  Two
 hooks replace it with given draws, for tests against the JAX package:
 `dropout_masks` (the prenet keep-masks in call order) and `noise` (the
 WaveGlow draws in `waveglow_infer`'s order).
+
+Several GPUs (`data_parallel`, `model_parallel`; one process each,
+parallel/mesh.py): every rank is handed the same requests and generator
+seed.  Under data parallelism the batch is padded to the data axis with
+repeats and each rank runs its own rows through the whole program, on the
+hand kernels; the prenet keep-masks and the WaveGlow noise are drawn for
+the padded global batch on every rank and each rank takes its rows, so
+the output equals the one-process run's for the same seed (as JAX's
+sharding-invariant draws do).  Each rank's decode stops on its own rows
+(JAX all-reduces the all-done check; lengths and outputs are per row
+either way).  `collect_feature_pairs` all-gathers the PCM, so every rank
+returns every row.  With `model_parallel` > 1 Tacotron2 is whole on every
+rank and WaveGlow's WN channels are split over the model group, on the
+conv formulation (models/waveglow.py::waveglow_infer(mesh=)), as the JAX
+package runs its XLA formulation there.
 """
 
 from __future__ import annotations
@@ -43,13 +58,26 @@ from fac_via_ppg_torch.configs.hparams import Tacotron2Config, WaveGlowConfig
 from fac_via_ppg_torch.frontend import feat as feat_mod
 from fac_via_ppg_torch.frontend import ppg as ppg_mod
 from fac_via_ppg_torch.models.denoiser import Denoiser
-from fac_via_ppg_torch.models.tacotron2 import tacotron2_inference_batched
+from fac_via_ppg_torch.models.tacotron2 import (
+    inference_masks,
+    tacotron2_inference_batched,
+)
 from fac_via_ppg_torch.models.waveglow import (
     cast_params,
     pack_waveglow_flow,
     pack_waveglow_int8cond,
     pack_waveglow_layer,
+    tp_shard_int8cond,
+    tp_shard_waveglow,
     waveglow_infer,
+    waveglow_noise,
+)
+from fac_via_ppg_torch.parallel.mesh import (
+    gather_rows,
+    make_mesh,
+    padded_rows,
+    rank_rows,
+    replicate,
 )
 from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.utils.numeric import round_batch_to_grid, round_up
@@ -77,6 +105,9 @@ class FusedSynthesizer:
         calibration_mel=None,
         snr_budget_db: Optional[float] = None,
         device=None,
+        data_parallel: bool = False,
+        model_parallel: int = 1,
+        mesh=None,
     ):
         """Parameters are the port's (`weights.py` converts the JAX
         package's); they are moved to `device` (None means "cuda").
@@ -95,9 +126,27 @@ class FusedSynthesizer:
         and serving proceeds as "int8" only if it meets `snr_budget_db`
         (default eval/int8_snr.DEFAULT_SNR_BUDGET_DB), else as "dense".
         The decision and the SNR are `.cond_impl` / `.calibration_snr_db`
-        (`.requested_cond_impl` keeps what was asked)."""
+        (`.requested_cond_impl` keeps what was asked).
+
+        `data_parallel=True` spreads each batch over the job's processes
+        (one per GPU), `model_parallel` > 1 splits WaveGlow's WN channels
+        over that many of them (see the module doc); `mesh` is a formed
+        parallel/mesh.py mesh, else one is made over the whole job (a
+        mesh of one process does nothing).  `device` defaults to the
+        mesh's, cuda:LOCAL_RANK."""
+        self.mesh = None
+        if data_parallel or model_parallel > 1 or mesh is not None:
+            self.mesh = mesh or make_mesh(model=int(model_parallel),
+                                          device=device)
+            device = self.mesh.device if device is None else device
+        tp = self.mesh is not None and self.mesh.shape["model"] > 1
+        # a formed data group, even of one process, runs the rows path
+        self._dp = self.mesh is not None and self.mesh.data_group is not None
         self.device = dev = resolve_device(device)
         wg_params = move(waveglow_params, dev)
+        if self.mesh is not None:
+            # every rank serves rank 0's weights (JAX `replicate`)
+            replicate(self.mesh, wg_params)
         self.requested_cond_impl = cond_impl
         self.calibration_snr_db = None
         self.snr_budget_db = None
@@ -133,6 +182,8 @@ class FusedSynthesizer:
         self.wg_cfg = wg_cfg
         self.t2_params = move(tacotron_params, dev)
         self.t2_state = move(tacotron_state, dev)
+        if self.mesh is not None:
+            replicate(self.mesh, (self.t2_params, self.t2_state))
         self.sigma = float(sigma)
         self.strength = float(denoiser_strength)
         self.serving_dtype = serving_dtype
@@ -146,6 +197,9 @@ class FusedSynthesizer:
         # int8 weights from the un-cast params, as in the JAX package
         self._packed_cond = (pack_waveglow_int8cond(wg_cfg, wg_params)
                              if cond_impl == "int8" else None)
+        if tp and self._packed_cond is not None:
+            self._packed_cond = tp_shard_int8cond(wg_cfg, self._packed_cond,
+                                                  self.mesh)
         # bias spectrum once, from the f32 vocoder
         den = Denoiser(wg_cfg, wg_params)
         self._stft = den.stft
@@ -153,16 +207,48 @@ class FusedSynthesizer:
         if serving_dtype is not None:
             wg_params = cast_params(wg_params, serving_dtype)
         self.wg_params = wg_params
+        if tp:
+            # the conv formulation on this rank's WN channels
+            self._wn_impl = "conv"
+            self._packed_wn = tp_shard_waveglow(wg_params, self.mesh)
+            return
         self._wn_impl = "flow" if cond_impl == "int8" else "layer"
         pack = (pack_waveglow_flow if self._wn_impl == "flow"
                 else pack_waveglow_layer)
         self._packed_wn = pack(wg_cfg, wg_params)
 
+    def global_draws(self, b_global: int, t_in: int, generator,
+                     dropout_masks=None, noise=None):
+        """The prenet keep-masks and the WaveGlow noise of a batch of
+        `b_global` rows of `t_in` feature frames, as the one-process
+        program draws them from `generator` (or as given): every row's.
+        A data-parallel rank takes its rows of these."""
+        if dropout_masks is None:
+            dropout_masks = inference_masks(
+                self.t2_cfg, self.t2_params, b_global, t_in, self.device,
+                generator)
+        if noise is None:
+            G = self.max_frames * self.wg_cfg.hop_length // \
+                self.wg_cfg.n_group
+            noise = waveglow_noise(self.wg_cfg, b_global, G, generator,
+                                   self.device)
+        return dropout_masks, noise
+
     def _device_program_batch(self, feats, n_frames, generator,
-                              dropout_masks=None, noise=None):
-        """(B, T_pad, lda_dim) -> (int16 PCM (B, M*hop), mel_lengths (B,))."""
+                              dropout_masks=None, noise=None,
+                              b_global=None):
+        """(B, T_pad, lda_dim) -> (int16 PCM (B, M*hop), mel_lengths (B,)).
+        `b_global`: this is a data-parallel rank's share of a batch of
+        that many rows, and the masks and noise given are the global
+        batch's."""
         ppg = self.nnet.forward(feats)                   # (B, T_pad, D)
         x = ppg.transpose(1, 2).float()                  # (B, D, T_pad)
+        if b_global is not None:
+            rows = rank_rows(self.mesh, b_global)
+            dropout_masks, noise = self.global_draws(
+                b_global, ppg.shape[1], generator, dropout_masks, noise)
+            dropout_masks = [m[rows] for m in dropout_masks]
+            noise = [torch.as_tensor(z)[rows] for z in noise]
         masks = None if dropout_masks is None else iter(dropout_masks)
         _, mel_post, _, _, mel_lens = tacotron2_inference_batched(
             self.t2_cfg, self.t2_params, self.t2_state, x, n_frames,
@@ -176,7 +262,7 @@ class FusedSynthesizer:
             mel_in.to(self.serving_dtype or torch.float32), self.sigma,
             generator, noise=noise, wn_impl=self._wn_impl,
             packed_wn=self._packed_wn, cond_impl=self.cond_impl,
-            packed_cond=self._packed_cond,
+            packed_cond=self._packed_cond, mesh=self.mesh,
         ).float()                                        # (B, M*hop)
         spec, angles = self._stft.transform(audio)
         spec = torch.clamp(spec - self._bias * self.strength, min=0.0)
@@ -218,7 +304,10 @@ class FusedSynthesizer:
 
         Feature rows are padded to the batch's longest by repeating the
         last frame; the batch is padded with repeats of the last request
-        (`pad_batch_to`, the grid policy) and trimmed on collect."""
+        (`pad_batch_to`, the grid policy, and under data parallelism a
+        multiple of the data axis) and trimmed on collect.  A
+        data-parallel rank enqueues its own rows; `dropout_masks` /
+        `noise` are then the padded global batch's."""
         n_real = len(pairs)
         t_max = max(f.shape[0] for f, _ in pairs)
         feats = np.stack([
@@ -233,25 +322,36 @@ class FusedSynthesizer:
             b_pad = max(b_pad, pad_batch_to)
         if self.pad_to_grid:
             b_pad = round_batch_to_grid(b_pad)
+        dp = self._dp
+        if dp:
+            b_pad = padded_rows(self.mesh, b_pad)
         if b_pad != n_real:
             reps = b_pad - n_real
             feats = np.concatenate(
                 [feats, np.repeat(feats[-1:], reps, axis=0)], axis=0)
             n_frames = np.concatenate(
                 [n_frames, np.repeat(n_frames[-1:], reps)], axis=0)
+        if dp:
+            rows = rank_rows(self.mesh, b_pad)
+            feats, n_frames = feats[rows], n_frames[rows]
         feats_t = torch.as_tensor(feats, dtype=torch.float32,
                                   device=self.device)
         n_frames_t = torch.as_tensor(n_frames, device=self.device)
         with torch.no_grad():
             pcm, mel_lens = self._device_program_batch(
                 feats_t, n_frames_t, self._generator(generator),
-                dropout_masks, noise)
+                dropout_masks, noise, b_global=b_pad if dp else None)
         return pcm, mel_lens, n_real
 
     def collect_feature_pairs(self, handle):
         """Wait for a `launch_feature_pairs` handle and return the list of
-        int16 PCM arrays, each trimmed to its mel length * hop."""
+        int16 PCM arrays, each trimmed to its mel length * hop.  Under
+        data parallelism every rank's rows are all-gathered first, so
+        every rank returns every row."""
         pcm, mel_lens, n_real = handle
+        if self._dp:
+            pcm = gather_rows(self.mesh, pcm, n_real)
+            mel_lens = gather_rows(self.mesh, mel_lens, n_real)
         pcm = pcm.cpu().numpy()
         mel_lens = mel_lens.cpu().numpy()
         hop = self.wg_cfg.hop_length

@@ -30,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.io import wavfile
 
 from fac_via_ppg_torch.configs.hparams import (
@@ -39,8 +40,8 @@ from fac_via_ppg_torch.configs.hparams import (
 )
 from fac_via_ppg_torch.frontend import ppg as ppg_mod
 from fac_via_ppg_torch.models.denoiser import Denoiser
+from fac_via_ppg_torch.parallel.mesh import job_device
 from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
-from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.utils.inference import (
     get_inference,
     load_tacotron2_model,
@@ -151,11 +152,26 @@ class StreamingAccentConverter:
                  frontend_threads: int = 1, pipeline_depth: int = 2,
                  on_error: str = "raise", cond_impl: str = "dense",
                  calibration_mel=None, snr_budget_db=None,
-                 pad_to_grid: bool = True, device=None):
+                 pad_to_grid: bool = True, device=None,
+                 data_parallel: bool = False, model_parallel: int = 1):
         """Parameters are the port's (`weights.py` converts the JAX
         package's); they are moved to `device` (None means "cuda", which
-        raises without a card)."""
-        self.device = dev = resolve_device(device)
+        raises without a card).
+
+        `data_parallel` / `model_parallel` (fused only) spread each
+        micro-batch over the job's processes (eval/fused.py); every rank
+        streams the same wavs and must form the same micro-batches, so
+        data parallelism takes one front-end thread (the pool yields in
+        completion order), and every rank yields every result."""
+        if (data_parallel or model_parallel > 1) and not fused:
+            raise ValueError("data_parallel / model_parallel need "
+                             "fused=True")
+        if data_parallel and frontend_threads > 1:
+            raise ValueError(
+                "data_parallel streaming needs frontend_threads=1: every "
+                "rank must form the same micro-batches, and several "
+                "front-end threads yield in completion order")
+        self.device = dev = job_device(device)
         self.t2_cfg = t2_cfg
         self.tacotron_params = move(tacotron_params, dev)
         self.tacotron_state = move(tacotron_state, dev)
@@ -221,6 +237,8 @@ class StreamingAccentConverter:
                 snr_budget_db=snr_budget_db,
                 pad_to_grid=pad_to_grid,
                 device=dev,
+                data_parallel=data_parallel,
+                model_parallel=model_parallel,
             )
         elif batch_size > 1:
             raise ValueError("batch_size > 1 requires fused=True")
@@ -415,6 +433,15 @@ def parse_args(argv=None):
     parser.add_argument("--compute_dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="WaveGlow serving dtype")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="spread each fused micro-batch over the job's "
+                             "processes, one per GPU (torchrun / "
+                             "scripts/multiproc.py; needs --fused and one "
+                             "front-end thread); rank 0 writes")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="split WaveGlow's WN channels over this many "
+                             "processes (needs --fused; composes with "
+                             "--data_parallel)")
     parser.add_argument("--fused", action="store_true",
                         help="the device side of a micro-batch back to "
                              "back on the card (eval/fused.py)")
@@ -456,7 +483,8 @@ def main(argv=None, device=None):
     CUDA card (raises without one); tests pass "cpu"."""
     args = parse_args(argv)
     enable_compilation_cache(args.compilation_cache_dir or None)
-    dev = resolve_device(device)
+    dev = job_device(device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     hparams = create_hparams_stage()
     t2_cfg = Tacotron2Config.from_hparams(hparams)
     wg_cfg = WaveGlowConfig()
@@ -465,7 +493,8 @@ def main(argv=None, device=None):
 
     with open(args.filelist) as f:
         wavs = [line.strip() for line in f if line.strip()]
-    os.makedirs(args.output_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     calibration_mel = None
     if args.cond_impl == "auto":
@@ -487,6 +516,8 @@ def main(argv=None, device=None):
         calibration_mel=calibration_mel,
         snr_budget_db=args.snr_budget_db,
         device=dev,
+        data_parallel=args.data_parallel,
+        model_parallel=args.model_parallel,
     )
     total_audio = total_wall = 0.0
     steady_audio = steady_wall = 0.0
@@ -508,10 +539,11 @@ def main(argv=None, device=None):
             args.output_dir,
             os.path.basename(result.wav_path).replace(".wav", "_ac.wav"),
         )
-        wavfile.write(
-            out, 16000,
-            (np.clip(result.audio, -1, 1) * 32767).astype(np.int16),
-        )
+        if lead:
+            wavfile.write(
+                out, 16000,
+                (np.clip(result.audio, -1, 1) * 32767).astype(np.int16),
+            )
         total_audio += result.audio_seconds
         total_wall += result.wall_seconds
         if n >= warm:  # earlier results pay the warm-up

@@ -153,7 +153,7 @@ def prenet_apply(p: dict, x: torch.Tensor,
 def encoder_forward(params, state, ppg, input_lengths, training: bool,
                     generator: Optional[torch.Generator] = None,
                     masks: Optional[Iterator] = None,
-                    mask_convs: bool = False):
+                    mask_convs: bool = False, bn_group=None):
     """(B, n_symbols, T_in) -> (memory (B, T_in, E), new encoder state).
 
     `training` runs batch norm on the batch's statistics and dropout(0.5)
@@ -161,7 +161,8 @@ def encoder_forward(params, state, ppg, input_lengths, training: bool,
     sequence's length before every conv, so that a bucket-padded input
     reproduces the unpadded computation (conv biases otherwise leak
     across the boundary); it stays off in training, as in the JAX package
-    and the reference (model.py:215-235)."""
+    and the reference (model.py:215-235).  `bn_group` takes the training
+    batch norm's statistics over a data-parallel group's global batch."""
     p, s = params["encoder"], state["encoder"]
     x = prenet_apply(p["prenet"], ppg.transpose(1, 2), generator, masks)
     x = x.transpose(1, 2)  # (B, E, T)
@@ -176,7 +177,8 @@ def encoder_forward(params, state, ppg, input_lengths, training: bool,
             x = torch.where(valid, x, zero)
         k = conv_p["conv"]["weight"].shape[2]
         x = conv1d(conv_p["conv"], x, padding=(k - 1) // 2)
-        x, bn_new = batchnorm_apply(conv_p["bn"], bn_s, x, training)
+        x, bn_new = batchnorm_apply(conv_p["bn"], bn_s, x, training,
+                                    group=bn_group)
         new_bn.append(bn_new)
         x = torch.relu(x)
         if training:
@@ -199,13 +201,14 @@ def encoder_apply(params, state, ppg, input_lengths,
 
 def postnet_forward(params, state, mel, training: bool,
                     generator: Optional[torch.Generator] = None,
-                    masks: Optional[Iterator] = None, valid_mask=None):
+                    masks: Optional[Iterator] = None, valid_mask=None,
+                    bn_group=None):
     """(B, 80, T) -> (residual (B, 80, T), new postnet state).
 
     `training` runs batch norm on the batch's statistics and dropout(0.5)
     after every conv.  `valid_mask` (B, 1, T) zeroes each conv's input
     beyond the produced length, reproducing torch's zero padding at the
-    shorter sequence."""
+    shorter sequence.  `bn_group` as `encoder_forward`'s."""
     p, s = params["postnet"], state["postnet"]
     x = mel
     n = len(p["convolutions"])
@@ -218,7 +221,8 @@ def postnet_forward(params, state, mel, training: bool,
         k = conv_p["conv"]["weight"].shape[2]
         x, bn_new = batchnorm_apply(
             conv_p["bn"], bn_s,
-            conv1d(conv_p["conv"], x, padding=(k - 1) // 2), training)
+            conv1d(conv_p["conv"], x, padding=(k - 1) // 2), training,
+            group=bn_group)
         new_bn.append(bn_new)
         if i < n - 1:
             x = torch.tanh(x)
@@ -365,6 +369,52 @@ def decoder_state_masks(cfg: Tacotron2Config, B: int, T_out: int, device,
     return out
 
 
+def training_masks(cfg: Tacotron2Config, params, B: int, T_in: int,
+                   T_out: int, device,
+                   generator: Optional[torch.Generator] = None) -> list:
+    """Every keep-mask of one training forward (`tacotron2_forward`,
+    training=True) of a (B, T_in) -> (B, T_out) batch, drawn from
+    `generator` in the order and shapes that forward draws them, and
+    returned in its `masks=` call order: the encoder prenet's and convs',
+    the decoder prenet's, per step the live LSTM-state masks, the
+    postnet's.  Every mask has the batch on dim 0, so a data-parallel rank
+    takes its rows of the global batch's draws and equals the one-process
+    step on the concatenated batch."""
+    def keep(shape, rate):
+        return torch.rand(shape, generator=generator, device=device) \
+            < 1.0 - rate
+
+    out = [keep((B, T_in, layer["weight"].shape[0]), 0.5)
+           for layer in params["encoder"]["prenet"]["layers"]]
+    out += [keep((B, c["conv"]["weight"].shape[0], T_in), 0.5)
+            for c in params["encoder"]["convolutions"]]
+    out += [keep((B, T_out, layer["weight"].shape[0]), 0.5)
+            for layer in params["decoder"]["prenet"]["layers"]]
+    states = [m for m in decoder_state_masks(cfg, B, T_out, device,
+                                             generator) if m is not None]
+    out += [m[t] for t in range(T_out) for m in states]
+    out += [keep((B, c["conv"]["weight"].shape[0], T_out), 0.5)
+            for c in params["postnet"]["convolutions"]]
+    return out
+
+
+def inference_masks(cfg: Tacotron2Config, params, B: int, T_in: int,
+                    device,
+                    generator: Optional[torch.Generator] = None) -> list:
+    """Every prenet keep-mask of one batched inference
+    (`tacotron2_inference_batched`) of B sequences of T_in frames, drawn
+    from `generator` as that decode draws them, in its `masks=` call
+    order: the encoder prenet's (B, T_in, dim), then per decode step and
+    layer (B, prenet_dim).  The batch is on dim 0 of each (see
+    `training_masks`)."""
+    out = [torch.rand((B, T_in, layer["weight"].shape[0]),
+                      generator=generator, device=device) < 0.5
+           for layer in params["encoder"]["prenet"]["layers"]]
+    dec = decoder_prenet_masks(cfg, len(params["decoder"]["prenet"]
+                                        ["layers"]), B, device, generator)
+    return out + list(dec.flatten(0, 1).unbind(0))
+
+
 def tacotron2_forward(cfg: Tacotron2Config, params, state,
                       ppg_padded: torch.Tensor,
                       input_lengths: torch.Tensor,
@@ -372,7 +422,8 @@ def tacotron2_forward(cfg: Tacotron2Config, params, state,
                       output_lengths: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       masks: Optional[Iterator] = None,
-                      training: bool = True, remat: bool = False):
+                      training: bool = True, remat: bool = False,
+                      bn_group=None):
     """Teacher-forced forward (model.py:580-595; JAX `models/
     tacotron2.py:318-404`): (B, n_symbols, T_in) PPG, (B, 80, T_out)
     teacher mel.  Returns ((mel_out, mel_out_postnet, gate_out,
@@ -386,12 +437,15 @@ def tacotron2_forward(cfg: Tacotron2Config, params, state,
     decoder prenet 2 over the whole sequence, 4 a step, postnet) or from
     `generator`; the steps' masks are all drawn before the loop, so that
     `remat=True` (each step under torch.utils.checkpoint, recomputed in
-    the backward pass from its carry) replays the same step."""
+    the backward pass from its carry) replays the same step.  `bn_group`
+    (a data-parallel process group) takes the training batch norms'
+    statistics over the group's global batch."""
     B, D, T_out = mel_targets.shape
     dev = mel_targets.device
     memory, enc_state = encoder_forward(params, state, ppg_padded,
                                         input_lengths, training, generator,
-                                        masks, mask_convs=False)
+                                        masks, mask_convs=False,
+                                        bn_group=bn_group)
     p_dec = params["decoder"]
     processed = linear(p_dec["attention"]["memory"], memory)
     # go frame + teacher frames shifted right, the prenet applied to the
@@ -422,7 +476,8 @@ def tacotron2_forward(cfg: Tacotron2Config, params, state,
     alignments = torch.stack(aligns, dim=1)     # (B, T_out, T_in)
 
     residual, post_state = postnet_forward(params, state, mel_out, training,
-                                           generator, masks)
+                                           generator, masks,
+                                           bn_group=bn_group)
     mel_post = mel_out + residual
     if cfg.mask_padding:
         valid = ts[None, :] < output_lengths[:, None]

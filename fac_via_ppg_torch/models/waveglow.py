@@ -31,6 +31,12 @@ Training takes the train form (`weight_norm_params`): every WN conv but
 the end conv as weight-norm (g, v, bias), folded inside the forward's
 autograd graph with the f32 norm and run on the conv formulation
 (`wn_apply`), as the JAX package trains on its XLA convs.
+
+Tensor parallelism (`waveglow_infer(mesh=)` with a model axis above 1)
+runs the conv formulation on each rank's WN channels (parallel/
+sharding.py's paired rule; `wn_apply(model_group=)`), as the JAX package
+runs its XLA formulation under GSPMD; the hand kernels take whole
+channels and raise there.
 """
 
 from __future__ import annotations
@@ -52,7 +58,42 @@ from fac_via_ppg_torch.ops.wn_layer import (
     pack_in_weight,
     wn_layer,
 )
+from fac_via_ppg_torch.parallel.mesh import all_reduce
 from fac_via_ppg_torch.weights import fold_wn
+
+
+def tp_shard_waveglow(params, mesh):
+    """This rank's slices of WaveGlow's params under the paired WN rule
+    (parallel/sharding.py::waveglow_param_shardings): `waveglow_infer`'s
+    `packed_wn` under tensor parallelism, cut once outside the call."""
+    from fac_via_ppg_torch.parallel.sharding import (
+        apply_shardings,
+        waveglow_param_shardings,
+    )
+
+    return apply_shardings(params, waveglow_param_shardings(mesh, params),
+                           mesh)
+
+
+def tp_shard_int8cond(cfg: WaveGlowConfig, packed: list, mesh) -> list:
+    """This rank's rows of `pack_waveglow_int8cond`'s packs: each layer's
+    two gate halves cut as the dense cond_layers are
+    (parallel/sharding.py::int8cond_shardings).  On the card the rows feed
+    torch._int_mm, whose N (the row count, L*2C/model) must be a multiple
+    of 8."""
+    from fac_via_ppg_torch.parallel.sharding import (
+        apply_shardings,
+        int8cond_shardings,
+    )
+
+    n = cfg.wn_n_layers * 2 * cfg.wn_n_channels // mesh.shape["model"]
+    if packed[0]["wq"].is_cuda and n % 8:
+        raise ValueError(f"int8 cond under model_parallel="
+                         f"{mesh.shape['model']} gives {n} rows a rank; "
+                         f"torch._int_mm needs a multiple of 8")
+    return apply_shardings(packed, int8cond_shardings(mesh, packed,
+                                                      cfg.wn_n_layers),
+                           mesh)
 
 
 def flow_channels(cfg: WaveGlowConfig) -> List[int]:
@@ -427,14 +468,60 @@ def _cond_all(wn: dict, spect_grouped: torch.Tensor,
     return conv1d({"weight": w, "bias": b}, spect_grouped)
 
 
+def _wn_apply_tp(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
+                 spect_grouped: torch.Tensor, cond_int8, group
+                 ) -> torch.Tensor:
+    """`wn_apply` on this rank's WN channels (parallel/sharding.py::
+    waveglow_param_shardings): the gate is local, each res_skip conv a
+    partial sum over the rank's channels, its C residual channels
+    all-reduced per layer (but the last), the skip sum all-reduced once
+    before `end`; the reductions and biases in f32 (or wider), rounded
+    once."""
+    C = cfg.wn_n_channels
+    c = wn["in_layers"][0]["weight"].shape[0] // 2
+    audio = conv1d(wn["start"], audio_half)
+    cond = _cond_all(wn, spect_grouped, cond_int8)       # (B, L*2c, T)
+    acc = torch.promote_types(audio.dtype, torch.float32)
+    skip, skip_b = None, 0.0
+    for i in range(cfg.wn_n_layers):
+        dilation = 2 ** i
+        pad = (cfg.wn_kernel_size * dilation - dilation) // 2
+        in_act = conv1d(wn["in_layers"][i], audio, padding=pad,
+                        dilation=dilation)
+        in_act = in_act + cond[:, 2 * c * i: 2 * c * (i + 1)]
+        acts = torch.tanh(in_act[:, :c]) * torch.sigmoid(in_act[:, c:])
+        rs = wn["res_skip_layers"][i]
+        part = F.conv1d(acts, rs["weight"]).to(acc)      # no bias
+        bias = rs["bias"].to(acc)
+        if i < cfg.wn_n_layers - 1:
+            res = all_reduce(part[:, :C].contiguous(), group)
+            audio = audio + (res + bias[:C, None]).to(audio.dtype)
+            part, bias = part[:, C:], bias[C:]
+        skip = part if skip is None else skip + part
+        skip_b = skip_b + bias
+    output = (all_reduce(skip.contiguous(), group)
+              + skip_b[:, None]).to(audio.dtype)
+    return conv1d(wn["end"], output)
+
+
 def wn_apply(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
              spect_grouped: torch.Tensor, cond_int8=None, in_int8=None,
-             in_int8_quant: str = "column", rs_int8=None) -> torch.Tensor:
+             in_int8_quant: str = "column", rs_int8=None,
+             model_group=None) -> torch.Tensor:
     """(B, n_half, T) x (B, 640, T) -> (B, 2*n_half, T), conv formulation.
 
     `in_int8` / `rs_int8` (this flow's pack_waveglow_wn_int8 entry) run
     the dilated in_layer convs (k=3 only; `in_int8_quant` "column" or
-    "tensor") / the res_skip convs on int8 codes, the WN int8 rungs."""
+    "tensor") / the res_skip convs on int8 codes, the WN int8 rungs.
+
+    `model_group` (tensor parallelism): `wn` holds this rank's channels
+    (parallel/sharding.py), the output is every rank's whole one."""
+    if model_group is not None:
+        if in_int8 is not None or rs_int8 is not None:
+            raise ValueError("the WN int8 rungs are not ported under tensor "
+                             "parallelism (ROADMAP queue 1 item 6b)")
+        return _wn_apply_tp(cfg, wn, audio_half, spect_grouped, cond_int8,
+                            model_group)
     C = cfg.wn_n_channels
     audio = conv1d(wn["start"], audio_half)
     cond = _cond_all(wn, spect_grouped, cond_int8)
@@ -636,6 +723,22 @@ def resolve_wn_impl(name: str) -> str:
     return name
 
 
+def waveglow_noise(cfg: WaveGlowConfig, B: int, G: int,
+                   generator: Optional[torch.Generator], device) -> list:
+    """The unit-variance draws `waveglow_infer` takes from `generator` for
+    a batch of B rows of G groups, in its order (its `noise=` form): the
+    (B, n_remaining, G) seed, then one (B, n_early_size, G) chunk per
+    early output, k descending.  A data-parallel rank draws the global
+    batch's and takes its rows, so it equals the one-process call."""
+    out = [torch.randn((B, flow_channels(cfg)[-1], G), generator=generator,
+                       device=device)]
+    out += [torch.randn((B, cfg.n_early_size, G), generator=generator,
+                        device=device)
+            for k in reversed(range(cfg.n_flows))
+            if k % cfg.n_early_every == 0 and k > 0]
+    return out
+
+
 def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                    sigma: float,
                    generator: Optional[torch.Generator] = None,
@@ -648,7 +751,7 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                    wn_int8_flows: int = 0,
                    packed_wn_int8: Optional[list] = None,
                    wn_int8_quant: str = "column",
-                   wn_int8_rs_flows: int = 0) -> torch.Tensor:
+                   wn_int8_rs_flows: int = 0, mesh=None) -> torch.Tensor:
     """(B, 80, F) mel -> (B, F*hop) audio (reference glow.py:252-293).
 
     `dtype=torch.bfloat16` runs the flows in bf16 with f32 matmul
@@ -682,7 +785,27 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     The grouped spect comes straight from the upsampler's phases
     (upsample_grouped; the JAX package's `grouped_upsample=True`, whose
     values its False path shares bit for bit).
+
+    `mesh` with a model axis above 1 (parallel/mesh.py) runs tensor
+    parallel on the conv formulation: `packed_wn` is this rank's WN
+    params (`tp_shard_waveglow`; cut here when absent), `packed_cond`
+    this rank's int8 rows (`tp_shard_int8cond`), the other params whole.
+    Every rank of the model group draws the same noise (equal
+    generators) and returns the whole audio.  `wn_impl` "layer" / "flow"
+    raise there.
     """
+    model_group = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        if wn_impl != "conv":
+            raise ValueError(
+                f"model_parallel > 1 runs the conv formulation "
+                f"(wn_impl='conv', the JAX package's 'xla'), not "
+                f"wn_impl={wn_impl!r}: the hand kernels take whole "
+                f"channels")
+        if wn_int8_flows or wn_int8_rs_flows:
+            raise ValueError("the WN int8 rungs are not ported under "
+                             "tensor parallelism (ROADMAP queue 1 item 6b)")
+        model_group = mesh.model_group
     if wn_impl not in ("layer", "conv", "flow"):
         raise ValueError(f"unknown wn_impl {wn_impl!r}")
     if cond_impl not in ("dense", "int8"):
@@ -703,20 +826,23 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     if dtype is not None:
         params = cast_params(params, dtype)
         spect = spect.to(dtype)
+    if model_group is not None:
+        wn_local = (packed_wn if packed_wn is not None
+                    else tp_shard_waveglow(params, mesh))["wn"]
     dev = spect.device
     spect_g = upsample_grouped(params["upsample"], spect, cfg.hop_length,
                                cfg.n_group)
     dt = spect_g.dtype
     B, _, G = spect_g.shape
-    noise_iter = iter(noise) if noise is not None else None
+    if noise is None:
+        noise = waveglow_noise(cfg, B, G, generator, dev)
+    noise_iter = iter(noise)
 
-    def draw(shape):
-        if noise_iter is not None:
-            return torch.as_tensor(next(noise_iter), dtype=torch.float32,
-                                   device=dev)
-        return torch.randn(shape, generator=generator, device=dev)
+    def draw():
+        return torch.as_tensor(next(noise_iter), dtype=torch.float32,
+                               device=dev)
 
-    audio = (sigma * draw((B, flow_channels(cfg)[-1], G))).to(dt)
+    audio = (sigma * draw()).to(dt)
     packed = None
     if wn_impl == "layer":
         packed = packed_wn or pack_waveglow_layer(cfg, params)
@@ -727,7 +853,11 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         wn8 = packed_wn_int8 or pack_waveglow_wn_int8(cfg, params)
     cond_q = None
     if cond_impl == "int8":
-        pack_c = packed_cond or pack_waveglow_int8cond(cfg, params)
+        pack_c = packed_cond
+        if pack_c is None:
+            pack_c = pack_waveglow_int8cond(cfg, params)
+            if model_group is not None:
+                pack_c = tp_shard_int8cond(cfg, pack_c, mesh)
         # the spect is constant across flows: quantized once per call
         quantize = (quantize_per_column_int8 if cond_quant == "column"
                     else quantize_per_tensor_int8)
@@ -737,7 +867,10 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         n_half = audio.shape[1] // 2
         audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
         c8 = None if cond_q is None else (*cond_q, pack_c[k])
-        if wn_impl == "layer":
+        if model_group is not None:
+            wn_out = wn_apply(cfg, wn_local[k], audio_0, spect_g, c8,
+                              model_group=model_group)
+        elif wn_impl == "layer":
             wn_out = wn_apply_layer(cfg, packed[k], audio_0, spect_g)
         elif wn_impl == "flow":
             wn_out = wn_apply_flow(cfg, packed[k], audio_0, spect_g, c8)
@@ -758,6 +891,6 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         audio = torch.einsum("oc,bct->bot", w_inv.float(),
                              audio.float()).to(dt)
         if k % cfg.n_early_every == 0 and k > 0:
-            z = (sigma * draw((B, cfg.n_early_size, G))).to(dt)
+            z = (sigma * draw()).to(dt)
             audio = torch.cat([z, audio], dim=1)
     return ungroup_audio(audio)

@@ -52,21 +52,46 @@ def batchnorm(p: dict, state: dict, x: torch.Tensor,
                       eps)
 
 
+def _global_mean(t: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The mean over (B, T) of every rank's (B, C, T) `t` in `group`, n
+    elements in all: the local sums all-reduced through autograd, so that
+    the other ranks' terms reach the gradient."""
+    from torch.distributed.nn.functional import all_reduce
+
+    from fac_via_ppg_torch.parallel import mesh
+
+    mesh.collectives["all_reduce"] += 1
+    return all_reduce(t.sum(dim=(0, 2)), group=group) / n
+
+
 def batchnorm_apply(p: dict, state: dict, x: torch.Tensor, training: bool,
-                    momentum: float = 0.1, eps: float = 1e-5):
+                    momentum: float = 0.1, eps: float = 1e-5, group=None):
     """BatchNorm1d over (B, C, T), torch semantics (JAX
     `ops/initializers.py::batchnorm_apply`).  Returns (y, new_state).
 
     Training normalizes with the biased batch statistics, computed in f32
     whatever x's dtype, and updates the running statistics with momentum
     and the unbiased variance; the new state is detached (it is no
-    function of the loss).  Eval mode is `batchnorm`."""
+    function of the loss).  Eval mode is `batchnorm`.
+
+    `group` (a data-parallel process group) takes the statistics over the
+    global batch, every rank's rows, as the JAX package's sharded step
+    does: the sum, then the sum of squared deviations from the global
+    mean (the one-process two-pass formula), each all-reduced through
+    autograd; the unbiased factor counts n = B_global * T."""
     if not training:
         return batchnorm(p, state, x, eps), state
     xf = x.float()
-    mean = xf.mean(dim=(0, 2))
-    var = ((xf - mean[None, :, None]) ** 2).mean(dim=(0, 2))
-    n = x.shape[0] * x.shape[2]
+    if group is None:
+        mean = xf.mean(dim=(0, 2))
+        var = ((xf - mean[None, :, None]) ** 2).mean(dim=(0, 2))
+        n = x.shape[0] * x.shape[2]
+    else:
+        import torch.distributed as dist
+
+        n = x.shape[0] * x.shape[2] * dist.get_world_size(group)
+        mean = _global_mean(xf, n, group)
+        var = _global_mean((xf - mean[None, :, None]) ** 2, n, group)
     unbiased = (var * n / max(n - 1, 1)).detach()
     new_state = {
         "running_mean": (1 - momentum) * state["running_mean"]

@@ -18,6 +18,10 @@ wav.  Three routes, as in the JAX package:
     --batch_size, one batch in flight while the previous one's wavs are
     written (`ac_<name>.wav`).
 WaveGlow serves in `hparams.compute_dtype` (float32 by default).
+`--data_parallel` spreads the fused routes' batches over the job's
+processes, one per GPU (launch with torchrun or scripts/multiproc.py;
+eval/fused.py): every rank gets every row back and rank 0 writes the wavs
+and debug.log.
 
 Checkpoints are the reference's `.pt` files: --ppg2mel_model a Tacotron2
 {'state_dict', ...} checkpoint, --waveglow_model a WaveGlow checkpoint
@@ -28,7 +32,8 @@ Usage:
   python -m fac_via_ppg_torch.scripts.generate_synthesis \\
       --ppg2mel_model tacotron2.pt --waveglow_model waveglow.pt \\
       --teacher_utterance_path x.wav --output_dir out/ [--fused] \\
-      [--batch_size 8] [--cond_impl dense|int8|auto] [--snr_budget_db DB]
+      [--batch_size 8] [--cond_impl dense|int8|auto] [--snr_budget_db DB] \
+      [--data_parallel]
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy.io import wavfile
 
 from fac_via_ppg_torch.configs.hparams import (
@@ -53,7 +59,7 @@ from fac_via_ppg_torch.models.denoiser import Denoiser
 from fac_via_ppg_torch.ops import wn_flow, wn_layer
 from fac_via_ppg_torch.scripts.waveglow_inference import DTYPES
 from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
-from fac_via_ppg_torch.utils.device import resolve_device
+from fac_via_ppg_torch.parallel.mesh import job_device
 from fac_via_ppg_torch.utils.inference import (
     get_inference,
     load_tacotron2_model,
@@ -98,6 +104,10 @@ def parse_args(argv=None):
                         help="worst-utterance SNR budget (dB) of "
                              "--cond_impl auto; default "
                              "eval/int8_snr.DEFAULT_SNR_BUDGET_DB")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="spread the fused routes' batches over the "
+                             "job's processes, one per GPU (torchrun / "
+                             "scripts/multiproc.py); rank 0 writes")
     parser.add_argument("--compilation_cache_dir", default="",
                         help="build the hand kernels' libraries into (and "
                              "reuse them from) this directory; default "
@@ -131,7 +141,9 @@ def main(argv=None, device=None):
     the wall seconds from the models' load to the last wav."""
     args = parse_args(argv)
     enable_compilation_cache(args.compilation_cache_dir or None)
-    dev = resolve_device(device)
+    dev = job_device(device)
+    if not _lead():
+        return _synthesize(args, dev)
     os.makedirs(args.output_dir, exist_ok=True)
     # debug.log gets every record of the run, whatever handlers a host app
     # has configured; they and the root level are left as they were
@@ -145,6 +157,11 @@ def main(argv=None, device=None):
         root.removeHandler(log)
         root.setLevel(level)
         log.close()
+
+
+def _lead() -> bool:
+    """Rank 0 of a launched job, or the one process: the writer."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _synthesize(args, dev):
@@ -188,11 +205,14 @@ def _synthesize(args, dev):
     summary = {"route": None, "outputs": [], "cond_impl": args.cond_impl,
                "calibration_snr_db": None, "batches": [], "audio_s": 0.0}
 
+    lead = _lead()
+
     def write(path, pcm):
-        wavfile.write(path, fs, pcm)
         summary["outputs"].append(path)
         summary["audio_s"] += len(pcm) / fs
-        print("Wrote", path)
+        if lead:
+            wavfile.write(path, fs, pcm)
+            print("Wrote", path)
 
     batch_paths = batch_inputs(teacher_utt_path)
     if batch_paths is not None and not batch_paths:
@@ -222,7 +242,8 @@ def _synthesize(args, dev):
             serving_dtype=serving_dtype,
             max_frames=t2_cfg.max_decoder_steps,
             cond_impl=args.cond_impl, calibration_mel=calibration_mel,
-            snr_budget_db=args.snr_budget_db, device=dev)
+            snr_budget_db=args.snr_budget_db, device=dev,
+            data_parallel=args.data_parallel)
         summary["cond_impl"] = synth.cond_impl
         summary["calibration_snr_db"] = synth.calibration_snr_db
         return synth

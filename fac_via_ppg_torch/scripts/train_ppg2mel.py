@@ -16,12 +16,24 @@ Each iteration's dropout masks come from a generator seeded with (seed,
 iteration), and a resumed run takes up the epoch's shuffle where it
 stood, so resuming at an epoch boundary continues the run as if it had
 not stopped.  `compilation_cache_dir` is where the compiled libraries
-live (utils/compilation_cache.py).  Data / tensor parallelism and ZeRO-1
-are not ported (ROADMAP queue 1 item 6) and raise.
+live (utils/compilation_cache.py).
+
+Data parallelism is one process per GPU (parallel/mesh.py):
+`data_parallel_devices` must equal the job's process count (it defaults
+to it); each rank reads its shard of every epoch (`EpochBatcher`,
+`batch_size` per rank), the step averages the gradients and takes batch
+norm over the global batch (train/step.py), `zero_sharded_opt_state`
+shards the Adam moments (ZeRO-1, train/optim.py), and only rank 0 logs,
+validates and writes checkpoints.  Tensor-parallel training
+(`tensor_parallel_devices` > 1) is not ported (ROADMAP queue 1 item 6b)
+and raises.
 
     python -m fac_via_ppg_torch.scripts.train_ppg2mel key=value ...
+    torchrun --nproc_per_node N -m fac_via_ppg_torch.scripts.train_ppg2mel \\
+        key=value ...
 
-(options are create_hparams' keys, plus `device`; the card by default).
+(options are create_hparams' keys, plus `device`; the card by default,
+cuda:LOCAL_RANK in a launched job).
 """
 
 from __future__ import annotations
@@ -32,15 +44,23 @@ import time
 from pprint import pprint
 
 import torch
+import torch.distributed as dist
 
 from fac_via_ppg_torch.configs.hparams import Tacotron2Config, create_hparams
 from fac_via_ppg_torch.data.ppg_mel_dataset import (
     EpochBatcher,
     PPGMelDataset,
     ppg_acoustics_collate,
+    ppg_mel_lengths,
 )
 from fac_via_ppg_torch.data.prefetch import prefetch, to_device
 from fac_via_ppg_torch.models.tacotron2 import init_tacotron2
+from fac_via_ppg_torch.parallel.mesh import (
+    all_stop,
+    job_device,
+    make_mesh,
+    replicate,
+)
 from fac_via_ppg_torch.train import checkpoint as ckpt
 from fac_via_ppg_torch.train import preemption
 from fac_via_ppg_torch.train.logger import Tacotron2Logger
@@ -55,19 +75,24 @@ from fac_via_ppg_torch.train.step import (
     make_tacotron2_train_step,
 )
 from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
-from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.weights import move
 
 
-def check_single_device(data_parallel_devices, tensor_parallel_devices,
-                        zero_sharded_opt_state):
-    """Raise on the JAX package's options the port has not ported."""
-    if data_parallel_devices not in ("", None, 1) or \
-            int(tensor_parallel_devices or 1) > 1 or zero_sharded_opt_state:
+def training_mesh(data_parallel_devices, tensor_parallel_devices, device):
+    """The trainers' mesh (JAX train_ppg2mel.py:120-165): data parallel
+    over the job's processes.  `data_parallel_devices` ("" or None: all
+    of them) must equal the process count divided by
+    `tensor_parallel_devices`, which must be 1 until tensor-parallel
+    training is ported (ROADMAP queue 1 item 6b)."""
+    n_model = int(tensor_parallel_devices or 1)
+    if n_model > 1:
         raise ValueError(
-            "data / tensor parallel training and ZeRO-1 are not ported "
-            "yet (ROADMAP queue 1 item 6: multi-GPU); the port trains on "
-            "one device")
+            "tensor-parallel training (tensor_parallel_devices > 1) is not "
+            "ported yet (ROADMAP queue 1 item 6b); train data parallel with "
+            "tensor_parallel_devices=1")
+    n_data = (int(data_parallel_devices)
+              if data_parallel_devices not in ("", None) else None)
+    return make_mesh(n_data, n_model, device)
 
 
 def step_generator(device, seed: int, iteration: int) -> torch.Generator:
@@ -75,14 +100,17 @@ def step_generator(device, seed: int, iteration: int) -> torch.Generator:
     return torch.Generator(device).manual_seed(seed * 1_000_003 + iteration)
 
 
-def prepare_directories_and_logger(output_directory, log_directory):
-    """Create the run's directory and its TensorBoard logger (one process:
-    the JAX package's rank-0 branch)."""
+def prepare_directories_and_logger(output_directory, log_directory,
+                                   rank: int = 0):
+    """Create the run's directory and its TensorBoard logger on rank 0
+    (None on the other ranks, as in the JAX package)."""
+    if rank != 0:
+        return None
     os.makedirs(output_directory, exist_ok=True)
     return Tacotron2Logger(os.path.join(output_directory, log_directory))
 
 
-def prepare_dataloaders(hparams, device):
+def prepare_dataloaders(hparams, device, mesh=None):
     trainset = PPGMelDataset(hparams.training_files, hparams, device=device)
     hparams.load_feats_from_disk = False
     hparams.is_cache_feats = False
@@ -92,7 +120,10 @@ def prepare_dataloaders(hparams, device):
                            device=device)
     train_loader = EpochBatcher(
         trainset, hparams.batch_size, hparams.seed, ppg_acoustics_collate,
-        drop_last=True, pad_to=hparams.length_bucket_size)
+        drop_last=True, pad_to=hparams.length_bucket_size,
+        shard=mesh.data_rank if mesh is not None else 0,
+        num_shards=mesh.shape["data"] if mesh is not None else 1,
+        length_fn=ppg_mel_lengths)
     return train_loader, valset
 
 
@@ -121,12 +152,12 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
           n_gpus, rank, group_name, hparams, device=None):
     """The training loop's entry (the reference train()'s signature, plus
     `device`, the card by default).  Returns (params, model_state,
-    opt_state, iteration)."""
-    del n_gpus, rank, group_name  # one process, one device
-    device = resolve_device(device)
-    check_single_device(hparams.data_parallel_devices,
-                        hparams.tensor_parallel_devices,
-                        hparams.zero_sharded_opt_state)
+    opt_state, iteration).  The process's rank comes from its process
+    group (parallel/mesh.py), not from `rank`."""
+    del n_gpus, rank, group_name
+    device = job_device(device)
+    mesh = training_mesh(hparams.data_parallel_devices,
+                         hparams.tensor_parallel_devices, device)
     enable_compilation_cache(hparams.compilation_cache_dir or None)
     cfg = Tacotron2Config.from_hparams(hparams)
     params, model_state = init_tacotron2(
@@ -139,12 +170,13 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
     train_step = make_tacotron2_train_step(
         cfg, optimizer, hparams.mel_weight, hparams.gate_weight,
         compute_dtype=compute_dtype, grad_accum=hparams.grad_accum_steps,
-        remat=bool(hparams.remat))
+        remat=bool(hparams.remat), mesh=mesh)
     eval_step = make_tacotron2_eval_step(cfg, hparams.mel_weight,
                                          hparams.gate_weight)
 
-    logger = prepare_directories_and_logger(output_directory, log_directory)
-    train_loader, valset = prepare_dataloaders(hparams, device)
+    logger = prepare_directories_and_logger(output_directory, log_directory,
+                                            mesh.rank)
+    train_loader, valset = prepare_dataloaders(hparams, device, mesh)
     pad_to = hparams.length_bucket_size
 
     iteration, epoch_offset, restored = 0, 0, None
@@ -169,7 +201,10 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
             print("Loaded checkpoint '%s' from iteration %d"
                   % (checkpoint_path, iteration - 1))
     params, model_state = move(params, device), move(model_state, device)
-    opt_state = optimizer.init(params)
+    # every rank starts from rank 0's values (JAX `replicate`)
+    replicate(mesh, (params, model_state))
+    opt_state = optimizer.init(params, mesh=mesh,
+                               zero=bool(hparams.zero_sharded_opt_state))
     if restored is not None:
         opt_state.load_state_dict(restored["opt_state"])
     train_loader.epoch = epoch_offset
@@ -182,21 +217,21 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
         return _train_loop(hparams, params, model_state, opt_state,
                            train_step, eval_step, train_loader, valset,
                            logger, learning_rate, iteration, epoch_offset,
-                           output_directory, pad_to, place, device)
+                           output_directory, pad_to, place, device, mesh)
 
 
 def _train_loop(hparams, params, model_state, opt_state, train_step,
                 eval_step, train_loader, valset, logger, learning_rate,
                 iteration, epoch_offset, output_directory, pad_to, place,
-                device):
-    saver = ckpt.AsyncCheckpointSaver()
+                device, mesh):
+    saver = ckpt.AsyncCheckpointSaver(mesh)
     try:
         with preemption.PreemptionGuard() as guard:
             result = _epoch_loop(
                 hparams, params, model_state, opt_state, train_step,
                 eval_step, train_loader, valset, logger, learning_rate,
                 iteration, epoch_offset, output_directory, pad_to, place,
-                device, saver, guard)
+                device, saver, guard, mesh)
     except BaseException:
         # land an announced checkpoint even on a crash or an interrupt
         # ('auto' recovery depends on it), without masking the error
@@ -207,7 +242,8 @@ def _train_loop(hparams, params, model_state, opt_state, train_step,
                   f"{save_err!r}")
         raise
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     saver.wait()
     return result
 
@@ -215,7 +251,7 @@ def _train_loop(hparams, params, model_state, opt_state, train_step,
 def _epoch_loop(hparams, params, model_state, opt_state, train_step,
                 eval_step, train_loader, valset, logger, learning_rate,
                 iteration, epoch_offset, output_directory, pad_to, place,
-                device, saver, guard):
+                device, saver, guard, mesh):
     # `learning_rate` stays the base rate, which checkpoints store; the
     # schedule recomputes each iteration's rate from it
     lr_schedule = make_lr_schedule(
@@ -224,13 +260,17 @@ def _epoch_loop(hparams, params, model_state, opt_state, train_step,
         decay_steps=hparams.lr_decay_steps,
         decay_rate=hparams.lr_decay_rate, min_factor=hparams.lr_min_factor)
 
+    lead = mesh.rank == 0
+
     def save(it, what):
         path = os.path.join(output_directory, "checkpoint_{}".format(it))
-        print("{} at iteration {} to {}".format(what, it, path))
+        if lead:
+            print("{} at iteration {} to {}".format(what, it, path))
         saver.save(path, params, opt_state, learning_rate, it, model_state)
 
     for epoch in range(epoch_offset, hparams.epochs):
-        print("Epoch: {}".format(epoch))
+        if lead:
+            print("Epoch: {}".format(epoch))
         for batch in prefetch(train_loader, place, depth=2):
             start = time.perf_counter()
             current_lr = lr_schedule(iteration)
@@ -241,22 +281,26 @@ def _epoch_loop(hparams, params, model_state, opt_state, train_step,
             model_state = out.model_state
             reduced_loss = float(out.loss)
             grad_norm = float(out.grad_norm)
-            if not math.isnan(reduced_loss):
+            if not math.isnan(reduced_loss) and lead:
                 duration = time.perf_counter() - start
                 print("Train loss {} {:.6f} Grad Norm {:.6f} {:.2f}s/it"
                       .format(iteration, reduced_loss, grad_norm, duration))
                 logger.log_training(reduced_loss, grad_norm, current_lr,
                                     duration, iteration)
             if iteration % hparams.iters_per_checkpoint == 0:
-                validate(eval_step, params, model_state, valset, iteration,
-                         hparams.batch_size, logger, pad_to, device)
+                if lead:
+                    validate(eval_step, params, model_state, valset,
+                             iteration, hparams.batch_size, logger, pad_to,
+                             device)
                 save(iteration, "Saving model and optimizer state")
             iteration += 1
-            if guard.should_stop():
+            if all_stop(guard.should_stop(), mesh):
                 last = iteration - 1
                 if last % hparams.iters_per_checkpoint != 0:
                     save(last, "Preemption: saving final checkpoint")
-                print("Preemption: exiting cleanly after iteration", last)
+                if lead:
+                    print("Preemption: exiting cleanly after iteration",
+                          last)
                 return params, model_state, opt_state, iteration
     return params, model_state, opt_state, iteration
 
@@ -265,11 +309,12 @@ def main(device=None, **kwargs):
     hparams = create_hparams(**kwargs)
     if not hparams.output_directory:
         raise FileExistsError("Please specify the output dir.")
-    device = resolve_device(device)
+    device = job_device(device)
     os.makedirs(hparams.output_directory, exist_ok=True)
-    with open(os.path.join(hparams.output_directory, "hparams.txt"),
-              "w") as writer:
-        pprint(hparams.__dict__, writer)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        with open(os.path.join(hparams.output_directory, "hparams.txt"),
+                  "w") as writer:
+            pprint(hparams.__dict__, writer)
     print("Device:", torch.cuda.get_device_name(device)
           if device.type == "cuda" else device)
     return train(hparams.output_directory, hparams.log_directory,

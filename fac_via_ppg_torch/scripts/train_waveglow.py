@@ -14,8 +14,14 @@ The WN convs train in their weight-norm form on the conv formulation
 
 (overrides of train_config / data_config keys, plus `device`; the card by
 default).  `compilation_cache_dir` is where the compiled libraries live
-(utils/compilation_cache.py).  Data / tensor parallelism and ZeRO-1
-raise (ROADMAP queue 1 item 6).
+(utils/compilation_cache.py).
+
+Data parallelism and ZeRO-1 as the PPG trainer's (scripts/
+train_ppg2mel.py): one process per GPU, `data_parallel_devices` the
+process count, each rank's shard of the crops (`batch_size` per rank),
+gradients averaged, only rank 0 logs and writes checkpoints; launch with
+torchrun or scripts/multiproc.py.  Tensor-parallel training
+(`tensor_parallel_devices` > 1) raises (ROADMAP queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from fac_via_ppg_torch.configs import DEFAULT_WAVEGLOW_CONFIG_PATH
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
@@ -34,9 +41,10 @@ from fac_via_ppg_torch.data.ppg_mel_dataset import EpochBatcher
 from fac_via_ppg_torch.data.prefetch import prefetch, to_device
 from fac_via_ppg_torch.models.waveglow import init_waveglow, \
     weight_norm_params
+from fac_via_ppg_torch.parallel.mesh import all_stop, job_device, replicate
 from fac_via_ppg_torch.scripts.train_ppg2mel import (
-    check_single_device,
     parse_overrides,
+    training_mesh,
 )
 from fac_via_ppg_torch.train import checkpoint as ckpt
 from fac_via_ppg_torch.train import preemption
@@ -48,7 +56,6 @@ from fac_via_ppg_torch.train.optim import (
 )
 from fac_via_ppg_torch.train.step import make_waveglow_train_step
 from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
-from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.weights import move
 
 
@@ -62,11 +69,12 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
           remat=False, compilation_cache_dir="", device=None):
     """The reference train()'s signature (train_waveglow.py:66), the JAX
     package's extensions, and `device` (the card by default).  Returns
-    (params, opt_state, iteration)."""
-    del num_gpus, rank, group_name  # one process, one device
-    device = resolve_device(device)
-    check_single_device(data_parallel_devices, tensor_parallel_devices,
-                        zero_sharded_opt_state)
+    (params, opt_state, iteration).  The process's rank comes from its
+    process group (parallel/mesh.py), not from `rank`."""
+    del num_gpus, rank, group_name
+    device = job_device(device)
+    mesh = training_mesh(data_parallel_devices, tensor_parallel_devices,
+                         device)
     enable_compilation_cache(compilation_cache_dir or None)
     cfg = WaveGlowConfig.from_dict(waveglow_config or {})
     params = weight_norm_params(
@@ -76,7 +84,7 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
         cfg, optimizer, sigma=sigma,
         compute_dtype=(None if train_dtype == "float32"
                        else getattr(torch, train_dtype)),
-        grad_accum=grad_accum_steps, remat=remat)
+        grad_accum=grad_accum_steps, remat=remat, mesh=mesh)
 
     iteration, restored = 0, None
     if checkpoint_path == "auto":
@@ -91,32 +99,38 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
         print("Loaded checkpoint '{}' (iteration {})".format(
             checkpoint_path, restored["iteration"]))
     params = move(params, device)
-    opt_state = optimizer.init(params)
+    # every rank starts from rank 0's values (JAX `replicate`)
+    replicate(mesh, params)
+    opt_state = optimizer.init(params, mesh=mesh,
+                               zero=bool(zero_sharded_opt_state))
     if restored is not None:
         opt_state.load_state_dict(restored["opt_state"])
 
     trainset = Mel2Samp(**data_config)
     train_loader = EpochBatcher(trainset, batch_size, seed, mel2samp_collate,
-                                drop_last=True)
+                                drop_last=True, shard=mesh.data_rank,
+                                num_shards=mesh.shape["data"])
     log_dir = os.path.join(output_directory, "log")
-    os.makedirs(log_dir, exist_ok=True)
-    print("output directory", output_directory)
-    print("log directory", log_dir)
-    logger = WaveglowLogger(log_dir)
+    logger = None
+    if mesh.rank == 0:
+        os.makedirs(log_dir, exist_ok=True)
+        print("output directory", output_directory)
+        print("log directory", log_dir)
+        logger = WaveglowLogger(log_dir)
     epoch_offset = max(0, int(iteration / max(len(train_loader), 1)))
     train_loader.epoch = epoch_offset
     schedule = make_lr_schedule(
         learning_rate, schedule=lr_schedule, warmup_steps=lr_warmup_steps,
         decay_steps=lr_decay_steps, decay_rate=lr_decay_rate,
         min_factor=lr_min_factor)
-    saver = ckpt.AsyncCheckpointSaver()
+    saver = ckpt.AsyncCheckpointSaver(mesh)
     try:
         with preemption.PreemptionGuard() as guard:
             result = _waveglow_epoch_loop(
                 epochs, epoch_offset, train_loader, to_device(device), step,
                 params, opt_state, learning_rate, schedule,
                 iters_per_checkpoint, output_directory, logger, saver,
-                iteration, guard)
+                iteration, guard, mesh)
     except BaseException:
         # land an announced checkpoint even on a crash or an interrupt
         try:
@@ -126,7 +140,8 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
                   f"{save_err!r}")
         raise
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     saver.wait()
     return result
 
@@ -134,33 +149,40 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
 def _waveglow_epoch_loop(epochs, epoch_offset, train_loader, place, step,
                          params, opt_state, base_lr, lr_schedule,
                          iters_per_checkpoint, output_directory, logger,
-                         saver, iteration, guard):
+                         saver, iteration, guard, mesh):
     """Checkpoints store `base_lr`, not the scheduled rate: resume
     rebuilds the schedule from the base and the restored iteration."""
+    lead = mesh.rank == 0
+
     def save(it, what):
         path = "{}/waveglow_{}".format(output_directory, it)
-        print("{} at iteration {} to {}".format(what, it, path))
+        if lead:
+            print("{} at iteration {} to {}".format(what, it, path))
         saver.save(path, params, opt_state, base_lr, it)
 
     for epoch in range(epoch_offset, epochs):
-        print("Epoch: {}".format(epoch))
+        if lead:
+            print("Epoch: {}".format(epoch))
         for batch in prefetch(train_loader, place, depth=2):
             start = time.perf_counter()
             set_learning_rate(opt_state, lr_schedule(iteration))
             out = step(params, opt_state, batch)
             reduced_loss = float(out.loss)
             duration = time.perf_counter() - start
-            print("{}:\t{:.9f}\t({:.2f}s/it)".format(
-                iteration, reduced_loss, duration))
-            logger.log_training(reduced_loss, iteration)
+            if lead:
+                print("{}:\t{:.9f}\t({:.2f}s/it)".format(
+                    iteration, reduced_loss, duration))
+                logger.log_training(reduced_loss, iteration)
             if iteration % iters_per_checkpoint == 0:
                 save(iteration, "Saving model and optimizer state")
             iteration += 1
-            if guard.should_stop():
+            if all_stop(guard.should_stop(), mesh):
                 last = iteration - 1
                 if last % iters_per_checkpoint != 0:
                     save(last, "Preemption: saving final checkpoint")
-                print("Preemption: exiting cleanly after iteration", last)
+                if lead:
+                    print("Preemption: exiting cleanly after iteration",
+                          last)
                 return params, opt_state, iteration
     return params, opt_state, iteration
 
@@ -180,12 +202,13 @@ def main(config_file_path: str = DEFAULT_WAVEGLOW_CONFIG_PATH, device=None,
     data_config.update({k: v for k, v in overrides.items()
                         if k in data_config})
     dist_config = config.get("dist_config", {})
-    device = resolve_device(device)
+    device = job_device(device)
     os.makedirs(train_config["output_directory"], exist_ok=True)
-    # snapshot the config (reference train_waveglow.py:163-166)
-    with open(os.path.join(train_config["output_directory"], "config.json"),
-              "w") as writer:
-        json.dump(config, writer)
+    # snapshot the config (reference train_waveglow.py:163-166), rank 0
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        with open(os.path.join(train_config["output_directory"],
+                               "config.json"), "w") as writer:
+            json.dump(config, writer)
     print("Device:", torch.cuda.get_device_name(device)
           if device.type == "cuda" else device)
     return train(1, dist_config.get("rank", 0),

@@ -20,6 +20,16 @@ batch; `--mel_bucket` pads lengths into shared buckets first.  One batch
 stays in flight: batch N is copied to pinned host memory behind an event,
 batch N+1 is enqueued, and only then are batch N's wavs written.
 
+Several GPUs, one process each (launch with torchrun or scripts/
+multiproc.py; parallel/mesh.py): `--data_parallel` splits each batch's
+rows over the processes, the batch raised to at least the data axis and
+padded to a multiple of it; the noise is drawn for the whole batch on
+every rank and each takes its rows, the audio is all-gathered and rank 0
+writes the wavs, the same bytes as one process's.  `--model_parallel N`
+splits WaveGlow's WN channels over N processes on the conv formulation
+(`--wn_impl conv|xla`; the hand kernels raise there).  With one process
+both do nothing (the mesh is 1 data x 1 model).
+
 Usage:
   python -m fac_via_ppg_torch.scripts.waveglow_inference -f mels.txt \\
       -w waveglow.pt -o outdir [-s 0.6] [-d 0.005] [-b 8] [--mel_bucket 64]
@@ -47,11 +57,20 @@ from fac_via_ppg_torch.models.waveglow import (
     pack_waveglow_layer,
     pack_waveglow_wn_int8,
     resolve_wn_impl,
+    tp_shard_int8cond,
+    tp_shard_waveglow,
     waveglow_infer,
+    waveglow_noise,
 )
 from fac_via_ppg_torch.ops import wn_flow
+from fac_via_ppg_torch.parallel.mesh import (
+    gather_rows,
+    job_device,
+    make_mesh,
+    padded_rows,
+    rank_rows,
+)
 from fac_via_ppg_torch.utils.compilation_cache import enable_compilation_cache
-from fac_via_ppg_torch.utils.device import resolve_device
 from fac_via_ppg_torch.utils.inference import load_waveglow_model
 from fac_via_ppg_torch.utils.numeric import round_batch_to_grid, round_up
 from fac_via_ppg_torch.weights import move
@@ -93,7 +112,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
          batch_size=1, sampling_rate=16000, compute_dtype="float32",
          wn_impl="flow", cond_impl="dense", config_path=None,
          snr_budget_db=None, pad_batches="grid", mel_bucket=0,
-         wn_int8_flows=0, device=None):
+         wn_int8_flows=0, data_parallel=False, model_parallel=1,
+         device=None):
     """Vocode every mel of the filelist `mel_files`.  `device=None` means
     the CUDA card (raises without one); tests pass "cpu".  Noise comes from
     a torch.Generator seeded with 0 (the JAX CLI's PRNGKey(0)).
@@ -105,7 +125,10 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     wall seconds.  `wn_impl` also takes the JAX CLI's names, "xla" for
     "conv" and "pallas" for "layer".  `wn_int8_flows` runs the WN
     in_layer convs of that many of the narrowest flows on int8 codes
-    (conv only; measure eval/int8_snr.py --include_wn_int8 first)."""
+    (conv only; measure eval/int8_snr.py --include_wn_int8 first).
+    `data_parallel` / `model_parallel` spread the batches over the job's
+    processes (see the module doc); the summary is every rank's, the
+    wavs rank 0's."""
     try:
         wn_impl = resolve_wn_impl(wn_impl)
     except ValueError as e:
@@ -124,14 +147,29 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
                          f"got {pad_batches!r}")
     if compute_dtype not in DTYPES:
         raise SystemExit(f"--compute_dtype must be one of {list(DTYPES)}")
-    dev = resolve_device(device)
+    if model_parallel > 1 and wn_impl != "conv":
+        raise SystemExit(
+            f"--model_parallel {model_parallel} runs the conv formulation: "
+            f"pass --wn_impl conv (or xla); the {wn_impl} kernel takes "
+            f"whole channels")
+    dev = job_device(device)
+    mesh = None
+    if data_parallel or model_parallel > 1:
+        mesh = make_mesh(model=int(model_parallel), device=dev)
+        batch_size = max(batch_size, mesh.shape["data"])
+        print(f"vocoder mesh: {mesh.shape['data']} data x "
+              f"{mesh.shape['model']} model")
+    dp = mesh is not None and mesh.data_group is not None
+    tp = mesh is not None and mesh.shape["model"] > 1
+    lead = mesh is None or mesh.rank == 0
     cfg = (waveglow_config_from_json(config_path) if config_path is not None
            else WaveGlowConfig())
     params = move(load_waveglow_model(waveglow_path, cfg), dev)
     denoiser = Denoiser(cfg, params) if denoiser_strength > 0 else None
 
     files = files_to_list(mel_files)
-    os.makedirs(output_dir, exist_ok=True)
+    if lead:
+        os.makedirs(output_dir, exist_ok=True)
     mels = [(f, load_mel(f)) for f in files]
     by_len = {}
     for f, m, t in bucket_mels(mels, mel_bucket):
@@ -162,13 +200,17 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     # kernels' packs, computed once
     serve = params if dtype is None else cast_params(params, dtype)
     packed_wn = None
-    if wn_impl == "flow":
+    if tp:
+        packed_wn = tp_shard_waveglow(serve, mesh)
+    elif wn_impl == "flow":
         packed_wn = pack_waveglow_flow(cfg, serve)
     elif wn_impl == "layer":
         packed_wn = pack_waveglow_layer(cfg, serve)
     # int8 weights from the f32 params
     packed_cond = (pack_waveglow_int8cond(cfg, params)
                    if cond_impl == "int8" else None)
+    if tp and packed_cond is not None:
+        packed_cond = tp_shard_int8cond(cfg, packed_cond, mesh)
     packed_wn8 = (pack_waveglow_wn_int8(cfg, params) if wn_int8_flows
                   else None)
 
@@ -187,7 +229,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
                "batches": [], "audio_s": 0.0}
 
     def launch(chunk, mel_batch):
-        """Enqueue one batch; its audio lands in (pinned) host memory."""
+        """Enqueue one batch; its audio lands in (pinned) host memory.  A
+        data-parallel rank enqueues its rows and all-gathers the audio."""
         n0 = wn_flow.launches
         h = {"chunk": chunk, "rows": mel_batch.shape[0],
              "frames": mel_batch.shape[2], "t0": time.time()}
@@ -196,14 +239,25 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
             h["start"].record()
         with torch.no_grad():
             mel = torch.as_tensor(mel_batch, device=dev)
+            noise = None
+            if dp:
+                G = mel.shape[2] * hop // cfg.n_group
+                rows = rank_rows(mesh, mel.shape[0])
+                noise = [z[rows] for z in waveglow_noise(
+                    cfg, mel.shape[0], G, gen, dev)]
+                mel = mel[rows]
             audio = waveglow_infer(
                 cfg, serve, mel.to(dtype or torch.float32), sigma, gen,
-                wn_impl=wn_impl, packed_wn=packed_wn, cond_impl=cond_impl,
-                packed_cond=packed_cond, wn_int8_flows=wn_int8_flows,
-                packed_wn_int8=packed_wn8)[: len(chunk)].float()
+                noise=noise, wn_impl=wn_impl, packed_wn=packed_wn,
+                cond_impl=cond_impl, packed_cond=packed_cond,
+                wn_int8_flows=wn_int8_flows, packed_wn_int8=packed_wn8,
+                mesh=mesh).float()
             if denoiser is not None:
                 audio = denoiser(audio, strength=denoiser_strength)[:, 0, :]
             audio = audio * MAX_WAV_VALUE
+            if dp:
+                audio = gather_rows(mesh, audio, len(chunk))
+            audio = audio[: len(chunk)]
         h["launches"] = wn_flow.launches - n0
         if dev.type == "cuda":
             h["host"] = torch.empty(audio.shape, dtype=torch.float32,
@@ -226,10 +280,11 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
         for (f, _, t), wav in zip(h["chunk"], audio):
             out = os.path.join(output_dir,
                                os.path.basename(f) + "_synthesis.wav")
-            # trim mel-bucket padding back to the true length
-            wavfile.write(out, sampling_rate, wav[: t * hop])
             summary["audio_s"] += t * hop / sampling_rate
-            print(out)
+            if lead:
+                # trim mel-bucket padding back to the true length
+                wavfile.write(out, sampling_rate, wav[: t * hop])
+                print(out)
         summary["batches"].append({k: h[k] for k in (
             "rows", "frames", "launches", "vocoder_s")})
 
@@ -252,6 +307,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
                 if pad_batches != "none":
                     target = round_batch_to_grid(
                         chunk_size if pad_batches == "full" else target)
+                if dp:
+                    target = padded_rows(mesh, target)
                 if target > len(chunk):
                     mel_batch = np.concatenate(
                         [mel_batch,
@@ -310,6 +367,14 @@ def parse_args(argv=None):
                              "flows on int8 codes (needs --wn_impl conv or "
                              "xla; lossy: measure eval/int8_snr.py "
                              "--include_wn_int8 first)")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="split each batch's rows over the job's "
+                             "processes, one per GPU (torchrun / "
+                             "scripts/multiproc.py); rank 0 writes")
+    parser.add_argument("--model_parallel", type=int, default=1,
+                        help="split the WN hidden channel over this many "
+                             "processes (needs --wn_impl conv or xla; "
+                             "composes with --data_parallel)")
     parser.add_argument("-c", "--config", default=None,
                         help="config.json naming a non-default architecture "
                              "(reference waveglow/config.json schema)")
@@ -340,4 +405,4 @@ if __name__ == "__main__":
          args.denoiser_strength, args.batch_size, args.sampling_rate,
          args.compute_dtype, args.wn_impl, args.cond_impl, args.config,
          args.snr_budget_db, args.pad_batches, args.mel_bucket,
-         args.wn_int8_flows)
+         args.wn_int8_flows, args.data_parallel, args.model_parallel)

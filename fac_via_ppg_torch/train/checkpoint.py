@@ -6,7 +6,13 @@ A checkpoint is one `torch.save` file holding the JAX package's payload
 keys: {iteration, learning_rate, params, opt_state, model_state}, every
 tensor on the CPU.  `opt_state` is the torch.optim.Adam's state_dict.  The
 JAX package writes orbax directories instead; the two formats do not read
-each other (ROADMAP queue 3)."""
+each other (ROADMAP queue 3).
+
+Under data parallelism (`mesh=`) every rank builds the payload (ZeRO-1's
+moments are gathered, a collective) and rank 0 alone writes it (JAX
+`process_index() == 0`); the file is the one a single process writes, so
+a run saved at one world size resumes at any other.  The other ranks wait
+at a barrier until it has landed."""
 
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from fac_via_ppg_torch.parallel.mesh import barrier
 from fac_via_ppg_torch.utils.tree import tree_map
 
 
@@ -31,10 +38,31 @@ def _opt_payload(opt_state):
         else opt_state
 
 
+def _is_writer(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
 def save_checkpoint(path: str, params, opt_state, learning_rate: float,
-                    iteration: int, model_state=None) -> None:
+                    iteration: int, model_state=None, mesh=None) -> None:
     """Write {iteration, learning_rate, params, opt_state} (+ the BN state)
-    to `path`, through a temporary file renamed into place."""
+    to `path`, through a temporary file renamed into place.  With a
+    `mesh`, every rank calls it, rank 0 writes and the others wait."""
+    payload = _payload(params, opt_state, learning_rate, iteration,
+                       model_state)
+    if _is_writer(mesh):
+        _write(path, payload)
+    if mesh is not None:
+        barrier()
+
+
+def _write(path: str, payload: dict) -> None:
+    path = os.path.abspath(path)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _payload(params, opt_state, learning_rate, iteration, model_state):
     payload = {
         "iteration": int(iteration),
         "learning_rate": float(learning_rate),
@@ -43,10 +71,7 @@ def save_checkpoint(path: str, params, opt_state, learning_rate: float,
     }
     if model_state is not None:
         payload["model_state"] = _to_host(model_state)
-    path = os.path.abspath(path)
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    return payload
 
 
 class AsyncCheckpointSaver:
@@ -59,11 +84,16 @@ class AsyncCheckpointSaver:
     in flight: a new `save()` joins the previous one first.  A failed
     save is reported by the next `save()` (as a warning, so that the
     current state is still written) and raised by `wait()`; call `wait()`
-    before the process exits."""
+    before the process exits.
 
-    def __init__(self):
+    With a `mesh` every rank calls `save` (the snapshot gathers ZeRO-1's
+    moments) and `wait`; rank 0 alone writes, and `wait` holds every rank
+    at a barrier until the last save has landed."""
+
+    def __init__(self, mesh=None):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = mesh
 
     def _join(self) -> Optional[BaseException]:
         if self._thread is not None:
@@ -81,11 +111,13 @@ class AsyncCheckpointSaver:
         snap = tree_map(
             lambda x: x.detach().clone() if isinstance(x, torch.Tensor)
             else x, (params, _opt_payload(opt_state), model_state))
+        if not _is_writer(self._mesh):
+            return
 
         def job():
             try:
-                save_checkpoint(path, snap[0], snap[1], learning_rate,
-                                iteration, model_state=snap[2])
+                _write(path, _payload(snap[0], snap[1], learning_rate,
+                                      iteration, snap[2]))
             except BaseException as e:  # raised by the next wait()
                 self._error = e
 
@@ -94,6 +126,8 @@ class AsyncCheckpointSaver:
 
     def wait(self) -> None:
         err = self._join()
+        if self._mesh is not None:
+            barrier()
         if err is not None:
             raise err
 

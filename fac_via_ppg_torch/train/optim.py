@@ -10,7 +10,15 @@ train_waveglow.py:83), which is the JAX package's chain:
   Adam (0.9, 0.999), eps 1e-8, then the learning rate
 
 The learning rate is rewritten in the Adam's param_groups every iteration
-(train_ppg2mel.py:234-235; `set_learning_rate`)."""
+(train_ppg2mel.py:234-235; `set_learning_rate`).
+
+ZeRO-1 (`init(params, mesh=, zero=True)`, JAX
+`parallel/sharding.py::optimizer_state_shardings`): each rank of the data
+group keeps the Adam moments of its slice of every leaf only, updates
+that slice of the param from the (already averaged) full gradient, and
+all-gathers the params.  Adam is elementwise, so the params equal the
+unsharded step's bit for bit.  Its state_dict is the unsharded Adam's,
+moments gathered, whatever the world size."""
 
 from __future__ import annotations
 
@@ -19,6 +27,12 @@ from typing import Optional
 
 import torch
 
+from fac_via_ppg_torch.parallel.sharding import (
+    gather_leaf,
+    optimizer_state_shardings,
+    shard_leaf,
+    tree_leaves_specs,
+)
 from fac_via_ppg_torch.utils.tree import tree_leaves
 
 
@@ -33,27 +47,105 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.grad_clip_thresh = grad_clip_thresh
 
-    def init(self, params) -> torch.optim.Adam:
-        return torch.optim.Adam(tree_leaves(params), lr=self.learning_rate,
+    def _adam(self, leaves) -> torch.optim.Adam:
+        return torch.optim.Adam(leaves, lr=self.learning_rate,
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=self.weight_decay)
 
-    def apply(self, opt_state: torch.optim.Adam, grads) -> torch.Tensor:
-        """One update of the bound leaves from `grads` (in leaf order):
-        clip, then Adam with L2 weight decay.  Returns the gradients'
-        global norm before clipping.  The clip scales `grads` in place."""
-        leaves = [p for g in opt_state.param_groups for p in g["params"]]
+    def init(self, params, mesh=None, zero: bool = False):
+        """A torch.optim.Adam bound to the leaves of `params`; with
+        `zero` and a mesh whose data axis is above 1, a `ZeroAdam` (ZeRO-1)
+        instead.  A data axis of 1 makes `zero` a no-op, as in JAX."""
+        if zero and mesh is not None and mesh.shape["data"] > 1:
+            return ZeroAdam(self, params, mesh)
+        return self._adam(tree_leaves(params))
+
+    def _clip(self, leaves, grads) -> torch.Tensor:
+        """Bind `grads` to `leaves` and clip them in place; the global
+        norm before clipping."""
         for p, g in zip(leaves, grads, strict=True):
             p.grad = g
         if self.grad_clip_thresh is not None and self.grad_clip_thresh > 0:
-            gnorm = torch.nn.utils.clip_grad_norm_(leaves,
-                                                   self.grad_clip_thresh)
-        else:
-            gnorm = global_norm(grads)
+            return torch.nn.utils.clip_grad_norm_(leaves,
+                                                  self.grad_clip_thresh)
+        return global_norm(grads)
+
+    def apply(self, opt_state, grads) -> torch.Tensor:
+        """One update of the bound leaves from `grads` (in leaf order):
+        clip, then Adam with L2 weight decay.  Returns the gradients'
+        global norm before clipping.  The clip scales `grads` in place."""
+        if isinstance(opt_state, ZeroAdam):
+            return opt_state.apply(grads)
+        leaves = [p for g in opt_state.param_groups for p in g["params"]]
+        gnorm = self._clip(leaves, grads)
         opt_state.step()
         for p in leaves:
             p.grad = None
         return gnorm
+
+
+class ZeroAdam:
+    """ZeRO-1's optimizer state: a torch.optim.Adam over this rank's
+    slices (parallel/sharding.py::optimizer_state_shardings over the data
+    axis) of the param leaves, which it updates from the slices of the
+    full gradients and then all-gathers into the full leaves.  Leaves with
+    no divisible dim are updated whole on every rank.  `param_groups`,
+    `state_dict` and `load_state_dict` read as the unsharded Adam's."""
+
+    def __init__(self, optimizer: Optimizer, params, mesh):
+        self._opt, self._mesh = optimizer, mesh
+        self.leaves = tree_leaves(params)
+        self.specs = tree_leaves_specs(optimizer_state_shardings(mesh,
+                                                                 params))
+        self._index = {"data": mesh.data_rank, "model": mesh.model_rank}
+        self.local = [self._slice(p, s).clone() if any(s) else p
+                      for p, s in zip(self.leaves, self.specs)]
+        self.adam = optimizer._adam(self.local)
+
+    def _slice(self, x, spec):
+        return shard_leaf(x, spec, self._index, self._mesh.shape)
+
+    @property
+    def param_groups(self):
+        return self.adam.param_groups
+
+    def apply(self, grads) -> torch.Tensor:
+        gnorm = self._opt._clip(self.leaves, grads)
+        for p, loc, s in zip(self.leaves, self.local, self.specs):
+            if any(s):
+                loc.grad = self._slice(p.grad, s).contiguous()
+        self.adam.step()
+        with torch.no_grad():
+            for p, loc, s in zip(self.leaves, self.local, self.specs):
+                p.grad = None
+                if any(s):
+                    loc.grad = None
+                    p.copy_(gather_leaf(loc, s, self._mesh))
+        return gnorm
+
+    def state_dict(self) -> dict:
+        """The unsharded Adam's state_dict: every moment gathered (a
+        collective: every rank calls it)."""
+        sd = self.adam.state_dict()
+        for i, s in enumerate(self.specs):
+            st = sd["state"].get(i)
+            if st is None or not any(s):
+                continue
+            sd["state"][i] = {k: gather_leaf(v, s, self._mesh)
+                              if k.startswith("exp_avg") else v
+                              for k, v in st.items()}
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        """An unsharded Adam's state_dict (any world size's): this rank
+        keeps its slices of the moments."""
+        sd = {"state": {i: {k: self._slice(v, self.specs[i]).clone()
+                            if k.startswith("exp_avg") and any(
+                                self.specs[i]) else v
+                            for k, v in st.items()}
+                        for i, st in sd["state"].items()},
+              "param_groups": sd["param_groups"]}
+        self.adam.load_state_dict(sd)
 
 
 def make_optimizer(learning_rate: float, weight_decay: float = 0.0,

@@ -14,17 +14,34 @@ optimizer state, batch-norm statistics and loss reductions stay f32.
 `grad_accum` > 1 splits the batch into that many micro-batches, strided
 (micro-batch i takes samples i, i + grad_accum, ...), evaluated one after
 the other with the batch-norm state threaded through; the loss and the
-gradients are their means, and one optimizer update follows."""
+gradients are their means, and one optimizer update follows.
+
+`mesh` (parallel/mesh.py) makes the step data-parallel: each rank takes
+its own rows of the global batch (the batch passed is this rank's), the
+gradients are averaged over the data group after the micro-batches
+accumulate and before the optimizer, so the clip sees the global norm,
+and the loss returned is the all-reduced mean of the ranks' losses.
+Tacotron2's training batch norm takes its statistics over the global
+batch, its loss divides by the global batch's longest target, and its
+dropout masks are drawn for the global batch, each rank taking its rows,
+so a data-parallel step equals one process's step on the concatenated
+batch.  Tensor-parallel training is not ported (ROADMAP queue 1 item
+6b)."""
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from fac_via_ppg_torch.configs.hparams import Tacotron2Config, WaveGlowConfig
-from fac_via_ppg_torch.models.tacotron2 import tacotron2_forward
+from fac_via_ppg_torch.models.tacotron2 import (
+    tacotron2_forward,
+    training_masks,
+)
 from fac_via_ppg_torch.models.waveglow import waveglow_forward
+from fac_via_ppg_torch.parallel.mesh import all_reduce, rank_rows
 from fac_via_ppg_torch.train.losses import tacotron2_loss, waveglow_loss
 from fac_via_ppg_torch.train.optim import Optimizer
 from fac_via_ppg_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -86,6 +103,36 @@ def _accumulate_micro(vg_fn: Callable, params, model_state, micro: list,
     return state, loss_sum * inv, [g * inv for g in grad_sum]
 
 
+def _data_group(mesh):
+    if mesh is not None and mesh.shape["model"] > 1:
+        raise ValueError(
+            "tensor-parallel training is not ported yet (ROADMAP queue 1 "
+            "item 6b); train with a mesh of model 1")
+    return None if mesh is None else mesh.data_group
+
+
+def average_over(group, loss: torch.Tensor, grads: list):
+    """(mean loss, mean gradients) over a data-parallel group: one
+    all-reduce of every gradient flattened into one buffer, one of the
+    loss.  The arguments themselves with no group."""
+    if group is None:
+        return loss, grads
+    n = dist.get_world_size(group)
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    all_reduce(flat, group)
+    flat /= n
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at: at + g.numel()].view(g.shape).to(g.dtype))
+        at += g.numel()
+    loss = all_reduce(loss.float().clone(), group) / n
+    return loss, out
+
+
+def _global_max(t: torch.Tensor, group) -> torch.Tensor:
+    return all_reduce(t.max().clone(), group, op=dist.ReduceOp.MAX)
+
+
 def _detached(tree):
     return tree_map(lambda x: x.detach() if isinstance(x, torch.Tensor)
                     else x, tree)
@@ -95,7 +142,8 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
                               mel_weight: float = 1.0,
                               gate_weight: float = 0.005,
                               compute_dtype: Optional[torch.dtype] = None,
-                              grad_accum: int = 1, remat: bool = False):
+                              grad_accum: int = 1, remat: bool = False,
+                              mesh=None):
     """Returns step(params, model_state, opt_state, batch, generator=None,
     masks=None) -> StepOut.
 
@@ -104,7 +152,12 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
     dropout keep-masks are drawn from `generator`, or taken from `masks`
     (an iterable in the JAX package's call order, micro-batch after
     micro-batch).  `remat` recomputes each decoder step in the backward
-    pass (models/tacotron2.py::tacotron2_forward)."""
+    pass (models/tacotron2.py::tacotron2_forward).
+
+    With a `mesh` the batch is this rank's rows and injected `masks` are
+    the global batch's (micro-batch after micro-batch, every rank's rows),
+    of which each rank takes its own."""
+    group = _data_group(mesh)
 
     def loss_fn(params, model_state, batch, generator, masks):
         ppg, in_len, mel, gate, out_len = batch
@@ -113,11 +166,23 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
             params = cast_floats(params, compute_dtype)
             ppg = ppg.to(compute_dtype)
             mel_in = mel.to(compute_dtype)
+        if group is not None:
+            rows = rank_rows(mesh, ppg.shape[0] * mesh.shape["data"])
+            if masks is None:
+                masks = iter(training_masks(
+                    cfg, params, ppg.shape[0] * mesh.shape["data"],
+                    ppg.shape[2], mel.shape[2], ppg.device, generator))
+            masks = (m[rows] for m in masks)
+            # the loss divides by the global batch's longest target
+            out_len_ref = _global_max(out_len, group).reshape(1)
+        else:
+            out_len_ref = out_len
         out, new_state = tacotron2_forward(
             cfg, params, model_state, ppg, in_len, mel_in, out_len,
-            generator=generator, masks=masks, training=True, remat=remat)
+            generator=generator, masks=masks, training=True, remat=remat,
+            bn_group=group)
         loss = tacotron2_loss(out, (mel, gate), mel_weight, gate_weight,
-                              output_lengths=out_len)
+                              output_lengths=out_len_ref)
         return loss, _detached(new_state)
 
     def step(params, model_state, opt_state, batch,
@@ -134,6 +199,7 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
             new_state, loss, grads = _accumulate_micro(
                 vg_fn, params, model_state, _split_micro(batch, grad_accum),
                 grad_accum)
+        loss, grads = average_over(group, loss, grads)
         gnorm = optimizer.apply(opt_state, grads)
         return StepOut(params, new_state, opt_state, loss, gnorm)
 
@@ -162,7 +228,8 @@ def make_tacotron2_eval_step(cfg: Tacotron2Config, mel_weight: float = 1.0,
 def make_waveglow_train_step(cfg: WaveGlowConfig, optimizer: Optimizer,
                              sigma: float,
                              compute_dtype: Optional[torch.dtype] = None,
-                             grad_accum: int = 1, remat: bool = False):
+                             grad_accum: int = 1, remat: bool = False,
+                             mesh=None):
     """Returns step(params, opt_state, batch) -> StepOut (model_state None).
 
     batch = (mel (B, 80, F), audio (B, T)); `params` is the train form,
@@ -170,7 +237,9 @@ def make_waveglow_train_step(cfg: WaveGlowConfig, optimizer: Optimizer,
     keeps the 1x1 convs' log-determinants and the loss in f32; `remat`
     recomputes each flow in the backward pass.  The step draws nothing at
     random, so `grad_accum` micro-batches give the full batch's update up
-    to the order of the sums."""
+    to the order of the sums.  With a `mesh` the batch is this rank's rows
+    and the gradients and loss are averaged over the data group."""
+    group = _data_group(mesh)
 
     def loss_fn(params, batch):
         mel, audio = batch
@@ -191,6 +260,7 @@ def make_waveglow_train_step(cfg: WaveGlowConfig, optimizer: Optimizer,
             _, loss, grads = _accumulate_micro(
                 vg_fn, params, None, _split_micro(batch, grad_accum),
                 grad_accum)
+        loss, grads = average_over(group, loss, grads)
         gnorm = optimizer.apply(opt_state, grads)
         return StepOut(params, None, opt_state, loss, gnorm)
 

@@ -30,6 +30,10 @@ its shape guard, the tap products on the card against the CPU (the same
 codes, within 1e-6 of the output's scale); and the grouped upsampler's
 spect feeding both kernels, bit for bit equal to the two-step spect's.
 
+And several GPUs' collectives: a 1-rank NCCL group and 2 gloo ranks
+sharing cuda:0 (NCCL refuses two ranks on one card), each collective the
+port relies on and the global batch norm against one process's.
+
 Needs CUDA and nvcc; skips without a card.  This file imports no JAX, so
 it also runs where JAX is absent:
 
@@ -936,3 +940,24 @@ def test_grouped_spect_feeds_both_kernels(card, dtype, impl, monkeypatch):
     assert counts[0] == counts[1] == cfg.n_flows * (
         1 if impl == "flow" else cfg.wn_n_layers)
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_collectives_on_the_card(card, tmp_path, backend, world):
+    """The collectives the port relies on, on CUDA tensors: a 1-rank NCCL
+    group on cuda:0, and 2 gloo ranks sharing cuda:0 (the backend asked
+    for: NCCL refuses two ranks on one card); the global batch norm's
+    forward, gradient and running variance against one process's on the
+    concatenated batch."""
+    from tests.torch_port_helpers import (
+        check_collectives,
+        rank_collectives,
+        run_ranks,
+    )
+
+    res = run_ranks(world, tmp_path, rank_collectives, "cuda:0",
+                    backend=backend, device="cuda:0")
+    assert all(r["backend"] == backend and r["device"] == "cuda:0"
+               for r in res)
+    check_collectives(res, world)

@@ -275,7 +275,9 @@ def test_port_imports_no_jax():
         "          'train.convert_model', 'train.export_torch',\n"
         "          'bench', 'eval.rtf', 'eval.roofline', 'eval.parity',\n"
         "          'eval.duration_check', 'utils.compilation_cache',\n"
-        "          'io.utterance'):\n"
+        "          'io.utterance', 'parallel', 'parallel.mesh',\n"
+        "          'parallel.sharding', 'parallel.spawn',\n"
+        "          'scripts.multiproc'):\n"
         "    assert 'fac_via_ppg_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
