@@ -175,8 +175,19 @@ Phases (any failure exits nonzero; there is no CPU path):
      cond) against the one-process CLI (wavs within 1 step, n_flows flow
      launches a batch on every rank); train_waveglow.main under the mesh
      (ZeRO-1, PAR_TRAIN_ITERS iterations: loss lines on rank 0 alone,
-     params equal on every rank, its checkpoint whole).  Two ranks on
-     one card show correctness and overhead, not scaling.
+     params equal on every rank, its checkpoint whole).  The same ranks
+     then train tensor parallel on a (world/2 data x 2 model) mesh: one
+     TP + ZeRO-1 step of each trainer (Tacotron2 split by the JAX rules,
+     WaveGlow by the paired WN rule) on the global batch held against the
+     one-process step by the same rule, the global norm within 1e-6
+     relative, the replicated leaves equal on the ranks of a model group,
+     no hand-kernel launch (training runs the conv formulation); a TP +
+     ZeRO-1 checkpoint read at (world x 1) with ZeRO-1 and in one
+     process, the next two losses within 1e-5 relative; `parallel: tp
+     train` lines (collectives and wall s per step).  Two ranks on one
+     card show correctness and overhead, not scaling.  `--cards 4` adds
+     train_waveglow.main(tensor_parallel_devices=2) in the ranks and,
+     after them, graft_entry.dryrun_multichip(4) on NCCL.
 Prints a `card:` line, `stages:`, `profile:`, `timing:`, `cli profile:`,
 `cli:`, `synth profile:`, `synth:`, `decode:`, `decode profile:`,
 `stream:`, `stream cli:`, `train ppg2mel:`, `train waveglow:`, `device
@@ -249,8 +260,10 @@ WG_TRAIN_WAVS, WG_TRAIN_ITERS = 18, 12
 # int16 steps, where its folded res_skip weights differ by rounding
 FEAT_ROW_TOL = 6e-5
 OLD_WAV_TOL = 16
-# phase 12: a traced kernel's time against its CUDA-event time
+# phase 12: a traced kernel's time against its CUDA-event time; the
+# traces taken of one call when the profiler loses launches
 TRACE_TOL = 0.15
+TRACE_TRIES = 3
 # phase 13: the WN int8 rungs' bench batch (x 10 s; the bench's default
 # is 24), the framework_serve decode's steps and its card-vs-CPU mel bound
 WN8_BENCH_BATCH = 4
@@ -264,7 +277,7 @@ SERVE_STEPS, SERVE_MEL_TOL = 100, 1e-4
 # kernel with int8 cond); the vocoder trainer's iterations under the mesh
 PAR_RANKS, PAR_STEP_B, PAR_LR = 2, 3, 1e-4
 PAR_TP_B, PAR_TP_FRAMES, PAR_TP_BF16_TOL = 8, 512, 3e-2
-PAR_RANK_TIMEOUT = 300
+PAR_RANK_TIMEOUT = 600
 PAR_CLI = dict(batch_size=CLI_BATCH, compute_dtype="bfloat16",
                wn_impl="flow", cond_impl="int8", mel_bucket=64)
 PAR_TRAIN_ITERS = 2
@@ -1747,19 +1760,33 @@ class relu_inputs:
 
 
 def one_step(make_step, cfg, params, batch, device, lr, state=None,
-             masks=None, dtype=torch.float32, mesh=None, zero=False):
+             masks=None, dtype=torch.float32, mesh=None, zero=False,
+             tp=None):
     """One train step of a fresh Adam on `device`, params, state and batch
     in `dtype`: (loss, the gradients fed to the optimizer, the params
-    after it, the params before it, the relu inputs), all on the CPU.
-    With a `mesh` (phase 14) the step is data parallel (`batch` this
-    rank's rows, `masks` the global batch's) and `zero` shards Adam."""
+    after it, the params before it, the relu inputs, the global norm,
+    {the step's wall s, its collectives, and under `tp` a digest of this
+    rank's replicated leaves after it}), all on the CPU.  With a `mesh`
+    (phase 14) the step is data parallel (`batch` this rank's rows,
+    `masks` the global batch's) and `zero` shards Adam; `tp` (a
+    parallel/tp.py layout of the whole `params`) makes it tensor parallel
+    too, and the gradients and params come back gathered whole."""
+    import hashlib
+
+    from fac_via_ppg_torch.parallel.mesh import collectives
     from fac_via_ppg_torch.train.optim import Optimizer
-    from fac_via_ppg_torch.utils.tree import tree_leaves, tree_map
+    from fac_via_ppg_torch.utils.tree import (
+        tree_leaves,
+        tree_map,
+        tree_unflatten,
+    )
 
     class Capture(Optimizer):
         def apply(self, opt_state, grads):
-            # copies: the optimizer clips the gradients in place
-            self.grads = [g.detach().to("cpu", copy=True) for g in grads]
+            # copies: the optimizer clips the gradients in place (on the
+            # card under `tp`, where they are gathered after the step)
+            self.grads = [g.detach().to("cpu" if tp is None else g.device,
+                                        copy=True) for g in grads]
             return super().apply(opt_state, grads)
 
     def put(x):
@@ -1771,18 +1798,39 @@ def one_step(make_step, cfg, params, batch, device, lr, state=None,
     opt = Capture(lr, STEP_WD, STEP_CLIP)
     params = tree_map(put, params)
     before = [x.cpu() for x in tree_leaves(params)]
+    if tp is not None:
+        params = tp.shard(params)
     batch = tuple(put(x) for x in batch)
-    step = make_step(cfg, opt, **({"mesh": mesh} if mesh else {}))
-    opt_state = opt.init(params, mesh=mesh, zero=zero)
+    step = make_step(cfg, opt, **({"mesh": mesh} if mesh else {}),
+                     **({"tp": tp} if tp else {}))
+    opt_state = opt.init(params, mesh=mesh, zero=zero,
+                         **({"tp": tp} if tp else {}))
+    n0 = dict(collectives)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.time()
     with relu_inputs() as pre:
         if state is None:
             out = step(params, opt_state, batch)
         else:
             out = step(params, tree_map(put, state), opt_state,
                        batch, masks=masks)
-    return (float(out.loss), opt.grads,
-            [x.detach().cpu() for x in tree_leaves(out.params)], before,
-            pre)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    extra = {"step_s": time.time() - t0,
+             "collectives": {k: collectives[k] - n0[k] for k in n0}}
+    grads, after = opt.grads, tree_leaves(out.params)
+    if tp is not None:
+        digest = hashlib.sha256()
+        for x, split in zip(after, tp.sharded):
+            if not split:
+                digest.update(x.detach().cpu().numpy().tobytes())
+        extra["replicated_sha256"] = digest.hexdigest()
+        grads = tree_leaves(tp.gather(tree_unflatten(out.params, grads)))
+        after = tree_leaves(tp.gather(out.params))
+    return (float(out.loss), [g.cpu() for g in grads],
+            [x.detach().cpu() for x in after], before, pre,
+            float(out.grad_norm), extra)
 
 
 def hold_step_against_cpu(name, run, paths, lr, noise=()):
@@ -2477,20 +2525,21 @@ def traced_rows(call, path, counts, tag):
     """eval/roofline.py's kernel table of one `call` under torch.profiler.
     torch.profiler has been seen to lose one flow's kernel records from
     such a trace (11 of 12 flow launches, and the elementwise kernels
-    around the lost one): where the trace holds another number of
-    launches of a counted kernel than `counts` lists, that is logged and
-    the call traced once more.  trace_row then holds the table to the
-    launches as before, so a second short trace still fails."""
+    around the lost one), twice in a row once: where the trace holds
+    another number of launches of a counted kernel than `counts` lists,
+    that is logged and the call traced again, at most TRACE_TRIES times
+    in all.  trace_row then holds the table to the launches as before,
+    so a last short trace still fails."""
     rl = roofline()
-    rows = rl.kernel_table(rl.capture(call, path), counts=counts)
-    held = {k: sum(r["count"] for r in rows if k in r["name"])
-            for k in counts}
-    short = {k: f"{n} of {len(counts[k])}" for k, n in held.items()
-             if n != len(counts[k])}
-    if short:
-        log(f"{tag}: the trace held {short} launches; tracing again")
+    for attempt in range(TRACE_TRIES):
         rows = rl.kernel_table(rl.capture(call, path), counts=counts)
-    return rows
+        held = {k: sum(r["count"] for r in rows if k in r["name"])
+                for k in counts}
+        short = {k: f"{n} of {len(counts[k])}" for k, n in held.items()
+                 if n != len(counts[k])}
+        if not short or attempt == TRACE_TRIES - 1:
+            return rows
+        log(f"{tag}: the trace held {short} launches; tracing again")
 
 
 def log_roofline(tag, rows):
@@ -3297,7 +3346,9 @@ def write_par_inputs(tmp, world):
     CLI_BATCH mels in cli_mels.txt) and the vocoder trainer's (seeded
     wavs for PAR_TRAIN_ITERS iterations of PAR_STEP_B a rank at `world`
     ranks, its default config at WG_SEGMENT in f32, a checkpoint at
-    iteration 0, written to wg_par.json).  Returns the CLI's mels' frames."""
+    iteration 0, written to wg_par.json; wg_tp.json the same for a
+    tensor-parallel run of 2 model ranks, writing to wg_tp).  Returns the
+    CLI's mels' frames."""
     from fac_via_ppg_torch.configs import DEFAULT_WAVEGLOW_CONFIG_PATH
 
     _, _, paths, frames = write_cli_inputs(tmp)
@@ -3313,6 +3364,12 @@ def write_par_inputs(tmp, world):
     config["data_config"].update(training_files=f"{tmp}/wg_par.txt",
                                  segment_length=WG_SEGMENT)
     Path(f"{tmp}/wg_par.json").write_text(json.dumps(config))
+    # the tensor-parallel run (2 model ranks): its data axis is half
+    n_tp = PAR_TRAIN_ITERS * PAR_STEP_B * max(world // 2, 1)
+    Path(f"{tmp}/wg_tp.txt").write_text("\n".join(wavs[:n_tp]) + "\n")
+    config["train_config"]["output_directory"] = f"{tmp}/wg_tp"
+    config["data_config"]["training_files"] = f"{tmp}/wg_tp.txt"
+    Path(f"{tmp}/wg_tp.json").write_text(json.dumps(config))
     return frames[:CLI_BATCH]
 
 
@@ -3337,10 +3394,11 @@ def par_cli(tmp, out, **kw):
                      if ln.startswith("vocoder mesh")]}
 
 
-def par_trainer(tmp, device):
-    """train_waveglow.main on this rank under the job's data-parallel mesh,
-    ZeRO-1 on (write_par_inputs' config): its iterations, the loss lines
-    it printed, a digest of its params after the run, its wall s."""
+def par_trainer(tmp, device, config="wg_par.json", **kw):
+    """train_waveglow.main on this rank under the job's mesh, ZeRO-1 on
+    (write_par_inputs' `config`; `kw` more keys, such as
+    tensor_parallel_devices): its iterations, the loss lines it printed,
+    a digest of its (whole) params after the run, its wall s."""
     import hashlib
 
     from fac_via_ppg_torch.scripts import train_waveglow
@@ -3350,7 +3408,8 @@ def par_trainer(tmp, device):
     t0 = time.time()
     with contextlib.redirect_stdout(buf):
         params, _, it = train_waveglow.main(
-            f"{tmp}/wg_par.json", device=device, zero_sharded_opt_state=True)
+            f"{tmp}/{config}", device=device, zero_sharded_opt_state=True,
+            **kw)
     torch.cuda.synchronize()
     wall = time.time() - t0
     digest = hashlib.sha256()
@@ -3360,6 +3419,104 @@ def par_trainer(tmp, device):
             "loss_lines": [ln for ln in buf.getvalue().splitlines()
                            if "s/it)" in ln],
             "params_sha256": digest.hexdigest()}
+
+
+def par_tp_train(inputs, mesh, ref, paths, rank, world):
+    """One TP + ZeRO-1 step of each trainer over `mesh` (2 model ranks;
+    the parallel/sharding.py rules on the whole params, Tacotron2 at the
+    JAX thresholds) on this data rank's rows of the global batch: its
+    loss, global norm, wall s, collectives, the hand kernels' launches
+    (none: training runs the conv formulation) and a digest of the
+    replicated leaves after it; on rank 0 also held against the
+    one-process step `ref` (hold_steps, the gradients and params gathered
+    whole; the global norm's relative error)."""
+    from fac_via_ppg_torch.ops import wn_flow as wf
+    from fac_via_ppg_torch.ops import wn_layer as wl
+    from fac_via_ppg_torch.parallel.sharding import (
+        tacotron2_param_shardings,
+        waveglow_param_shardings,
+    )
+    from fac_via_ppg_torch.parallel.tp import TensorParallel
+    from fac_via_ppg_torch.train.step import (
+        make_tacotron2_train_step,
+        make_waveglow_train_step,
+    )
+
+    cfg, params, state, batch, masks = inputs["t2"]
+    wg_cfg, wg, wg_batches = inputs["wg"]
+    b = batch[0].shape[0] // mesh.shape["data"]
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    runs = (("tacotron2", make_tacotron2_train_step, cfg, params, batch,
+             state, masks, tacotron2_param_shardings(mesh, params)),
+            ("waveglow", lambda c, o, **k: make_waveglow_train_step(
+                c, o, sigma=0.7071, **k), wg_cfg, wg, wg_batches[0], None,
+             None, waveglow_param_shardings(mesh, wg)))
+    out = {}
+    for name, make, c, p, bt, st, mk, specs in runs:
+        tp = TensorParallel(mesh, specs)
+        k0 = wl.launches + wf.launches
+        got = one_step(make, c, p, tuple(x[rows] for x in bt), "cuda",
+                       PAR_LR, st, mk, mesh=mesh, zero=True, tp=tp)
+        res = {"loss": got[0], "grad_norm": got[5], **got[6],
+               "kernel_launches": wl.launches + wf.launches - k0,
+               "split_leaves": sum(tp.sharded)}
+        if ref is not None:
+            one = ref[name][0]
+            h = hold_steps(
+                f"{name} rank {rank} of {world} {dist_backend()} "
+                f"({mesh.shape['data']} data x {mesh.shape['model']} model) "
+                f"TP + ZeRO-1 vs one process", got[:5], one[:5],
+                paths[name], PAR_LR, STEP_NOISE)
+            res.update(loss_rel=h["loss_rel"], grad_rel_max=h["grad_rel_max"],
+                       param_max_abs_err=h["param_max_abs_err"],
+                       grad_norm_rel=abs(got[5] - one[5]) / one[5],
+                       one_process_step_s=one[6]["step_s"],
+                       one_process_grad_norm=one[5])
+        out[name] = res
+    return out
+
+
+def par_tp_resume(inputs, mesh, path, write):
+    """WaveGlow over `mesh`: with `write`, tensor parallel (2 model
+    ranks) with ZeRO-1, a step on batch 1, the checkpoint written whole
+    to `path`; else the checkpoint read (ZeRO-1 where the data axis is
+    above 1; `mesh` None: one process).  Then two steps on batch 2: their
+    losses (the second reads the params the moments updated)."""
+    from fac_via_ppg_torch.parallel.sharding import waveglow_param_shardings
+    from fac_via_ppg_torch.parallel.tp import TensorParallel
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.train.optim import make_optimizer
+    from fac_via_ppg_torch.train.step import make_waveglow_train_step
+    from fac_via_ppg_torch.weights import move
+
+    wg_cfg, wg, batches = inputs["wg"]
+    opt = make_optimizer(PAR_LR)
+    d = 1 if mesh is None else mesh.shape["data"]
+    b = batches[0][0].shape[0] // d
+    rows = slice(0, None) if mesh is None else slice(
+        mesh.data_rank * b, (mesh.data_rank + 1) * b)
+
+    def put(batch):
+        return tuple(torch.as_tensor(x[rows]).cuda() for x in batch)
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    if write:
+        tp = TensorParallel(mesh, waveglow_param_shardings(mesh, wg))
+        params = tp.shard(move(wg, cuda))
+        opt_state = opt.init(params, mesh=mesh, zero=True, tp=tp)
+        step = make_waveglow_train_step(wg_cfg, opt, sigma=0.7071, mesh=mesh,
+                                        tp=tp)
+        step(params, opt_state, put(batches[1]))
+        ckpt.save_checkpoint(path, params, opt_state, PAR_LR, 1, mesh=mesh,
+                             tp=tp)
+    else:
+        payload = ckpt.load_checkpoint(path)
+        params = move(payload["params"], cuda)
+        opt_state = opt.init(params, mesh=mesh, zero=mesh is not None)
+        opt_state.load_state_dict(payload["opt_state"])
+        step = make_waveglow_train_step(wg_cfg, opt, sigma=0.7071, mesh=mesh)
+    return [float(step(params, opt_state, put(batches[2])).loss)
+            for _ in range(2)]
 
 
 def rank_parallel(rank, world, pairs, tmp):
@@ -3380,6 +3537,14 @@ def rank_parallel(rank, world, pairs, tmp):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.time()
+
+    def mark(stage):
+        # where a slow or stuck run of the ranks spends its time
+        if rank == 0:
+            log(f"parallel: rank 0 of {world}, {stage} done at "
+                f"{time.time() - t0:.1f} s")
+
     dp = make_mesh(device=device)
     n0 = dict(collectives)
     pcms, lens, launches, s = par_serve(par_synth(dp), pairs, wl)
@@ -3407,15 +3572,32 @@ def rank_parallel(rank, world, pairs, tmp):
                            one_process_step_s=ref[name][1])
             out[f"{name}_{kind}"] = res
         del steps
+    mark("the fused batch and the DP steps")
     out["resume_loss"] = par_zero_resume(inputs, dp, rows,
                                          f"{tmp}/zero_ckpt")
+    # tensor parallel: 2 model ranks, the rest of the job on the data axis
+    tpm = make_mesh(model=2, device=device)
+    out["tp_train"] = par_tp_train(inputs, tpm, ref, paths, rank, world)
+    mark("the TP steps")
+    out["tp_resume"] = par_tp_resume(inputs, tpm, f"{tmp}/tp_ckpt", True)
+    out["tp_resume_flat"] = par_tp_resume(inputs, dp, f"{tmp}/tp_ckpt",
+                                          False)
+    out["tp_mesh"] = dict(tpm.shape)
+    mark("the checkpoints' resumes")
     del inputs, ref
     torch.cuda.empty_cache()
     out["tp"] = par_tp(make_mesh(model=world, device=device))
+    mark("the TP vocoder")
     torch.cuda.empty_cache()
     out["cli"] = par_cli(tmp, "cli_dp", data_parallel=True, device=device)
     torch.cuda.empty_cache()
     out["trainer"] = par_trainer(tmp, device)
+    mark("the vocoder CLI and the DP trainer")
+    if world >= 4:
+        torch.cuda.empty_cache()
+        out["tp_trainer"] = par_trainer(tmp, device, "wg_tp.json",
+                                        tensor_parallel_devices=2)
+        mark("the TP trainer")
     return out
 
 
@@ -3440,6 +3622,73 @@ def wav_diff(dir_a, dir_b, names):
             return None, False
         diff = max(diff, int(np.abs(x - y).max()))
     return diff, same
+
+
+def check_tp(card, res, tp_one, tmp, backend):
+    """Phase 14's tensor-parallel checks of the ranks' results: each
+    trainer's TP + ZeRO-1 step held on rank 0 (hold_steps passed in the
+    rank; here the global norm within 1e-6 relative of the one-process
+    step's), the replicated leaves' digests equal on the ranks of each
+    model group, no hand-kernel launch; the checkpoint written under the
+    TP mesh read at (world x 1) with ZeRO-1 and in one process (`tp_one`),
+    its next two losses within 1e-5 relative on every rank; with 4 ranks,
+    train_waveglow.main(tensor_parallel_devices=2): PAR_TRAIN_ITERS
+    iterations, loss lines on rank 0 alone, the same whole params on
+    every rank, its checkpoint whole.  Prints a `parallel: tp train` line
+    a rank; fails on the first rank that disagrees."""
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    world = len(res)
+    failed = []
+    tp_ckpt_whole = None
+    if "tp_trainer" in res[0]:
+        payload = ckpt.load_checkpoint(f"{tmp}/wg_tp/waveglow_0")
+        leaves = tree_leaves(payload["params"])
+        moments = payload["opt_state"]["state"]
+        tp_ckpt_whole = len(moments) == len(leaves) and all(
+            moments[i][k].shape == p.shape for i, p in enumerate(leaves)
+            for k in ("exp_avg", "exp_avg_sq"))
+    for rank, r in enumerate(res):
+        peer = res[rank ^ 1]["tp_train"]
+        b = {"world": world, "rank": rank, "backend": backend,
+             "mesh": r["tp_mesh"]}
+        ok = True
+        for name, t in r["tp_train"].items():
+            t = dict(t, replicated_equal_model_peer=t["replicated_sha256"]
+                     == peer[name]["replicated_sha256"])
+            t.pop("replicated_sha256")
+            ok = ok and t["replicated_equal_model_peer"] \
+                and t["kernel_launches"] == 0 and np.isfinite(t["loss"]) \
+                and t.get("grad_norm_rel", 0.0) <= 1e-6
+            b[name] = t
+        src, flat = r["tp_resume"], r["tp_resume_flat"]
+        b["resume"] = {"source": src, "world_x_1": flat, "one_process": tp_one,
+                       "loss_rel_max": max(
+                           abs(x - y) / abs(y) for got in (flat, tp_one)
+                           for x, y in zip(got, src))}
+        ok = ok and b["resume"]["loss_rel_max"] <= 1e-5
+        if "tp_trainer" in r:
+            tr = r["tp_trainer"]
+            want_lines = PAR_TRAIN_ITERS if rank == 0 else 0
+            b["trainer"] = {"iterations": tr["iterations"],
+                            "wall_s": tr["wall_s"],
+                            "loss_lines": len(tr["loss_lines"]),
+                            "params_equal_rank0": tr["params_sha256"]
+                            == res[0]["tp_trainer"]["params_sha256"],
+                            "checkpoint_whole": tp_ckpt_whole}
+            ok = ok and tr["iterations"] == PAR_TRAIN_ITERS \
+                and len(tr["loss_lines"]) == want_lines \
+                and b["trainer"]["params_equal_rank0"] and tp_ckpt_whole \
+                and all(np.isfinite(float(ln.split()[1]))
+                        for ln in tr["loss_lines"])
+        if not ok:
+            failed.append(rank)
+        log("parallel: tp train " + json.dumps({"card": card, **b}))
+    if failed:
+        raise AssertionError(f"phase 14: rank {failed[0]} of {world} "
+                             "disagrees in tensor-parallel training (its "
+                             "parallel: tp train line above)")
 
 
 def check_ranks(card, res, one, rows_ref, resume, cli_one, tmp, frames,
@@ -3551,8 +3800,10 @@ def run_ranks_on_cards(card, world, backend, devices, pairs, tmp):
                     device=devices, timeout=PAR_RANK_TIMEOUT)
     ranks_s = time.time() - t0
     resume = par_zero_resume(inputs, None, slice(None), f"{tmp}/zero_ckpt")
+    tp_one = par_tp_resume(inputs, None, f"{tmp}/tp_ckpt", False)
     launches = check_ranks(card, res, one, rows_ref, resume, cli_one, tmp,
                            frames, backend, spread=backend == "nccl")
+    check_tp(card, res, tp_one, tmp, backend)
     return launches, ranks_s
 
 
@@ -3572,7 +3823,25 @@ def run_cards(card, n):
         del plain
         run_ranks_on_cards(card, n, "nccl", [f"cuda:{r}" for r in range(n)],
                            pairs, tmp)
+    t1 = time.time()
+    lines = graft_dryrun(n)
+    log("parallel: dryrun " + json.dumps({"card": card, "ranks": n,
+                                          "lines": lines,
+                                          "wall_s": time.time() - t1}))
     log(f"cards: {n} NCCL ranks in {time.time() - t0:.1f} s")
+
+
+def graft_dryrun(n):
+    """graft_entry.dryrun_multichip(n) on n NCCL ranks, one card each (its
+    lines, which it also prints)."""
+    from fac_via_ppg_torch import graft_entry
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lines = graft_entry.dryrun_multichip(n)
+    if len(lines) < 6 or not all(ln.endswith("OK") for ln in lines):
+        raise AssertionError(f"dryrun_multichip({n}): {lines}")
+    return lines
 
 
 def run_parallel(card):

@@ -78,7 +78,11 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
                        wn_int8_quant: str = "column",
                        wn_int8_rs_flows: int = 0,
                        cfg: Optional[WaveGlowConfig] = None,
-                       device=None) -> dict:
+                       device=None, mesh=None) -> dict:
+    """The vocoder's real-time factor (see the module doc).  `mesh` with
+    a model axis above 1 (parallel/mesh.py; every rank of the job calls)
+    times the tensor-parallel conv formulation, each rank on its slices
+    of the params and of the int8 packs."""
     from fac_via_ppg_torch.models.waveglow import (
         cast_params,
         init_waveglow,
@@ -87,11 +91,15 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
         pack_waveglow_layer,
         pack_waveglow_wn_int8,
         remove_weightnorm,
+        tp_shard_int8cond,
+        tp_shard_waveglow,
+        tp_shard_wn_int8,
         waveglow_infer,
     )
     from fac_via_ppg_torch.weights import move
 
     wn_impl = resolve_wn_impl(wn_impl)
+    tp = mesh is not None and mesh.shape["model"] > 1
     if cond_impl not in ("dense", "int8"):
         raise ValueError(f"unknown cond_impl {cond_impl!r}")
     if cond_impl == "int8" and wn_impl == "layer":
@@ -102,7 +110,7 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
         raise ValueError("--wn_int8_flows / --wn_int8_rs_flows need "
                          "--wn_impl conv (xla): wn_int8_flows/rs requires "
                          "wn_impl='xla'")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     cfg = cfg or WaveGlowConfig()
     sr = 16000
     n_frames = int(seconds * sr) // cfg.hop_length
@@ -117,6 +125,12 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
     packed_wn8 = pack_waveglow_wn_int8(cfg, params) if rung else None
     pack = {"flow": pack_waveglow_flow, "layer": pack_waveglow_layer}.get(
         wn_impl)
+    if tp:
+        packed_cond = (None if packed_cond is None
+                       else tp_shard_int8cond(cfg, packed_cond, mesh))
+        packed_wn8 = (None if packed_wn8 is None
+                      else tp_shard_wn_int8(packed_wn8, mesh))
+        pack = lambda c, p: tp_shard_waveglow(p, mesh)  # noqa: E731
     served = {}
 
     def serving(dtype):
@@ -146,7 +160,7 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
                 cfg, p, mel_b, 0.6, g, wn_impl=wn_impl, packed_wn=pk,
                 cond_impl=ci, packed_cond=pc, wn_int8_flows=wn_int8_flows,
                 packed_wn_int8=packed_wn8, wn_int8_quant=wn_int8_quant,
-                wn_int8_rs_flows=wn_int8_rs_flows))
+                wn_int8_rs_flows=wn_int8_rs_flows, mesh=mesh))
 
         with torch.no_grad():
             for i in range(warmup):
@@ -186,6 +200,8 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
         "wn_int8_quant": wn_int8_quant if wn_int8_flows else None,
         "wn_int8_rs_flows": wn_int8_rs_flows,
     }
+    if mesh is not None:
+        detail["mesh"] = dict(mesh.shape)
     if len(runs) > 1:
         detail["rtf_runs"] = [round(r, 2) for r in runs]
         detail["rtf_min"] = round(min(runs), 2)

@@ -28,6 +28,10 @@ them); layouts are torch's.
     the JAX package's forward (encoder convs, prenet, the attention and
     decoder LSTM states, postnet), whose masks are injected in the JAX
     package's call order or drawn, the decoder steps' before the loop.
+  * Tensor-parallel training runs the same forward on a rank's slices of
+    the split params, annotated by parallel/tp.py::TensorParallel.annotate:
+    ops/layers.py computes each split layer through the model group's
+    collectives, and every activation between them is whole.
 """
 
 from __future__ import annotations

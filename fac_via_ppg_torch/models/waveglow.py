@@ -32,11 +32,15 @@ the end conv as weight-norm (g, v, bias), folded inside the forward's
 autograd graph with the f32 norm and run on the conv formulation
 (`wn_apply`), as the JAX package trains on its XLA convs.
 
-Tensor parallelism (`waveglow_infer(mesh=)` with a model axis above 1)
-runs the conv formulation on each rank's WN channels (parallel/
-sharding.py's paired rule; `wn_apply(model_group=)`), as the JAX package
-runs its XLA formulation under GSPMD; the hand kernels take whole
-channels and raise there.
+Tensor parallelism (`waveglow_infer(mesh=)` with a model axis above 1,
+and `waveglow_forward(model_group=)` in training) runs the conv
+formulation on each rank's WN channels (parallel/sharding.py's paired
+rule; `wn_apply(model_group=)`), as the JAX package runs its XLA
+formulation under GSPMD; the hand kernels take whole channels and raise
+there.  Serving and training share one TP coupling net (`_wn_apply_tp`),
+on parallel/tp.py's differentiable collectives; serving runs it under
+no_grad.  The WN int8 rungs run on each rank's slice of their packs
+(`tp_shard_wn_int8`).
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from fac_via_ppg_torch.ops.wn_layer import (
     pack_in_weight,
     wn_layer,
 )
-from fac_via_ppg_torch.parallel.mesh import all_reduce
+from fac_via_ppg_torch.parallel.tp import copy_to_model, reduce_from_model
 from fac_via_ppg_torch.weights import fold_wn
 
 
@@ -94,6 +98,20 @@ def tp_shard_int8cond(cfg: WaveGlowConfig, packed: list, mesh) -> list:
     return apply_shardings(packed, int8cond_shardings(mesh, packed,
                                                       cfg.wn_n_layers),
                            mesh)
+
+
+def tp_shard_wn_int8(packed: list, mesh) -> list:
+    """This rank's part of `pack_waveglow_wn_int8`'s packs under the
+    paired rule (parallel/sharding.py::wn_int8_shardings): the in conv's
+    codes, scales and bias on its paired output channels, the res_skip
+    codes on their input channels, their per-output-channel scales and
+    bias whole."""
+    from fac_via_ppg_torch.parallel.sharding import (
+        apply_shardings,
+        wn_int8_shardings,
+    )
+
+    return apply_shardings(packed, wn_int8_shardings(mesh, packed), mesh)
 
 
 def flow_channels(cfg: WaveGlowConfig) -> List[int]:
@@ -390,15 +408,22 @@ def _int8_conv1x1(wq: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
                         wq.T).reshape(B, G, -1)
 
 
-def _rs_conv_int8(pk: dict, acts: torch.Tensor) -> torch.Tensor:
-    """The res_skip 1x1 conv on int8 codes (JAX `_rs_conv_int8`): the gate
-    output lies in (-1, 1), so round(acts * 127) is its code with the
-    static scale 1/127; one int32 product, dequantized through
-    rs_w_scale / 127 with the bias in f32, rounded to the acts' dtype.
-    (B, C, G) -> (B, 2C|C, G)."""
+def _rs_int8_product(pk: dict, acts: torch.Tensor) -> torch.Tensor:
+    """The res_skip 1x1 conv's product on int8 codes, dequantized, no
+    bias, f32 channels-last (B, G, 2C|C).  The gate output lies in (-1,
+    1), so round(acts * 127) is its code with the static scale 1/127:
+    no activation scale is measured, so a rank holding some of the input
+    channels (tensor parallelism) needs no model-group max."""
     aq = torch.clamp(torch.round(acts.float() * 127.0), -127, 127)
     acc = _int8_conv1x1(pk["rs_wq"], aq.to(torch.int8))
-    out = acc.float() * (pk["rs_w_scale"] / 127.0) + pk["rs_bias"]
+    return acc.float() * (pk["rs_w_scale"] / 127.0)
+
+
+def _rs_conv_int8(pk: dict, acts: torch.Tensor) -> torch.Tensor:
+    """The res_skip 1x1 conv on int8 codes (JAX `_rs_conv_int8`): one
+    int32 product, dequantized through rs_w_scale / 127 with the bias in
+    f32, rounded to the acts' dtype.  (B, C, G) -> (B, 2C|C, G)."""
+    out = _rs_int8_product(pk, acts) + pk["rs_bias"]
     return out.to(acts.dtype).transpose(1, 2)
 
 
@@ -468,38 +493,76 @@ def _cond_all(wn: dict, spect_grouped: torch.Tensor,
     return conv1d({"weight": w, "bias": b}, spect_grouped)
 
 
+def fold_wn_tp(wn: dict, group) -> dict:
+    """`fold_wn` of this rank's WN channels (the train form cut by the
+    paired rule): `in_layers` / `cond_layers` hold whole output channels,
+    so their weight norm is local; `res_skip_layers` hold v's input
+    channels, so each output channel's ||v|| sums every rank's squares:
+    one `reduce_from_model` of every layer's partial sums, and g with the
+    norms through one `copy_to_model`, since a rank's use of them reaches
+    only its channels' gradients.  w = g * v / ||v||, the norm in f32, as
+    `weights._weight_norm_fold`."""
+    out = fold_wn({k: v for k, v in wn.items() if k != "res_skip_layers"}
+                  | {"res_skip_layers": []})
+    rs = wn["res_skip_layers"]
+    sq = torch.cat([torch.sum(p["v"].float() ** 2, dim=(1, 2)) for p in rs])
+    norm = torch.sqrt(reduce_from_model(sq, group))
+    sizes = [p["g"].shape[0] for p in rs]
+    g_norm = copy_to_model(torch.cat([torch.cat([p["g"].float() for p in rs]),
+                                      norm]), group)
+    gs, norms = g_norm.split(sum(sizes))
+    for p, g, n in zip(rs, gs.split(sizes), norms.split(sizes)):
+        w = g[:, None, None] * p["v"].float() / n[:, None, None]
+        out["res_skip_layers"].append({"weight": w.to(p["v"].dtype),
+                                       "bias": p["bias"]})
+    return out
+
+
 def _wn_apply_tp(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
-                 spect_grouped: torch.Tensor, cond_int8, group
-                 ) -> torch.Tensor:
+                 spect_grouped: torch.Tensor, cond_int8, group,
+                 in_int8=None, in_int8_quant: str = "column",
+                 rs_int8=None) -> torch.Tensor:
     """`wn_apply` on this rank's WN channels (parallel/sharding.py::
-    waveglow_param_shardings): the gate is local, each res_skip conv a
-    partial sum over the rank's channels, its C residual channels
-    all-reduced per layer (but the last), the skip sum all-reduced once
-    before `end`; the reductions and biases in f32 (or wider), rounded
-    once."""
+    waveglow_param_shardings), the one tensor-parallel coupling net of
+    serving and training: the gate is local, each res_skip conv a partial
+    sum over the rank's channels, its C residual channels summed over the
+    model group per layer (but the last), the skip sum once before `end`;
+    the reductions and biases in f32 (or wider), rounded once.  The audio
+    entering each in_layer and the grouped spect entering the cond convs
+    go through `copy_to_model`, so that `start`'s and the upsampler's
+    gradients sum every rank's part.  `in_int8` / `rs_int8` are this
+    rank's parts of the WN int8 packs (`tp_shard_wn_int8`)."""
     C = cfg.wn_n_channels
     c = wn["in_layers"][0]["weight"].shape[0] // 2
     audio = conv1d(wn["start"], audio_half)
-    cond = _cond_all(wn, spect_grouped, cond_int8)       # (B, L*2c, T)
+    cond = _cond_all(wn, copy_to_model(spect_grouped, group), cond_int8)
     acc = torch.promote_types(audio.dtype, torch.float32)
     skip, skip_b = None, 0.0
     for i in range(cfg.wn_n_layers):
         dilation = 2 ** i
         pad = (cfg.wn_kernel_size * dilation - dilation) // 2
-        in_act = conv1d(wn["in_layers"][i], audio, padding=pad,
-                        dilation=dilation)
+        x = copy_to_model(audio, group)
+        if in_int8 is not None and cfg.wn_kernel_size == 3:
+            in_act = _in_conv_int8(in_int8[i], x, dilation, in_int8_quant)
+        else:
+            in_act = conv1d(wn["in_layers"][i], x, padding=pad,
+                            dilation=dilation)
         in_act = in_act + cond[:, 2 * c * i: 2 * c * (i + 1)]
         acts = torch.tanh(in_act[:, :c]) * torch.sigmoid(in_act[:, c:])
-        rs = wn["res_skip_layers"][i]
-        part = F.conv1d(acts, rs["weight"]).to(acc)      # no bias
-        bias = rs["bias"].to(acc)
+        if rs_int8 is not None:
+            part = _rs_int8_product(rs_int8[i], acts).transpose(1, 2)
+            bias = rs_int8[i]["rs_bias"].float()
+        else:
+            rs = wn["res_skip_layers"][i]
+            part = F.conv1d(acts, rs["weight"]).to(acc)      # no bias
+            bias = rs["bias"].to(acc)
         if i < cfg.wn_n_layers - 1:
-            res = all_reduce(part[:, :C].contiguous(), group)
+            res = reduce_from_model(part[:, :C], group)
             audio = audio + (res + bias[:C, None]).to(audio.dtype)
             part, bias = part[:, C:], bias[C:]
         skip = part if skip is None else skip + part
         skip_b = skip_b + bias
-    output = (all_reduce(skip.contiguous(), group)
+    output = (reduce_from_model(skip, group)
               + skip_b[:, None]).to(audio.dtype)
     return conv1d(wn["end"], output)
 
@@ -515,13 +578,11 @@ def wn_apply(cfg: WaveGlowConfig, wn: dict, audio_half: torch.Tensor,
     "tensor") / the res_skip convs on int8 codes, the WN int8 rungs.
 
     `model_group` (tensor parallelism): `wn` holds this rank's channels
-    (parallel/sharding.py), the output is every rank's whole one."""
+    (parallel/sharding.py), `in_int8` / `rs_int8` this rank's part of
+    their packs; the output is every rank's whole one."""
     if model_group is not None:
-        if in_int8 is not None or rs_int8 is not None:
-            raise ValueError("the WN int8 rungs are not ported under tensor "
-                             "parallelism (ROADMAP queue 1 item 6b)")
         return _wn_apply_tp(cfg, wn, audio_half, spect_grouped, cond_int8,
-                            model_group)
+                            model_group, in_int8, in_int8_quant, rs_int8)
     C = cfg.wn_n_channels
     audio = conv1d(wn["start"], audio_half)
     cond = _cond_all(wn, spect_grouped, cond_int8)
@@ -653,22 +714,29 @@ def wn_apply_flow(cfg: WaveGlowConfig, packed: dict,
 # ==========================================================================
 
 def _flow_forward(cfg: WaveGlowConfig, w: torch.Tensor, wn: dict,
-                  audio_g: torch.Tensor, spect_g: torch.Tensor):
+                  audio_g: torch.Tensor, spect_g: torch.Tensor,
+                  model_group=None):
     """One flow: the 1x1 conv (its log-determinant in f32 whatever the
-    dtype), then the affine coupling on the folded net."""
+    dtype), then the affine coupling on the folded net (this rank's
+    channels under `model_group`)."""
     n_half = audio_g.shape[1] // 2
     logdet = torch.linalg.slogdet(w.float())[1]
     mixed = torch.einsum("oc,bct->bot", w.float(),
                          audio_g.float()).to(audio_g.dtype)
     audio_0, audio_1 = mixed[:, :n_half], mixed[:, n_half:]
-    wn_out = wn_apply(cfg, fold_wn(wn), audio_0, spect_g)
+    if model_group is None:
+        wn_out = wn_apply(cfg, fold_wn(wn), audio_0, spect_g)
+    else:
+        wn_out = wn_apply(cfg, fold_wn_tp(wn, model_group), audio_0,
+                          spect_g, model_group=model_group)
     log_s, b = wn_out[:, n_half:], wn_out[:, :n_half]
     audio_1 = torch.exp(log_s) * audio_1 + b
     return torch.cat([audio_0, audio_1], dim=1), log_s, logdet
 
 
 def waveglow_forward(cfg: WaveGlowConfig, params, spect: torch.Tensor,
-                     audio: torch.Tensor, remat: bool = False):
+                     audio: torch.Tensor, remat: bool = False,
+                     model_group=None):
     """((B, 80, F) mel, (B, T) audio) -> (z, log_s_list, log_det_w_list)
     (reference glow.py:215-250; JAX `models/waveglow.py:703-778`).
 
@@ -677,7 +745,9 @@ def waveglow_forward(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     the flow's WN activations instead of keeping them.  The grouped spect
     comes straight from the upsampler's phases (upsample_grouped; the JAX
     package's `grouped_upsample=True`, whose values its False path shares
-    bit for bit)."""
+    bit for bit).  `model_group` (tensor parallelism): `params["wn"]` are
+    this rank's channels (`waveglow_param_shardings` on the train form),
+    the rest whole; the outputs are whole on every rank."""
     T = audio.shape[1]
     spect_g = upsample_grouped(params["upsample"], spect, cfg.hop_length,
                                cfg.n_group, t_samples=T)
@@ -689,7 +759,7 @@ def waveglow_forward(cfg: WaveGlowConfig, params, spect: torch.Tensor,
             chunks.append(audio_g[:, :cfg.n_early_size])
             audio_g = audio_g[:, cfg.n_early_size:]
         args = (cfg, params["convinv"][k]["weight"], params["wn"][k],
-                audio_g, spect_g)
+                audio_g, spect_g, model_group)
         if remat:
             audio_g, log_s, logdet = checkpoint(
                 _flow_forward, *args, use_reentrant=False,
@@ -789,7 +859,9 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     `mesh` with a model axis above 1 (parallel/mesh.py) runs tensor
     parallel on the conv formulation: `packed_wn` is this rank's WN
     params (`tp_shard_waveglow`; cut here when absent), `packed_cond`
-    this rank's int8 rows (`tp_shard_int8cond`), the other params whole.
+    this rank's int8 rows (`tp_shard_int8cond`), `packed_wn_int8` this
+    rank's part of the WN int8 packs (`tp_shard_wn_int8`; cut here when
+    absent), the other params whole.
     Every rank of the model group draws the same noise (equal
     generators) and returns the whole audio.  `wn_impl` "layer" / "flow"
     raise there.
@@ -802,9 +874,6 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                 f"(wn_impl='conv', the JAX package's 'xla'), not "
                 f"wn_impl={wn_impl!r}: the hand kernels take whole "
                 f"channels")
-        if wn_int8_flows or wn_int8_rs_flows:
-            raise ValueError("the WN int8 rungs are not ported under "
-                             "tensor parallelism (ROADMAP queue 1 item 6b)")
         model_group = mesh.model_group
     if wn_impl not in ("layer", "conv", "flow"):
         raise ValueError(f"unknown wn_impl {wn_impl!r}")
@@ -850,7 +919,11 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         packed = packed_wn or pack_waveglow_flow(cfg, params)
     wn8 = None
     if wn_int8_flows or wn_int8_rs_flows:
-        wn8 = packed_wn_int8 or pack_waveglow_wn_int8(cfg, params)
+        wn8 = packed_wn_int8
+        if wn8 is None:
+            wn8 = pack_waveglow_wn_int8(cfg, params)
+            if model_group is not None:
+                wn8 = tp_shard_wn_int8(wn8, mesh)
     cond_q = None
     if cond_impl == "int8":
         pack_c = packed_cond
@@ -868,8 +941,12 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
         c8 = None if cond_q is None else (*cond_q, pack_c[k])
         if model_group is not None:
-            wn_out = wn_apply(cfg, wn_local[k], audio_0, spect_g, c8,
-                              model_group=model_group)
+            wn_out = wn_apply(
+                cfg, wn_local[k], audio_0, spect_g, c8,
+                in_int8=wn8[k] if k < wn_int8_flows else None,
+                in_int8_quant=wn_int8_quant,
+                rs_int8=wn8[k] if k < wn_int8_rs_flows else None,
+                model_group=model_group)
         elif wn_impl == "layer":
             wn_out = wn_apply_layer(cfg, packed[k], audio_0, spect_g)
         elif wn_impl == "flow":

@@ -5,6 +5,15 @@ is `init_params`' helpers below).  Layouts are torch's: Linear weight
 (out, in); Conv1d weight (out, in, k); LSTM gates packed (i, f, g, o)
 along dim 0.  JAX parameter pytrees already use them, so `weights.py`
 converts leaves and renames nothing.
+
+Tensor parallelism: a layer dict that holds a split weight carries a
+`parallel/tp.py::Split` under "tp" (`TensorParallel.annotate`), and
+`linear`, `conv1d` and `lstm_cell` then compute on this rank's slice:
+an output split takes `copy_to_model` of the input, the local product and
+`gather_from_model` of the output features; the contraction split its
+block of the input features, the local product and `reduce_from_model`.
+The bias, whole on every rank, is added after the collective.  A dict
+without "tp" runs the one-device code.
 """
 
 from __future__ import annotations
@@ -15,6 +24,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from fac_via_ppg_torch.parallel.tp import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+)
+
 GAINS = {
     "linear": 1.0,
     "relu": math.sqrt(2.0),
@@ -23,8 +38,27 @@ GAINS = {
 }
 
 
+def _tp_matmul(split, x: torch.Tensor, w: torch.Tensor, kind: str
+               ) -> torch.Tensor:
+    """x @ w.T of a weight this rank holds a slice of (`kind` "out" or
+    "in"), the whole product on every rank, no bias."""
+    if kind == "in":
+        n = w.shape[1]
+        return reduce_from_model(
+            torch.matmul(x.narrow(-1, split.rank * n, n), w.T), split.group)
+    return gather_from_model(
+        torch.matmul(copy_to_model(x, split.group), w.T), split.group, -1)
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    out = torch.matmul(x, p["weight"].T)
+    """x @ W.T + b.  A contraction split ("in") reads only this rank's
+    block of x's features, so x's gradient is left partial: it is for
+    inputs that need none (the PPG)."""
+    split = p.get("tp")
+    if split is not None and "weight" in split.dims:
+        out = _tp_matmul(split, x, p["weight"], split.dims["weight"])
+    else:
+        out = torch.matmul(x, p["weight"].T)
     if "bias" in p:
         out = out + p["bias"]
     return out
@@ -32,7 +66,15 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def conv1d(p: dict, x: torch.Tensor, padding: int = 0,
            dilation: int = 1) -> torch.Tensor:
-    """(B, C_in, T) -> (B, C_out, T'), torch Conv1d semantics."""
+    """(B, C_in, T) -> (B, C_out, T'), torch Conv1d semantics; split on
+    the out-channel under tensor parallelism."""
+    split = p.get("tp")
+    if split is not None and "weight" in split.dims:
+        y = gather_from_model(F.conv1d(
+            copy_to_model(x, split.group), p["weight"], None,
+            padding=padding, dilation=dilation), split.group, 1)
+        b = p.get("bias")
+        return y if b is None else y + b[None, :, None]
     return F.conv1d(x, p["weight"], p.get("bias"), padding=padding,
                     dilation=dilation)
 
@@ -102,15 +144,55 @@ def batchnorm_apply(p: dict, state: dict, x: torch.Tensor, training: bool,
     return _normalize(p, mean, var, x, eps), new_state
 
 
+def _both_split(p: dict) -> bool:
+    split = p.get("tp")
+    return split is not None and split.dims.get("weight_ih") == "out" \
+        and split.dims.get("weight_hh") == "out"
+
+
+def lstm_input_proj(p: dict, xs: torch.Tensor) -> torch.Tensor:
+    """Every step's input projection at once, as `lstm_cell`'s `x_proj`:
+    x @ W_ih.T + b_ih; with both gate stacks split, this rank's block of
+    x @ W_ih.T alone (the cell adds its block of h @ W_hh.T and gathers
+    the sum once)."""
+    split = p.get("tp")
+    if _both_split(p):
+        return torch.matmul(copy_to_model(xs, split.group),
+                            p["weight_ih"].T)
+    if split is not None and "weight_ih" in split.dims:
+        return _tp_matmul(split, xs, p["weight_ih"], "out") + p["bias_ih"]
+    return torch.matmul(xs, p["weight_ih"].T) + p["bias_ih"]
+
+
 def lstm_cell(p: dict, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               x_proj: Optional[torch.Tensor] = None):
     """One LSTMCell step, gate order (i, f, g, o): (B, ...) -> (h', c').
 
-    `x_proj` is x @ W_ih.T + b_ih when the caller computed it for every
-    step at once."""
-    if x_proj is None:
-        x_proj = torch.matmul(x, p["weight_ih"].T) + p["bias_ih"]
-    gates = x_proj + torch.matmul(h, p["weight_hh"].T) + p["bias_hh"]
+    `x_proj` is `lstm_input_proj`'s when the caller computed it for every
+    step at once.  With both gate stacks split (contiguous on dim 0: at
+    model 2 rank 0 holds gates i, f and rank 1 g, o), a rank sums its
+    blocks of the ih and hh products and the cell gathers once, before any
+    gate nonlinearity; [x, h] go through one `copy_to_model`."""
+    split = p.get("tp")
+    if _both_split(p):
+        if x_proj is None:
+            xh = copy_to_model(torch.cat([x, h], dim=-1), split.group)
+            n = x.shape[-1]
+            local = (torch.matmul(xh[..., :n], p["weight_ih"].T)
+                     + torch.matmul(xh[..., n:], p["weight_hh"].T))
+        else:
+            local = x_proj + torch.matmul(copy_to_model(h, split.group),
+                                          p["weight_hh"].T)
+        gates = gather_from_model(local, split.group, -1) \
+            + p["bias_ih"] + p["bias_hh"]
+    else:
+        if x_proj is None:
+            x_proj = lstm_input_proj(p, x)
+        if split is not None and "weight_hh" in split.dims:
+            hh = _tp_matmul(split, h, p["weight_hh"], "out")
+        else:
+            hh = torch.matmul(h, p["weight_hh"].T)
+        gates = x_proj + hh + p["bias_hh"]
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

@@ -2,7 +2,8 @@
 
 The port of fac_via_ppg_tpu/ops/rnn.py: each `lax.scan` becomes a Python
 loop over time.  The input projection of every step is one matmul up
-front; the recurrence runs step by step.
+front; the recurrence runs step by step.  Under tensor parallelism
+(ops/layers.py) a step's gates are gathered once over the model group.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from fac_via_ppg_torch.ops.layers import lstm_cell
+from fac_via_ppg_torch.ops.layers import lstm_cell, lstm_input_proj
 
 
 def unidirectional_lstm(params: dict, xs: torch.Tensor,
@@ -26,7 +27,7 @@ def unidirectional_lstm(params: dict, xs: torch.Tensor,
     H = params["weight_hh"].shape[1]
     h = xs.new_zeros((B, H))
     c = xs.new_zeros((B, H))
-    x_proj = torch.matmul(xs, params["weight_ih"].T) + params["bias_ih"]
+    x_proj = lstm_input_proj(params, xs)
     if lengths is None:
         valid = torch.ones((T, B, 1), dtype=torch.bool, device=xs.device)
     else:

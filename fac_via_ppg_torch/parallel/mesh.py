@@ -175,7 +175,7 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
     world = dist.get_world_size() if dist.is_initialized() else 1
     model = int(model)
     if data is None:
-        data = world // model
+        data = max(world // model, 1)
     data = int(data)
     if data * model != world or data < 1:
         raise ValueError(
@@ -275,6 +275,19 @@ def all_gather_cat(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(_group_size(group))]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.dtype)
+
+
+def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """`t` from the rank at index `src` of `group`, in place on every rank
+    of it; `t` itself with no group."""
+    if group is None:
+        return t
+    collectives["broadcast"] += 1
+    w = _wire(t)
+    dist.broadcast(w, src=dist.get_global_rank(group, src), group=group)
+    if w is not t:
+        t.copy_(w)
+    return t
 
 
 def gather_rows(mesh: Mesh, t: torch.Tensor, n_real: int) -> torch.Tensor:

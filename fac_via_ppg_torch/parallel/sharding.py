@@ -11,8 +11,8 @@ puts the full tensors back together (for checkpoints).
 
 Tacotron2: the JAX rules and thresholds, leaf for leaf (the encoder
 prenet's PPG-facing matrix split on its 5816-wide contraction dim; the
-other big matrices and the conv stacks on their output dim).  The port
-executes them with TP training (ROADMAP queue 1 item 6b).
+other big matrices and the conv stacks on their output dim), executed
+by the tensor-parallel train step (parallel/tp.py, ops/layers.py).
 
 WaveGlow: the port's own rule, Megatron's pairing.  JAX splits
 `in_layers` dim 0 contiguously, so the tanh half and the sigmoid half of
@@ -23,8 +23,12 @@ the gate is local; `res_skip_layers` is split on its input channel
 (row-parallel), so its output is a partial sum: one all-reduce of the C
 residual channels per layer, and the skip sum all-reduced once before
 `end` (models/waveglow.py::wn_apply(model_group=)).  start, end, convinv
-and the upsampler stay whole.  The int8 cond pack, every layer's 2C rows
-stacked, splits each layer's two gate halves the same way ((model, 2L)).
+and the upsampler stay whole.  In the train form (g, v, bias) the
+res_skip v splits on its input channel and its g and bias stay whole, so
+its weight norm sums the ranks' squares (models/waveglow.py::fold_wn_tp).
+The int8 cond pack, every layer's 2C rows stacked, splits each layer's
+two gate halves the same way ((model, 2L)); the WN int8 packs follow
+their dense convs (`wn_int8_shardings`).
 """
 
 from __future__ import annotations
@@ -153,6 +157,33 @@ def int8cond_shardings(mesh, packed, n_layers: int):
         return (("model", groups),) + (None,) * (len(shape) - 1)
 
     return tree_map(spec, packed)
+
+
+def wn_int8_shardings(mesh, packed):
+    """Split records for `pack_waveglow_wn_int8`'s output under TP, the
+    paired rule of the dense convs they stand for: the in conv's codes
+    `wq` (3, 2C, C) and `wq_stacked` (2C, 3C), its per-output-channel
+    `w_scale` and `bias` on their 2C dim as (model, 2); the res_skip codes
+    `rs_wq` (O, C) on their input channel; `rs_w_scale` and `rs_bias` (per
+    output channel) whole."""
+    m = mesh.shape.get("model", 1)
+    paired = ("model", 2)
+
+    def spec(path, leaf):
+        shape = tuple(leaf.shape)
+        if m <= 1:
+            return replicated(leaf)
+        name = path.rsplit("['", 1)[1][:-2]
+        if name == "wq" and shape[1] % (2 * m) == 0:
+            return (None, paired, None)
+        if name in ("wq_stacked", "w_scale", "bias") \
+                and shape[0] % (2 * m) == 0:
+            return (paired,) + (None,) * (len(shape) - 1)
+        if name == "rs_wq" and shape[1] % m == 0:
+            return (None, "model")
+        return replicated(leaf)
+
+    return _map_with_path(spec, packed)
 
 
 # ------------------------------------------------------------------- ZeRO-1

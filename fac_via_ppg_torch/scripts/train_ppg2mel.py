@@ -24,13 +24,20 @@ to it); each rank reads its shard of every epoch (`EpochBatcher`,
 `batch_size` per rank), the step averages the gradients and takes batch
 norm over the global batch (train/step.py), `zero_sharded_opt_state`
 shards the Adam moments (ZeRO-1, train/optim.py), and only rank 0 logs,
-validates and writes checkpoints.  Tensor-parallel training
-(`tensor_parallel_devices` > 1) is not ported (ROADMAP queue 1 item 6b)
-and raises.
+validates and writes checkpoints.  `tensor_parallel_devices` > 1 makes
+the job's processes a (data x model) grid (`data_parallel_devices` then
+defaults to the process count over it): each rank holds its slices of
+the big matrices and conv stacks under the JAX package's rules
+(parallel/sharding.py::tacotron2_param_shardings), the step runs them
+through the model group's collectives, ZeRO-1 composes, and validation
+and checkpoints take the params gathered whole; `train()` returns them
+whole.
 
     python -m fac_via_ppg_torch.scripts.train_ppg2mel key=value ...
     torchrun --nproc_per_node N -m fac_via_ppg_torch.scripts.train_ppg2mel \\
         key=value ...
+    torchrun --nproc_per_node 4 -m fac_via_ppg_torch.scripts.train_ppg2mel \\
+        tensor_parallel_devices=2 key=value ...    # 2 data x 2 model
 
 (options are create_hparams' keys, plus `device`; the card by default,
 cuda:LOCAL_RANK in a launched job).
@@ -61,6 +68,8 @@ from fac_via_ppg_torch.parallel.mesh import (
     make_mesh,
     replicate,
 )
+from fac_via_ppg_torch.parallel.sharding import tacotron2_param_shardings
+from fac_via_ppg_torch.parallel.tp import TensorParallel
 from fac_via_ppg_torch.train import checkpoint as ckpt
 from fac_via_ppg_torch.train import preemption
 from fac_via_ppg_torch.train.logger import Tacotron2Logger
@@ -79,17 +88,12 @@ from fac_via_ppg_torch.weights import move
 
 
 def training_mesh(data_parallel_devices, tensor_parallel_devices, device):
-    """The trainers' mesh (JAX train_ppg2mel.py:120-165): data parallel
-    over the job's processes.  `data_parallel_devices` ("" or None: all
-    of them) must equal the process count divided by
-    `tensor_parallel_devices`, which must be 1 until tensor-parallel
-    training is ported (ROADMAP queue 1 item 6b)."""
+    """The trainers' mesh (JAX train_ppg2mel.py:120-165): the job's
+    processes as `data_parallel_devices` x `tensor_parallel_devices`.
+    `data_parallel_devices` ("" or None) defaults to the process count
+    over the model axis; the product must be the process count, or it
+    raises, saying how to launch."""
     n_model = int(tensor_parallel_devices or 1)
-    if n_model > 1:
-        raise ValueError(
-            "tensor-parallel training (tensor_parallel_devices > 1) is not "
-            "ported yet (ROADMAP queue 1 item 6b); train data parallel with "
-            "tensor_parallel_devices=1")
     n_data = (int(data_parallel_devices)
               if data_parallel_devices not in ("", None) else None)
     return make_mesh(n_data, n_model, device)
@@ -152,8 +156,8 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
           n_gpus, rank, group_name, hparams, device=None):
     """The training loop's entry (the reference train()'s signature, plus
     `device`, the card by default).  Returns (params, model_state,
-    opt_state, iteration).  The process's rank comes from its process
-    group (parallel/mesh.py), not from `rank`."""
+    opt_state, iteration), the params whole.  The process's rank comes
+    from its process group (parallel/mesh.py), not from `rank`."""
     del n_gpus, rank, group_name
     device = job_device(device)
     mesh = training_mesh(hparams.data_parallel_devices,
@@ -162,6 +166,9 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
     cfg = Tacotron2Config.from_hparams(hparams)
     params, model_state = init_tacotron2(
         cfg, torch.Generator().manual_seed(hparams.seed))
+    tp = None
+    if mesh.shape["model"] > 1:
+        tp = TensorParallel(mesh, tacotron2_param_shardings(mesh, params))
     learning_rate = hparams.learning_rate
     optimizer = make_optimizer(learning_rate, hparams.weight_decay,
                                hparams.grad_clip_thresh)
@@ -170,7 +177,7 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
     train_step = make_tacotron2_train_step(
         cfg, optimizer, hparams.mel_weight, hparams.gate_weight,
         compute_dtype=compute_dtype, grad_accum=hparams.grad_accum_steps,
-        remat=bool(hparams.remat), mesh=mesh)
+        remat=bool(hparams.remat), mesh=mesh, tp=tp)
     eval_step = make_tacotron2_eval_step(cfg, hparams.mel_weight,
                                          hparams.gate_weight)
 
@@ -201,10 +208,14 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
             print("Loaded checkpoint '%s' from iteration %d"
                   % (checkpoint_path, iteration - 1))
     params, model_state = move(params, device), move(model_state, device)
-    # every rank starts from rank 0's values (JAX `replicate`)
+    # every rank starts from rank 0's values (JAX `replicate`), then
+    # keeps its slices under tensor parallelism
     replicate(mesh, (params, model_state))
+    if tp is not None:
+        params = tp.shard(params)
     opt_state = optimizer.init(params, mesh=mesh,
-                               zero=bool(hparams.zero_sharded_opt_state))
+                               zero=bool(hparams.zero_sharded_opt_state),
+                               tp=tp)
     if restored is not None:
         opt_state.load_state_dict(restored["opt_state"])
     train_loader.epoch = epoch_offset
@@ -214,24 +225,27 @@ def train(output_directory, log_directory, checkpoint_path, warm_start,
     place = to_device(device, {0: torch.bfloat16}
                       if compute_dtype == torch.bfloat16 else None)
     with trace(hparams.profile_dir):
-        return _train_loop(hparams, params, model_state, opt_state,
-                           train_step, eval_step, train_loader, valset,
-                           logger, learning_rate, iteration, epoch_offset,
-                           output_directory, pad_to, place, device, mesh)
+        params, model_state, opt_state, iteration = _train_loop(
+            hparams, params, model_state, opt_state, train_step, eval_step,
+            train_loader, valset, logger, learning_rate, iteration,
+            epoch_offset, output_directory, pad_to, place, device, mesh, tp)
+    if tp is not None:
+        params = tp.gather(params)
+    return params, model_state, opt_state, iteration
 
 
 def _train_loop(hparams, params, model_state, opt_state, train_step,
                 eval_step, train_loader, valset, logger, learning_rate,
                 iteration, epoch_offset, output_directory, pad_to, place,
-                device, mesh):
-    saver = ckpt.AsyncCheckpointSaver(mesh)
+                device, mesh, tp):
+    saver = ckpt.AsyncCheckpointSaver(mesh, tp)
     try:
         with preemption.PreemptionGuard() as guard:
             result = _epoch_loop(
                 hparams, params, model_state, opt_state, train_step,
                 eval_step, train_loader, valset, logger, learning_rate,
                 iteration, epoch_offset, output_directory, pad_to, place,
-                device, saver, guard, mesh)
+                device, saver, guard, mesh, tp)
     except BaseException:
         # land an announced checkpoint even on a crash or an interrupt
         # ('auto' recovery depends on it), without masking the error
@@ -251,7 +265,7 @@ def _train_loop(hparams, params, model_state, opt_state, train_step,
 def _epoch_loop(hparams, params, model_state, opt_state, train_step,
                 eval_step, train_loader, valset, logger, learning_rate,
                 iteration, epoch_offset, output_directory, pad_to, place,
-                device, saver, guard, mesh):
+                device, saver, guard, mesh, tp):
     # `learning_rate` stays the base rate, which checkpoints store; the
     # schedule recomputes each iteration's rate from it
     lr_schedule = make_lr_schedule(
@@ -288,8 +302,10 @@ def _epoch_loop(hparams, params, model_state, opt_state, train_step,
                 logger.log_training(reduced_loss, grad_norm, current_lr,
                                     duration, iteration)
             if iteration % hparams.iters_per_checkpoint == 0:
+                # every rank gathers (a collective), rank 0 validates
+                whole = params if tp is None else tp.gather(params)
                 if lead:
-                    validate(eval_step, params, model_state, valset,
+                    validate(eval_step, whole, model_state, valset,
                              iteration, hparams.batch_size, logger, pad_to,
                              device)
                 save(iteration, "Saving model and optimizer state")

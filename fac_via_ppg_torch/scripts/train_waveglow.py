@@ -20,8 +20,14 @@ Data parallelism and ZeRO-1 as the PPG trainer's (scripts/
 train_ppg2mel.py): one process per GPU, `data_parallel_devices` the
 process count, each rank's shard of the crops (`batch_size` per rank),
 gradients averaged, only rank 0 logs and writes checkpoints; launch with
-torchrun or scripts/multiproc.py.  Tensor-parallel training
-(`tensor_parallel_devices` > 1) raises (ROADMAP queue 1 item 6b).
+torchrun or scripts/multiproc.py.  `tensor_parallel_devices` > 1 makes
+the processes a (data x model) grid: each rank holds its WN channels under
+the paired rule (parallel/sharding.py::waveglow_param_shardings, on the
+weight-norm train form), ZeRO-1 composes, checkpoints hold the params
+gathered whole and `train()` returns them whole.
+
+    torchrun --nproc_per_node 4 -m fac_via_ppg_torch.scripts.train_waveglow \\
+        -c config.json tensor_parallel_devices=2     # 2 data x 2 model
 """
 
 from __future__ import annotations
@@ -42,6 +48,8 @@ from fac_via_ppg_torch.data.prefetch import prefetch, to_device
 from fac_via_ppg_torch.models.waveglow import init_waveglow, \
     weight_norm_params
 from fac_via_ppg_torch.parallel.mesh import all_stop, job_device, replicate
+from fac_via_ppg_torch.parallel.sharding import waveglow_param_shardings
+from fac_via_ppg_torch.parallel.tp import TensorParallel
 from fac_via_ppg_torch.scripts.train_ppg2mel import (
     parse_overrides,
     training_mesh,
@@ -69,8 +77,8 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
           remat=False, compilation_cache_dir="", device=None):
     """The reference train()'s signature (train_waveglow.py:66), the JAX
     package's extensions, and `device` (the card by default).  Returns
-    (params, opt_state, iteration).  The process's rank comes from its
-    process group (parallel/mesh.py), not from `rank`."""
+    (params, opt_state, iteration), the params whole.  The process's rank
+    comes from its process group (parallel/mesh.py), not from `rank`."""
     del num_gpus, rank, group_name
     device = job_device(device)
     mesh = training_mesh(data_parallel_devices, tensor_parallel_devices,
@@ -79,12 +87,15 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
     cfg = WaveGlowConfig.from_dict(waveglow_config or {})
     params = weight_norm_params(
         init_waveglow(cfg, torch.Generator().manual_seed(seed)))
+    tp = None
+    if mesh.shape["model"] > 1:
+        tp = TensorParallel(mesh, waveglow_param_shardings(mesh, params))
     optimizer = make_optimizer(learning_rate)
     step = make_waveglow_train_step(
         cfg, optimizer, sigma=sigma,
         compute_dtype=(None if train_dtype == "float32"
                        else getattr(torch, train_dtype)),
-        grad_accum=grad_accum_steps, remat=remat, mesh=mesh)
+        grad_accum=grad_accum_steps, remat=remat, mesh=mesh, tp=tp)
 
     iteration, restored = 0, None
     if checkpoint_path == "auto":
@@ -99,10 +110,13 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
         print("Loaded checkpoint '{}' (iteration {})".format(
             checkpoint_path, restored["iteration"]))
     params = move(params, device)
-    # every rank starts from rank 0's values (JAX `replicate`)
+    # every rank starts from rank 0's values (JAX `replicate`), then
+    # keeps its slices under tensor parallelism
     replicate(mesh, params)
+    if tp is not None:
+        params = tp.shard(params)
     opt_state = optimizer.init(params, mesh=mesh,
-                               zero=bool(zero_sharded_opt_state))
+                               zero=bool(zero_sharded_opt_state), tp=tp)
     if restored is not None:
         opt_state.load_state_dict(restored["opt_state"])
 
@@ -123,7 +137,7 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
         learning_rate, schedule=lr_schedule, warmup_steps=lr_warmup_steps,
         decay_steps=lr_decay_steps, decay_rate=lr_decay_rate,
         min_factor=lr_min_factor)
-    saver = ckpt.AsyncCheckpointSaver(mesh)
+    saver = ckpt.AsyncCheckpointSaver(mesh, tp)
     try:
         with preemption.PreemptionGuard() as guard:
             result = _waveglow_epoch_loop(
@@ -143,7 +157,10 @@ def train(num_gpus, rank, group_name, output_directory, epochs,
         if logger is not None:
             logger.close()
     saver.wait()
-    return result
+    params, opt_state, iteration = result
+    if tp is not None:
+        params = tp.gather(params)
+    return params, opt_state, iteration
 
 
 def _waveglow_epoch_loop(epochs, epoch_offset, train_loader, place, step,

@@ -59,6 +59,7 @@ from fac_via_ppg_torch.models.waveglow import (
     resolve_wn_impl,
     tp_shard_int8cond,
     tp_shard_waveglow,
+    tp_shard_wn_int8,
     waveglow_infer,
     waveglow_noise,
 )
@@ -213,6 +214,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
         packed_cond = tp_shard_int8cond(cfg, packed_cond, mesh)
     packed_wn8 = (pack_waveglow_wn_int8(cfg, params) if wn_int8_flows
                   else None)
+    if tp and packed_wn8 is not None:
+        packed_wn8 = tp_shard_wn_int8(packed_wn8, mesh)
 
     if (batch_size > 1 and not mel_bucket and len(files) > 1
             and len(by_len) > len(files) // 2):

@@ -12,7 +12,11 @@ Under data parallelism (`mesh=`) every rank builds the payload (ZeRO-1's
 moments are gathered, a collective) and rank 0 alone writes it (JAX
 `process_index() == 0`); the file is the one a single process writes, so
 a run saved at one world size resumes at any other.  The other ranks wait
-at a barrier until it has landed."""
+at a barrier until it has landed.  Under tensor parallelism (`tp=`,
+parallel/tp.py) every rank also gathers the params over its model group
+(`TensorParallel.gather`), and ZeroAdam's state_dict the moments over
+both axes, so the file holds whole tensors and a run saved at one (data
+x model) mesh resumes at any other, or in one process."""
 
 from __future__ import annotations
 
@@ -43,10 +47,14 @@ def _is_writer(mesh) -> bool:
 
 
 def save_checkpoint(path: str, params, opt_state, learning_rate: float,
-                    iteration: int, model_state=None, mesh=None) -> None:
+                    iteration: int, model_state=None, mesh=None,
+                    tp=None) -> None:
     """Write {iteration, learning_rate, params, opt_state} (+ the BN state)
     to `path`, through a temporary file renamed into place.  With a
-    `mesh`, every rank calls it, rank 0 writes and the others wait."""
+    `mesh`, every rank calls it, rank 0 writes and the others wait; `tp`
+    gathers the params' slices whole first."""
+    if tp is not None:
+        params = tp.gather(params)
     payload = _payload(params, opt_state, learning_rate, iteration,
                        model_state)
     if _is_writer(mesh):
@@ -87,13 +95,14 @@ class AsyncCheckpointSaver:
     before the process exits.
 
     With a `mesh` every rank calls `save` (the snapshot gathers ZeRO-1's
-    moments) and `wait`; rank 0 alone writes, and `wait` holds every rank
-    at a barrier until the last save has landed."""
+    moments, and with `tp` the params' slices) and `wait`; rank 0 alone
+    writes, and `wait` holds every rank at a barrier until the last save
+    has landed."""
 
-    def __init__(self, mesh=None):
+    def __init__(self, mesh=None, tp=None):
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        self._mesh = mesh
+        self._mesh, self._tp = mesh, tp
 
     def _join(self) -> Optional[BaseException]:
         if self._thread is not None:
@@ -108,6 +117,8 @@ class AsyncCheckpointSaver:
         if prev_err is not None:
             print("WARNING: previous async checkpoint save failed "
                   f"({prev_err!r}); continuing with the current save")
+        if self._tp is not None:
+            params = self._tp.gather(params)
         snap = tree_map(
             lambda x: x.detach().clone() if isinstance(x, torch.Tensor)
             else x, (params, _opt_payload(opt_state), model_state))

@@ -18,7 +18,17 @@ group keeps the Adam moments of its slice of every leaf only, updates
 that slice of the param from the (already averaged) full gradient, and
 all-gathers the params.  Adam is elementwise, so the params equal the
 unsharded step's bit for bit.  Its state_dict is the unsharded Adam's,
-moments gathered, whatever the world size."""
+moments gathered, whatever the world size.
+
+Tensor parallelism (`init(params, mesh=, tp=)`, parallel/tp.py): the
+leaves are this rank's slices of the split params and the whole
+replicated ones.  The clip's global norm sums the split leaves' squares
+over the model group and counts each replicated leaf once, so it is the
+one-process norm on every rank; ZeRO-1 composes (JAX
+`optimizer_state_shardings(param_spec_fn=...)`): a moment keeps its
+param's model split and adds a data split on another dim, the updated
+slice all-gathered over the data group only.  The state_dict gathers the
+moments over both axes."""
 
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from fac_via_ppg_torch.parallel.mesh import all_reduce
 from fac_via_ppg_torch.parallel.sharding import (
     gather_leaf,
     optimizer_state_shardings,
@@ -52,19 +63,31 @@ class Optimizer:
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=self.weight_decay)
 
-    def init(self, params, mesh=None, zero: bool = False):
+    def init(self, params, mesh=None, zero: bool = False, tp=None):
         """A torch.optim.Adam bound to the leaves of `params`; with
-        `zero` and a mesh whose data axis is above 1, a `ZeroAdam` (ZeRO-1)
-        instead.  A data axis of 1 makes `zero` a no-op, as in JAX."""
-        if zero and mesh is not None and mesh.shape["data"] > 1:
-            return ZeroAdam(self, params, mesh)
+        `zero` and a mesh whose data axis is above 1 (ZeRO-1), or with a
+        tensor-parallel layout `tp` (`params` this rank's slices), a
+        `ZeroAdam` instead.  A data axis of 1 makes `zero` a no-op, as in
+        JAX."""
+        zero = zero and mesh is not None and mesh.shape["data"] > 1
+        if zero or tp is not None:
+            return ZeroAdam(self, params, mesh, tp, zero)
         return self._adam(tree_leaves(params))
 
-    def _clip(self, leaves, grads) -> torch.Tensor:
+    def _clip(self, leaves, grads, tp=None) -> torch.Tensor:
         """Bind `grads` to `leaves` and clip them in place; the global
-        norm before clipping."""
+        norm before clipping (over the model group under `tp`)."""
         for p, g in zip(leaves, grads, strict=True):
             p.grad = g
+        if tp is not None:
+            total = global_norm(grads, tp)
+            if self.grad_clip_thresh is not None \
+                    and self.grad_clip_thresh > 0:
+                # torch.nn.utils.clip_grad_norm_'s coefficient
+                coef = torch.clamp(self.grad_clip_thresh / (total + 1e-6),
+                                   max=1.0)
+                torch._foreach_mul_(list(grads), coef)
+            return total
         if self.grad_clip_thresh is not None and self.grad_clip_thresh > 0:
             return torch.nn.utils.clip_grad_norm_(leaves,
                                                   self.grad_clip_thresh)
@@ -84,22 +107,41 @@ class Optimizer:
         return gnorm
 
 
+def _data_only(spec) -> tuple:
+    """A split record's "data" entries alone: how a rank's ZeRO-1 slice
+    is cut from its tensor-parallel slice of a leaf."""
+    return tuple(e if e == "data" else None for e in spec)
+
+
 class ZeroAdam:
-    """ZeRO-1's optimizer state: a torch.optim.Adam over this rank's
-    slices (parallel/sharding.py::optimizer_state_shardings over the data
-    axis) of the param leaves, which it updates from the slices of the
-    full gradients and then all-gathers into the full leaves.  Leaves with
-    no divisible dim are updated whole on every rank.  `param_groups`,
+    """The optimizer state over a mesh: a torch.optim.Adam over this
+    rank's slices of the param leaves.  `specs` are the moments' split
+    records relative to the whole leaves (parallel/sharding.py::
+    optimizer_state_shardings: over the data axis with `zero` (ZeRO-1),
+    the tensor-parallel layout `tp`'s model splits first).  The leaves
+    are already this rank's model slices, so a rank cuts only the "data"
+    entries off them, updates that slice from the same slice of the
+    (averaged, clipped) gradients and all-gathers it over the data group.
+    Leaves with no data split are updated whole.  `param_groups`,
     `state_dict` and `load_state_dict` read as the unsharded Adam's."""
 
-    def __init__(self, optimizer: Optimizer, params, mesh):
-        self._opt, self._mesh = optimizer, mesh
+    def __init__(self, optimizer: Optimizer, params, mesh, tp=None,
+                 zero: bool = True):
+        self._opt, self._mesh, self.tp = optimizer, mesh, tp
         self.leaves = tree_leaves(params)
-        self.specs = tree_leaves_specs(optimizer_state_shardings(mesh,
-                                                                 params))
+        if tp is None:
+            whole, spec_fn = params, None
+        else:
+            whole, spec_fn = tp.whole_shapes(params), tp.spec_fn(params)
+        if zero:
+            self.specs = tree_leaves_specs(optimizer_state_shardings(
+                mesh, whole, param_spec_fn=spec_fn))
+        else:
+            self.specs = list(tp.leaf_specs)
+        self.zero_specs = [_data_only(s) for s in self.specs]
         self._index = {"data": mesh.data_rank, "model": mesh.model_rank}
-        self.local = [self._slice(p, s).clone() if any(s) else p
-                      for p, s in zip(self.leaves, self.specs)]
+        self.local = [self._slice(p, z).clone() if any(z) else p
+                      for p, z in zip(self.leaves, self.zero_specs)]
         self.adam = optimizer._adam(self.local)
 
     def _slice(self, x, spec):
@@ -110,22 +152,22 @@ class ZeroAdam:
         return self.adam.param_groups
 
     def apply(self, grads) -> torch.Tensor:
-        gnorm = self._opt._clip(self.leaves, grads)
-        for p, loc, s in zip(self.leaves, self.local, self.specs):
-            if any(s):
-                loc.grad = self._slice(p.grad, s).contiguous()
+        gnorm = self._opt._clip(self.leaves, grads, self.tp)
+        for p, loc, z in zip(self.leaves, self.local, self.zero_specs):
+            if any(z):
+                loc.grad = self._slice(p.grad, z).contiguous()
         self.adam.step()
         with torch.no_grad():
-            for p, loc, s in zip(self.leaves, self.local, self.specs):
+            for p, loc, z in zip(self.leaves, self.local, self.zero_specs):
                 p.grad = None
-                if any(s):
+                if any(z):
                     loc.grad = None
-                    p.copy_(gather_leaf(loc, s, self._mesh))
+                    p.copy_(gather_leaf(loc, z, self._mesh))
         return gnorm
 
     def state_dict(self) -> dict:
-        """The unsharded Adam's state_dict: every moment gathered (a
-        collective: every rank calls it)."""
+        """The unsharded Adam's state_dict: every moment gathered whole,
+        over both axes (a collective: every rank calls it)."""
         sd = self.adam.state_dict()
         for i, s in enumerate(self.specs):
             st = sd["state"].get(i)
@@ -137,8 +179,8 @@ class ZeroAdam:
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
-        """An unsharded Adam's state_dict (any world size's): this rank
-        keeps its slices of the moments."""
+        """An unsharded Adam's state_dict (any mesh's): this rank keeps
+        its slices of the moments, model and data."""
         sd = {"state": {i: {k: self._slice(v, self.specs[i]).clone()
                             if k.startswith("exp_avg") and any(
                                 self.specs[i]) else v
@@ -199,7 +241,20 @@ def make_lr_schedule(base_lr: float, schedule: str = "constant",
     return evaluate
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2)
-                          for g in tree_leaves(tree)))
+def global_norm(tree, tp=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32.  Under a
+    tensor-parallel layout `tp` (`tree` in its leaf order, this rank's
+    slices) the split leaves' squares are summed over the model group
+    and the replicated leaves counted once: every rank gets the norm of
+    the whole tree."""
+    leaves = tree_leaves(tree)
+    if tp is None:
+        return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+    norms = [torch.linalg.vector_norm(g.float()) for g in leaves]
+    split = [n for n, s in zip(norms, tp.sharded) if s]
+    whole = [n for n, s in zip(norms, tp.sharded) if not s]
+    zero = norms[0].new_zeros(())
+    sq = torch.stack([torch.sum(torch.stack(split) ** 2) if split else zero,
+                      torch.sum(torch.stack(whole) ** 2) if whole else zero])
+    total = all_reduce(sq[:1].clone(), tp.group) + sq[1:]
+    return torch.sqrt(total[0])

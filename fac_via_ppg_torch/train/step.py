@@ -25,8 +25,20 @@ Tacotron2's training batch norm takes its statistics over the global
 batch, its loss divides by the global batch's longest target, and its
 dropout masks are drawn for the global batch, each rank taking its rows,
 so a data-parallel step equals one process's step on the concatenated
-batch.  Tensor-parallel training is not ported (ROADMAP queue 1 item
-6b)."""
+batch.
+
+`tp` (parallel/tp.py::TensorParallel, on a mesh whose model axis is above
+1) makes it tensor-parallel as well: `params` are this rank's slices of
+the split leaves and the whole replicated ones, the forward runs on them
+through the model group's collectives (ops/layers.py, models/
+waveglow.py), every rank of a model group computes the same loss, and the
+gradients (each rank's slices and the replicated leaves' whole ones)
+average over the data group only, then the replicated leaves' are made
+model rank 0's (one broadcast: a card may round them apart), so those
+leaves stay equal on every model rank; the optimizer takes the global
+norm over the model group (train/optim.py).
+The batch-norm statistics, the longest target and the dropout masks stay
+the data group's business: a model group's ranks hold the same rows."""
 
 from __future__ import annotations
 
@@ -103,11 +115,14 @@ def _accumulate_micro(vg_fn: Callable, params, model_state, micro: list,
     return state, loss_sum * inv, [g * inv for g in grad_sum]
 
 
-def _data_group(mesh):
-    if mesh is not None and mesh.shape["model"] > 1:
+def _data_group(mesh, tp):
+    """The group the gradients average over; raises on a mesh whose model
+    axis is split without the layout of the split params."""
+    if mesh is not None and mesh.shape["model"] > 1 and tp is None:
         raise ValueError(
-            "tensor-parallel training is not ported yet (ROADMAP queue 1 "
-            "item 6b); train with a mesh of model 1")
+            f"a mesh of {mesh.shape['model']} model ranks needs the params' "
+            "tensor-parallel layout: pass tp=TensorParallel(mesh, specs) "
+            "(parallel/tp.py)")
     return None if mesh is None else mesh.data_group
 
 
@@ -143,7 +158,7 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
                               gate_weight: float = 0.005,
                               compute_dtype: Optional[torch.dtype] = None,
                               grad_accum: int = 1, remat: bool = False,
-                              mesh=None):
+                              mesh=None, tp=None):
     """Returns step(params, model_state, opt_state, batch, generator=None,
     masks=None) -> StepOut.
 
@@ -156,8 +171,9 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
 
     With a `mesh` the batch is this rank's rows and injected `masks` are
     the global batch's (micro-batch after micro-batch, every rank's rows),
-    of which each rank takes its own."""
-    group = _data_group(mesh)
+    of which each rank takes its own.  With `tp` the params are this
+    rank's slices (`tp.shard`); the masks keep the whole widths."""
+    group = _data_group(mesh, tp)
 
     def loss_fn(params, model_state, batch, generator, masks):
         ppg, in_len, mel, gate, out_len = batch
@@ -166,11 +182,15 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
             params = cast_floats(params, compute_dtype)
             ppg = ppg.to(compute_dtype)
             mel_in = mel.to(compute_dtype)
+        shapes = params
+        if tp is not None:
+            shapes = tp.whole_shapes(params)
+            params = tp.annotate(params)
         if group is not None:
             rows = rank_rows(mesh, ppg.shape[0] * mesh.shape["data"])
             if masks is None:
                 masks = iter(training_masks(
-                    cfg, params, ppg.shape[0] * mesh.shape["data"],
+                    cfg, shapes, ppg.shape[0] * mesh.shape["data"],
                     ppg.shape[2], mel.shape[2], ppg.device, generator))
             masks = (m[rows] for m in masks)
             # the loss divides by the global batch's longest target
@@ -200,6 +220,8 @@ def make_tacotron2_train_step(cfg: Tacotron2Config, optimizer: Optimizer,
                 vg_fn, params, model_state, _split_micro(batch, grad_accum),
                 grad_accum)
         loss, grads = average_over(group, loss, grads)
+        if tp is not None:
+            grads = tp.sync_replicated(grads)
         gnorm = optimizer.apply(opt_state, grads)
         return StepOut(params, new_state, opt_state, loss, gnorm)
 
@@ -229,7 +251,7 @@ def make_waveglow_train_step(cfg: WaveGlowConfig, optimizer: Optimizer,
                              sigma: float,
                              compute_dtype: Optional[torch.dtype] = None,
                              grad_accum: int = 1, remat: bool = False,
-                             mesh=None):
+                             mesh=None, tp=None):
     """Returns step(params, opt_state, batch) -> StepOut (model_state None).
 
     batch = (mel (B, 80, F), audio (B, T)); `params` is the train form,
@@ -238,8 +260,11 @@ def make_waveglow_train_step(cfg: WaveGlowConfig, optimizer: Optimizer,
     recomputes each flow in the backward pass.  The step draws nothing at
     random, so `grad_accum` micro-batches give the full batch's update up
     to the order of the sums.  With a `mesh` the batch is this rank's rows
-    and the gradients and loss are averaged over the data group."""
-    group = _data_group(mesh)
+    and the gradients and loss are averaged over the data group.  With
+    `tp` the params are this rank's WN channels (the paired rule,
+    parallel/sharding.py::waveglow_param_shardings, on the train form)."""
+    group = _data_group(mesh, tp)
+    model_group = None if tp is None else tp.group
 
     def loss_fn(params, batch):
         mel, audio = batch
@@ -247,7 +272,8 @@ def make_waveglow_train_step(cfg: WaveGlowConfig, optimizer: Optimizer,
             params = cast_floats(params, compute_dtype)
             mel = mel.to(compute_dtype)
             audio = audio.to(compute_dtype)
-        out = waveglow_forward(cfg, params, mel, audio, remat=remat)
+        out = waveglow_forward(cfg, params, mel, audio, remat=remat,
+                               model_group=model_group)
         return waveglow_loss(out, sigma=sigma), None
 
     def step(params, opt_state, batch) -> StepOut:
@@ -261,6 +287,8 @@ def make_waveglow_train_step(cfg: WaveGlowConfig, optimizer: Optimizer,
                 vg_fn, params, None, _split_micro(batch, grad_accum),
                 grad_accum)
         loss, grads = average_over(group, loss, grads)
+        if tp is not None:
+            grads = tp.sync_replicated(grads)
         gnorm = optimizer.apply(opt_state, grads)
         return StepOut(params, None, opt_state, loss, gnorm)
 

@@ -961,3 +961,20 @@ def test_collectives_on_the_card(card, tmp_path, backend, world):
     assert all(r["backend"] == backend and r["device"] == "cuda:0"
                for r in res)
     check_collectives(res, world)
+
+
+@pytest.mark.cuda
+def test_tp_collectives_on_a_one_rank_nccl_group(card, tmp_path):
+    """copy_to_model, reduce_from_model and gather_from_model (parallel/
+    tp.py) on CUDA tensors over a 1-rank NCCL model group: the identity,
+    forward and backward, bit for bit, each collective issued and
+    counted."""
+    from tests.torch_port_helpers import rank_tp_identity, run_ranks
+
+    (res,) = run_ranks(1, tmp_path, rank_tp_identity, backend="nccl",
+                       device="cuda:0")
+    assert res["backend"] == "nccl"
+    for op in ("copy", "reduce", "gather"):
+        assert res[op]["equal"], op
+    assert res["counted"] == {"all_reduce": 2, "all_gather": 1,
+                              "broadcast": 0}

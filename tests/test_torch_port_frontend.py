@@ -277,7 +277,7 @@ def test_port_imports_no_jax():
         "          'eval.duration_check', 'utils.compilation_cache',\n"
         "          'io.utterance', 'parallel', 'parallel.mesh',\n"
         "          'parallel.sharding', 'parallel.spawn',\n"
-        "          'scripts.multiproc'):\n"
+        "          'scripts.multiproc', 'parallel.tp', 'graft_entry'):\n"
         "    assert 'fac_via_ppg_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -369,41 +369,73 @@ def _rows(batch, rank, world):
                  for x in batch)
 
 
+def tp_layout(kind, setup, mesh, thresholds=(16, 64)):
+    """The tensor-parallel layout of the setup's Tacotron2 ("t2"; the JAX
+    tests' lowered thresholds by default, so that every clause fires) or
+    WaveGlow ("wg", the paired rule on the train form) on `mesh`."""
+    from fac_via_ppg_torch.parallel import sharding as ps
+    from fac_via_ppg_torch.parallel.tp import TensorParallel
+
+    if kind == "t2":
+        specs = ps.tacotron2_param_shardings(mesh, setup["t2_params"],
+                                             *thresholds)
+    else:
+        specs = ps.waveglow_param_shardings(mesh, setup["wg_params"])
+    return TensorParallel(mesh, specs)
+
+
 def train_step_out(kind, setup, batch, mesh=None, masks=None, zero=False,
-                   steps=1):
+                   steps=1, tp=None, clip=1.0, lr=1e-3):
     """`steps` train steps of Tacotron2 (`kind` "t2") or WaveGlow ("wg")
     from the setup's params on `batch` (this rank's rows), with
     capture_optimizer: (losses, the last step's gradients, grad norm, BN
-    state, params after)."""
+    state, params after).  Under a tensor-parallel layout `tp` the
+    gradients and params come back gathered whole, with this rank's
+    replicated leaves after the steps (`replicated`), the collectives of
+    the last step (`collectives`) and the optimizer's moment records."""
     from fac_via_ppg_torch.configs.hparams import Tacotron2Config
     from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.parallel.mesh import collectives
     from fac_via_ppg_torch.train import step as t_step
-    from fac_via_ppg_torch.utils.tree import tree_leaves
+    from fac_via_ppg_torch.utils.tree import tree_leaves, tree_unflatten
 
-    opt = capture_optimizer()
+    opt = capture_optimizer(lr=lr, clip=clip)
     if kind == "t2":
         params, state = _copy(setup["t2_params"]), _copy(setup["t2_state"])
         step = t_step.make_tacotron2_train_step(
-            Tacotron2Config(**setup["t2_cfg"]), opt, mesh=mesh)
+            Tacotron2Config(**setup["t2_cfg"]), opt, mesh=mesh, tp=tp)
     else:
         params, state = _copy(setup["wg_params"]), None
         step = t_step.make_waveglow_train_step(
-            WaveGlowConfig(**setup["wg_cfg"]), opt, sigma=0.7, mesh=mesh)
-    opt_state = opt.init(params, mesh=mesh, zero=zero)
+            WaveGlowConfig(**setup["wg_cfg"]), opt, sigma=0.7, mesh=mesh,
+            tp=tp)
+    if tp is not None:
+        params = tp.shard(params)
+    opt_state = opt.init(params, mesh=mesh, zero=zero, tp=tp)
     losses, out = [], None
     for _ in range(steps):
+        n0 = dict(collectives)
         if kind == "t2":
             out = step(params, state, opt_state, batch, masks=masks)
             state = out.model_state
         else:
             out = step(params, opt_state, batch)
         losses.append(float(out.loss))
-    return {"losses": losses, "grads": [g.numpy() for g in opt.grads],
-            "grad_norm": float(out.grad_norm),
-            "state": None if state is None else [
-                x.numpy() for x in tree_leaves(state)],
-            "params": [x.numpy() for x in tree_leaves(params)],
-            "opt_state": opt_state}
+    res = {"losses": losses, "grad_norm": float(out.grad_norm),
+           "state": None if state is None else [
+               x.numpy() for x in tree_leaves(state)],
+           "opt_state": opt_state}
+    grads = opt.grads
+    if tp is not None:
+        res["collectives"] = {k: collectives[k] - n0[k] for k in n0}
+        res["replicated"] = [x.numpy().copy() for x, s in zip(
+            tree_leaves(params), tp.sharded) if not s]
+        res["moment_specs"] = opt_state.specs
+        grads = tree_leaves(tp.gather(tree_unflatten(params, grads)))
+        params = tp.gather(params)
+    res["grads"] = [g.numpy() for g in grads]
+    res["params"] = [x.numpy() for x in tree_leaves(params)]
+    return res
 
 
 def rank_train_steps(rank, world, setup, ckpt_path):
@@ -512,4 +544,351 @@ def rank_trainers(rank, world, ppg2mel_run, deps, waveglow_config):
             zero_sharded_opt_state=True, data_parallel_devices=world)
     out["waveglow"] = (buf.getvalue(), it,
                        [x.numpy() for x in tree_leaves(params)])
+    return out
+
+
+# ------------------------------------ rank scenarios: tensor parallelism
+
+def rank_tp_collectives(mesh, seed=0):
+    """The three autograd collectives on this rank (parallel/tp.py), each
+    on the rank's part of one unsharded op, its forward output and its
+    input's gradient; `tp_collectives_one_process` computes the same op
+    whole in one process."""
+    from fac_via_ppg_torch.parallel.tp import (
+        copy_to_model,
+        gather_from_model,
+        reduce_from_model,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+    x, w, c = (torch.randn((3, 8), generator=g),
+               torch.randn((6, 8), generator=g),
+               torch.randn((3, 6), generator=g))
+    m, r, grp = mesh.shape["model"], mesh.model_rank, mesh.model_group
+    out = {}
+    # copy: the input to a column split (rank r holds rows of w)
+    rows = slice(r * 6 // m, (r + 1) * 6 // m)
+    xi = x.clone().requires_grad_()
+    y = copy_to_model(xi, grp) @ w[rows].T
+    (y * c[:, rows]).sum().backward()
+    out["copy"] = (y.detach().numpy(), xi.grad.numpy())
+    # reduce: a contraction split (rank r holds columns of w)
+    cols = slice(r * 8 // m, (r + 1) * 8 // m)
+    wi = w[:, cols].clone().requires_grad_()
+    y = reduce_from_model(x[:, cols] @ wi.T, grp)
+    (y * c).sum().backward()
+    out["reduce"] = (y.detach().numpy(), wi.grad.numpy())
+    # gather: an output split along dim 1
+    xi = (x @ w.T)[:, rows].clone().requires_grad_()
+    y = gather_from_model(xi, grp, 1)
+    (y * c).sum().backward()
+    out["gather"] = (y.detach().numpy(), xi.grad.numpy())
+    return out
+
+
+LSTM_SPLITS = {"both": ("weight_ih", "weight_hh"), "ih": ("weight_ih",),
+               "hh": ("weight_hh",)}
+
+
+def _lstm_case(seed=1):
+    from fac_via_ppg_torch.ops.layers import lstm_params
+
+    g = torch.Generator().manual_seed(seed)
+    p = lstm_params(g, 6, 4)
+    x, h, c = (torch.randn((3, 6), generator=g),
+               torch.randn((3, 4), generator=g),
+               torch.randn((3, 4), generator=g))
+    up = torch.randn((2, 3, 4), generator=g)
+    return p, x, h, c, up
+
+
+def lstm_cell_grads(p, x, h, c, up, x_proj=False):
+    """One lstm_cell step (its input projection up front with `x_proj`,
+    as ops/rnn.py runs it): (h', c') and the gradients of x, h and every
+    leaf of `p` against the upstream `up`."""
+    from fac_via_ppg_torch.ops.layers import lstm_cell, lstm_input_proj
+
+    names = ("weight_ih", "weight_hh", "bias_ih", "bias_hh")
+    leaves = {k: p[k].clone().requires_grad_() for k in names}
+    q = dict(leaves, **({"tp": p["tp"]} if "tp" in p else {}))
+    xi, hi = x.clone().requires_grad_(), h.clone().requires_grad_()
+    proj = lstm_input_proj(q, xi) if x_proj else None
+    hn, cn = lstm_cell(q, xi, hi, c, x_proj=proj)
+    grads = torch.autograd.grad((hn * up[0]).sum() + (cn * up[1]).sum(),
+                                [xi, hi] + [leaves[k] for k in names])
+    return [t.detach().numpy() for t in (hn, cn, *grads)]
+
+
+def rank_tp_lstm(mesh):
+    """lstm_cell with each gate stack split on its own or both, with and
+    without the input projection up front, on this rank's rows of the
+    split stacks: (h', c') and the gradients (the split stacks' this
+    rank's rows)."""
+    from fac_via_ppg_torch.parallel.tp import Split
+
+    m, r = mesh.shape["model"], mesh.model_rank
+    p, x, h, c, up = _lstm_case()
+    out = {}
+    for case, names in LSTM_SPLITS.items():
+        q = dict(p)
+        for k in names:
+            n = p[k].shape[0] // m
+            q[k] = p[k][r * n:(r + 1) * n]
+        q["tp"] = Split(mesh.model_group, r, {k: "out" for k in names})
+        for proj in (False, True):
+            out[(case, proj)] = lstm_cell_grads(q, x, h, c, up, proj)
+    return out
+
+
+def tp_collectives_one_process(seed=0):
+    """`rank_tp_collectives`' ops whole: (output, the whole input's
+    gradient) of each."""
+    g = torch.Generator().manual_seed(seed)
+    x, w, c = (torch.randn((3, 8), generator=g),
+               torch.randn((6, 8), generator=g),
+               torch.randn((3, 6), generator=g))
+    out = {}
+    xi = x.clone().requires_grad_()
+    y = xi @ w.T
+    (y * c).sum().backward()
+    out["copy"] = (y.detach().numpy(), xi.grad.numpy())
+    wi = w.clone().requires_grad_()
+    y = x @ wi.T
+    (y * c).sum().backward()
+    out["reduce"] = (y.detach().numpy(), wi.grad.numpy())
+    xi = (x @ w.T).clone().requires_grad_()
+    (xi * c).sum().backward()
+    out["gather"] = (xi.detach().numpy(), xi.grad.numpy())
+    return out
+
+
+def _tp_steps(setup, mesh, out, clip_binding=False):
+    """One TP step of each model on this rank's rows of the global
+    batches (the global masks injected), into `out`."""
+    for kind in ("t2", "wg"):
+        tp = tp_layout(kind, setup, mesh)
+        b = _rows(setup[f"{kind}_batch"], mesh.data_rank, mesh.shape["data"])
+        masks = setup["masks"] if kind == "t2" else None
+        r = train_step_out(kind, setup, b, mesh, masks, tp=tp)
+        r.pop("opt_state")
+        out[kind] = r
+        if clip_binding:
+            r = train_step_out(kind, setup, b, mesh, masks, tp=tp,
+                               clip=setup["tight_clip"])
+            r.pop("opt_state")
+            out[f"{kind}_clip"] = r
+
+
+def rank_tp_steps(rank, world, setup):
+    """On 2 ranks, a (1 data x 2 model) mesh: one TP step of each model,
+    and one whose clip binds."""
+    from fac_via_ppg_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model=2, device="cpu")
+    out = {}
+    _tp_steps(setup, mesh, out, clip_binding=True)
+    return out
+
+
+def rank_tp_tools(rank, world, setup, trainer_args, cli_runs):
+    """On 2 ranks, a (1 data x 2 model) mesh: the autograd collectives;
+    the WN int8 rungs through waveglow_infer, the vocoder CLI and the
+    bench under the mesh; both trainers' main() at
+    tensor_parallel_devices=2."""
+    from fac_via_ppg_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model=2, device="cpu")
+    return {"collectives": rank_tp_collectives(mesh),
+            "lstm": rank_tp_lstm(mesh),
+            "rungs": tp_rungs(setup, mesh),
+            "cli": rank_vocoder_cli(rank, world, cli_runs),
+            "bench": tp_bench(mesh),
+            "trainers": rank_tp_trainers(*trainer_args)}
+
+
+def tp_rungs(setup, mesh):
+    """waveglow_infer at the setup's tiny WaveGlow, in f32, dense and with
+    each WN int8 rung (in conv per column, per tensor, res_skip), tensor
+    parallel over `mesh` when given: each one's audio."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models import waveglow as tw
+    from fac_via_ppg_torch.weights import fold_waveglow
+
+    cfg = WaveGlowConfig(**setup["wg_cfg"])
+    params = tw.remove_weightnorm(fold_waveglow(setup["wg_params"]))
+    mel = torch.as_tensor(setup["rung_mel"])
+    runs = {"dense": {}, "in_column": dict(wn_int8_flows=cfg.n_flows),
+            "in_tensor": dict(wn_int8_flows=cfg.n_flows,
+                              wn_int8_quant="tensor"),
+            "rs": dict(wn_int8_rs_flows=cfg.n_flows)}
+    out = {}
+    with torch.no_grad():
+        for name, kw in runs.items():
+            out[name] = tw.waveglow_infer(
+                cfg, params, mel, 0.6, torch.Generator().manual_seed(3),
+                wn_impl="conv", mesh=mesh, **kw).numpy()
+    return out
+
+
+def tp_bench(mesh):
+    """The rtf bench's WN int8 rung flags at a tiny WaveGlow under `mesh`:
+    its JSON line."""
+    from fac_via_ppg_torch.bench import bench_waveglow_rtf
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+
+    cfg = WaveGlowConfig(n_mel_channels=80, hop_length=64, n_flows=2,
+                         n_group=8, n_early_every=4, n_early_size=2,
+                         wn_n_layers=2, wn_n_channels=16, wn_kernel_size=3,
+                         upsample_kernel_size=256)
+    return bench_waveglow_rtf(batch=2, seconds=0.1, warmup=1, iters=1,
+                              wn_impl="conv", cond_impl="int8",
+                              wn_int8_flows=2, wn_int8_rs_flows=1,
+                              cfg=cfg, mesh=mesh)
+
+
+def rank_tp_trainers(ppg2mel_run, deps, waveglow_config):
+    """Both trainers' main() at tensor_parallel_devices=2, ZeRO-1 asked
+    for (a no-op at data 1): (stdout, the last iteration, the whole
+    params) of each."""
+    import contextlib
+    import io
+
+    from fac_via_ppg_torch.data import ppg_mel_dataset as ds_mod
+    from fac_via_ppg_torch.frontend.ppg import DependenciesPPG
+    from fac_via_ppg_torch.scripts import train_ppg2mel, train_waveglow
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    the_deps = DependenciesPPG(**deps)
+    ds_mod.DependenciesPPG = lambda: the_deps
+    out = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        params, _, _, it = train_ppg2mel.main(
+            device="cpu", epochs=2, iters_per_checkpoint=2,
+            tensor_parallel_devices=2, zero_sharded_opt_state=True,
+            **ppg2mel_run)
+    out["ppg2mel"] = (buf.getvalue(), it,
+                      [x.numpy() for x in tree_leaves(params)])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        params, _, it = train_waveglow.main(
+            waveglow_config, device="cpu", epochs=2, iters_per_checkpoint=2,
+            tensor_parallel_devices=2)
+    out["waveglow"] = (buf.getvalue(), it,
+                       [x.numpy() for x in tree_leaves(params)])
+    return out
+
+
+def rank_tp_four(rank, world, setup, ckpt_path):
+    """On 4 ranks, a (2 data x 2 model) mesh: one TP step of each model;
+    three TP steps of each with and without ZeRO-1; a WaveGlow TP + ZeRO-1
+    run of two steps saved to `ckpt_path`, then its third step; that
+    checkpoint resumed at (4 x 1) with ZeRO-1, its next step."""
+    from fac_via_ppg_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(model=2, device="cpu")
+    out = {}
+    _tp_steps(setup, mesh, out)
+    for kind in ("t2", "wg"):
+        tp = tp_layout(kind, setup, mesh)
+        b = _rows(setup[f"{kind}_batch"], mesh.data_rank, mesh.shape["data"])
+        masks = setup["masks"] if kind == "t2" else None
+        runs = [train_step_out(kind, setup, b, mesh, masks, zero=z, steps=3,
+                               tp=tp) for z in (False, True)]
+        specs = runs[1]["moment_specs"]
+        out[f"zero_{kind}"] = {
+            "bit_equal": all(np.array_equal(a, c) for a, c in zip(
+                runs[0]["params"], runs[1]["params"])),
+            "losses": runs[1]["losses"],
+            "composed": sum("model" in str(s) and "data" in str(s)
+                            for s in specs),
+            "data_split": sum("data" in str(s) for s in specs)}
+    out["resume"] = tp_zero_run(setup, mesh, ckpt_path)
+    flat = make_mesh(model=1, device="cpu")
+    out["resume_4x1"] = tp_resume(setup, ckpt_path, flat)
+    return out
+
+
+def _wg_rows(setup, i, mesh):
+    batch = setup["wg_batches"][i]
+    if mesh is None:
+        return tuple(torch.as_tensor(x) for x in batch)
+    return _rows(batch, mesh.data_rank, mesh.shape["data"])
+
+
+def tp_zero_run(setup, mesh, path):
+    """WaveGlow TP + ZeRO-1: two steps on the setup's batches, the
+    checkpoint written (rank 0 writes whole tensors), the third step's
+    loss and the params after it (whole)."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.train import step as t_step
+    from fac_via_ppg_torch.train.optim import make_optimizer
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    tp = tp_layout("wg", setup, mesh)
+    opt = make_optimizer(1e-3)
+    params = tp.shard(_copy(setup["wg_params"]))
+    step = t_step.make_waveglow_train_step(
+        WaveGlowConfig(**setup["wg_cfg"]), opt, sigma=0.7, mesh=mesh, tp=tp)
+    opt_state = opt.init(params, mesh=mesh, zero=True, tp=tp)
+    for i in range(2):
+        step(params, opt_state, _wg_rows(setup, i, mesh))
+    ckpt.save_checkpoint(path, params, opt_state, 1e-3, 1, mesh=mesh, tp=tp)
+    loss = float(step(params, opt_state, _wg_rows(setup, 2, mesh)).loss)
+    nxt = float(step(params, opt_state, _wg_rows(setup, 2, mesh)).loss)
+    return {"loss": loss, "next_loss": nxt,
+            "params": [x.numpy() for x in tree_leaves(tp.gather(params))]}
+
+
+def tp_resume(setup, path, mesh):
+    """The TP checkpoint at `path` read on `mesh` (ZeRO-1 where its data
+    axis is above 1; None: one process, plain Adam): the third batch's
+    step twice, its losses, and the params after them."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.train import checkpoint as ckpt
+    from fac_via_ppg_torch.train import step as t_step
+    from fac_via_ppg_torch.train.optim import make_optimizer
+    from fac_via_ppg_torch.utils.tree import tree_leaves
+
+    payload = ckpt.load_checkpoint(path)
+    opt = make_optimizer(1e-3)
+    params = payload["params"]
+    opt_state = opt.init(params, mesh=mesh, zero=mesh is not None)
+    opt_state.load_state_dict(payload["opt_state"])
+    step = t_step.make_waveglow_train_step(
+        WaveGlowConfig(**setup["wg_cfg"]), opt, sigma=0.7, mesh=mesh)
+    loss = float(step(params, opt_state, _wg_rows(setup, 2, mesh)).loss)
+    nxt = float(step(params, opt_state, _wg_rows(setup, 2, mesh)).loss)
+    return {"loss": loss, "next_loss": nxt,
+            "params": [x.numpy() for x in tree_leaves(params)]}
+
+
+def rank_tp_identity(rank, world):
+    """The three autograd collectives over this 1-rank job's model group
+    (a group of one: each the identity), on this rank's card: whether the
+    output and the input's gradient equal the input and the upstream
+    gradient bit for bit, and the collectives counted."""
+    import torch.distributed as dist
+
+    from fac_via_ppg_torch.parallel.mesh import collectives, make_mesh
+    from fac_via_ppg_torch.parallel.tp import (
+        copy_to_model,
+        gather_from_model,
+        reduce_from_model,
+    )
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(device=dev)
+    g = torch.Generator(dev).manual_seed(0)
+    out = {"backend": dist.get_backend()}
+    n0 = dict(collectives)
+    for name, op in (("copy", copy_to_model), ("reduce", reduce_from_model),
+                     ("gather", lambda x, grp: gather_from_model(x, grp, 1))):
+        x = torch.randn((4, 6), generator=g, device=dev).requires_grad_()
+        up = torch.randn((4, 6), generator=g, device=dev)
+        y = op(x, mesh.model_group)
+        (grad,) = torch.autograd.grad(y, x, up)
+        out[name] = {"equal": torch.equal(y, x) and torch.equal(grad, up)}
+    out["counted"] = {k: collectives[k] - n0[k] for k in n0}
     return out
