@@ -63,6 +63,7 @@ from fac_via_ppg_torch.ops.wn_layer import (
     wn_layer,
 )
 from fac_via_ppg_torch.parallel.tp import copy_to_model, reduce_from_model
+from fac_via_ppg_torch.train.profiling import span
 from fac_via_ppg_torch.weights import fold_wn
 
 
@@ -470,15 +471,25 @@ def _in_conv_int8(pk: dict, x: torch.Tensor, dilation: int,
     return out.to(x.dtype).transpose(1, 2)
 
 
+def _project_span(x: torch.Tensor, N: int, impl: str, esz: int):
+    """The span of one stacked cond projection of the grouped spect or
+    its codes `x` (B, K, G) onto N = L*2C channels: M = B*G rows, `impl`
+    "int8" or "dense", `esz` the bytes of the spect's dtype."""
+    B, K, G = x.shape
+    return span("waveglow.cond.project", x.device, M=B * G, K=K, N=N,
+                impl=impl, esz=esz)
+
+
 def _cond_int8(sq: torch.Tensor, s_scale: torch.Tensor, pk: dict,
                out_dtype: torch.dtype) -> torch.Tensor:
     """The stacked cond projection on int8 codes, channels-last
     (B, G, L*2C): int32 accumulation, then acc * s_scale * w_scale + bias
     in f32 (the JAX package's order), rounded to out_dtype.  s_scale is a
     scalar (per-tensor) or (B, G) (per-column)."""
-    acc = _int8_conv1x1(pk["wq"], sq)
-    s = s_scale if s_scale.dim() == 0 else s_scale[:, :, None]
-    return (acc.float() * s * pk["w_scale"] + pk["bias"]).to(out_dtype)
+    with _project_span(sq, pk["wq"].shape[0], "int8", out_dtype.itemsize):
+        acc = _int8_conv1x1(pk["wq"], sq)
+        s = s_scale if s_scale.dim() == 0 else s_scale[:, :, None]
+        return (acc.float() * s * pk["w_scale"] + pk["bias"]).to(out_dtype)
 
 
 def _cond_all(wn: dict, spect_grouped: torch.Tensor,
@@ -488,9 +499,13 @@ def _cond_all(wn: dict, spect_grouped: torch.Tensor,
     `cond_int8 = (codes, scale, flow pack)` runs it in int8."""
     if cond_int8 is not None:
         return _cond_int8(*cond_int8, spect_grouped.dtype).transpose(1, 2)
-    w = torch.cat([p["weight"] for p in wn["cond_layers"]], dim=0)
-    b = torch.cat([p["bias"] for p in wn["cond_layers"]], dim=0)
-    return conv1d({"weight": w, "bias": b}, spect_grouped)
+    layers = wn["cond_layers"]
+    N = sum(p["weight"].shape[0] for p in layers)
+    with _project_span(spect_grouped, N, "dense",
+                       spect_grouped.element_size()):
+        w = torch.cat([p["weight"] for p in layers], dim=0)
+        b = torch.cat([p["bias"] for p in layers], dim=0)
+        return conv1d({"weight": w, "bias": b}, spect_grouped)
 
 
 def fold_wn_tp(wn: dict, group) -> dict:
@@ -655,8 +670,10 @@ def wn_apply_layer(cfg: WaveGlowConfig, packed: dict,
     dt = audio_half.dtype
     x = _dense(audio_half.transpose(1, 2), packed["start_w"],
                packed["start_b"], dt).contiguous()
-    cond = _dense(spect_grouped.transpose(1, 2), packed["cond_w"],
-                  packed["cond_b"], dt)                     # (B, T, L*2C)
+    with _project_span(spect_grouped, packed["cond_w"].shape[1], "dense",
+                       spect_grouped.element_size()):
+        cond = _dense(spect_grouped.transpose(1, 2), packed["cond_w"],
+                      packed["cond_b"], dt)                 # (B, T, L*2C)
     img = "in_img" in packed
     skip_sum = None
     for i in range(L):
@@ -702,8 +719,10 @@ def wn_apply_flow(cfg: WaveGlowConfig, packed: dict,
     nothing is padded."""
     dt = audio_half.dtype
     if cond_int8 is None:
-        cond = _dense(spect_grouped.transpose(1, 2), packed["cond_w"],
-                      packed["cond_b"], dt)                 # (B, T, L*2C)
+        with _project_span(spect_grouped, packed["cond_w"].shape[1],
+                           "dense", spect_grouped.element_size()):
+            cond = _dense(spect_grouped.transpose(1, 2), packed["cond_w"],
+                          packed["cond_b"], dt)             # (B, T, L*2C)
     else:
         cond = _cond_int8(*cond_int8, dt)
     return wn_flow(packed, audio_half.contiguous(), cond)
@@ -892,82 +911,94 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
         if wn_int8_flows and cfg.wn_kernel_size != 3:
             raise ValueError("wn_int8_flows supports wn_kernel_size=3 "
                              f"only, got {cfg.wn_kernel_size}")
-    if dtype is not None:
-        params = cast_params(params, dtype)
-        spect = spect.to(dtype)
-    if model_group is not None:
-        wn_local = (packed_wn if packed_wn is not None
-                    else tp_shard_waveglow(params, mesh))["wn"]
-    dev = spect.device
-    spect_g = upsample_grouped(params["upsample"], spect, cfg.hop_length,
-                               cfg.n_group)
-    dt = spect_g.dtype
-    B, _, G = spect_g.shape
-    if noise is None:
-        noise = waveglow_noise(cfg, B, G, generator, dev)
-    noise_iter = iter(noise)
-
-    def draw():
-        return torch.as_tensor(next(noise_iter), dtype=torch.float32,
-                               device=dev)
-
-    audio = (sigma * draw()).to(dt)
-    packed = None
-    if wn_impl == "layer":
-        packed = packed_wn or pack_waveglow_layer(cfg, params)
-    elif wn_impl == "flow":
-        packed = packed_wn or pack_waveglow_flow(cfg, params)
-    wn8 = None
-    if wn_int8_flows or wn_int8_rs_flows:
-        wn8 = packed_wn_int8
-        if wn8 is None:
-            wn8 = pack_waveglow_wn_int8(cfg, params)
-            if model_group is not None:
-                wn8 = tp_shard_wn_int8(wn8, mesh)
-    cond_q = None
-    if cond_impl == "int8":
-        pack_c = packed_cond
-        if pack_c is None:
-            pack_c = pack_waveglow_int8cond(cfg, params)
-            if model_group is not None:
-                pack_c = tp_shard_int8cond(cfg, pack_c, mesh)
-        # the spect is constant across flows: quantized once per call
-        quantize = (quantize_per_column_int8 if cond_quant == "column"
-                    else quantize_per_tensor_int8)
-        cond_q = quantize(spect_g)
-
-    for k in reversed(range(cfg.n_flows)):
-        n_half = audio.shape[1] // 2
-        audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
-        c8 = None if cond_q is None else (*cond_q, pack_c[k])
+    B, F_ = spect.shape[0], spect.shape[2]
+    with span("waveglow.infer", spect.device, B=B,
+              G=F_ * cfg.hop_length // cfg.n_group, flows=cfg.n_flows):
+        if dtype is not None:
+            params = cast_params(params, dtype)
+            spect = spect.to(dtype)
         if model_group is not None:
-            wn_out = wn_apply(
-                cfg, wn_local[k], audio_0, spect_g, c8,
-                in_int8=wn8[k] if k < wn_int8_flows else None,
-                in_int8_quant=wn_int8_quant,
-                rs_int8=wn8[k] if k < wn_int8_rs_flows else None,
-                model_group=model_group)
-        elif wn_impl == "layer":
-            wn_out = wn_apply_layer(cfg, packed[k], audio_0, spect_g)
-        elif wn_impl == "flow":
-            wn_out = wn_apply_flow(cfg, packed[k], audio_0, spect_g, c8)
-        else:
-            wn_out = wn_apply(
-                cfg, params["wn"][k], audio_0, spect_g, c8,
-                in_int8=wn8[k] if k < wn_int8_flows else None,
-                in_int8_quant=wn_int8_quant,
-                rs_int8=wn8[k] if k < wn_int8_rs_flows else None)
-        s, b = wn_out[:, n_half:], wn_out[:, :n_half]
-        audio_1 = (audio_1 - b) * torch.exp(-s)
-        audio = torch.cat([audio_0, audio_1], dim=1)
+            wn_local = (packed_wn if packed_wn is not None
+                        else tp_shard_waveglow(params, mesh))["wn"]
+        dev = spect.device
+        with span("waveglow.upsample", dev, B=B, frames=F_):
+            spect_g = upsample_grouped(params["upsample"], spect,
+                                       cfg.hop_length, cfg.n_group)
+        dt = spect_g.dtype
+        B, K, G = spect_g.shape
+        if noise is None:
+            noise = waveglow_noise(cfg, B, G, generator, dev)
+        noise_iter = iter(noise)
 
-        conv = params["convinv"][k]
-        w_inv = conv.get("weight_inverse")
-        if w_inv is None:
-            w_inv = torch.linalg.inv(conv["weight"].float())
-        audio = torch.einsum("oc,bct->bot", w_inv.float(),
-                             audio.float()).to(dt)
-        if k % cfg.n_early_every == 0 and k > 0:
-            z = (sigma * draw()).to(dt)
-            audio = torch.cat([z, audio], dim=1)
-    return ungroup_audio(audio)
+        def draw():
+            return torch.as_tensor(next(noise_iter), dtype=torch.float32,
+                                   device=dev)
+
+        audio = (sigma * draw()).to(dt)
+        packed = None
+        if wn_impl == "layer":
+            packed = packed_wn or pack_waveglow_layer(cfg, params)
+        elif wn_impl == "flow":
+            packed = packed_wn or pack_waveglow_flow(cfg, params)
+        wn8 = None
+        if wn_int8_flows or wn_int8_rs_flows:
+            wn8 = packed_wn_int8
+            if wn8 is None:
+                wn8 = pack_waveglow_wn_int8(cfg, params)
+                if model_group is not None:
+                    wn8 = tp_shard_wn_int8(wn8, mesh)
+        cond_q = None
+        if cond_impl == "int8":
+            pack_c = packed_cond
+            if pack_c is None:
+                pack_c = pack_waveglow_int8cond(cfg, params)
+                if model_group is not None:
+                    pack_c = tp_shard_int8cond(cfg, pack_c, mesh)
+            # the spect is constant across flows: quantized once per call
+            quantize = (quantize_per_column_int8 if cond_quant == "column"
+                        else quantize_per_tensor_int8)
+            with span("waveglow.cond.quantize", dev, M=B * G, K=K,
+                      esz=spect_g.element_size()):
+                cond_q = quantize(spect_g)
+
+        for k in reversed(range(cfg.n_flows)):
+            n_half = audio.shape[1] // 2
+            c8 = None if cond_q is None else (*cond_q, pack_c[k])
+            with span("waveglow.coupling", dev, B=B, T=G, n_half=n_half,
+                      C=cfg.wn_n_channels, L=cfg.wn_n_layers,
+                      esz=audio.element_size()):
+                audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
+                if model_group is not None:
+                    wn_out = wn_apply(
+                        cfg, wn_local[k], audio_0, spect_g, c8,
+                        in_int8=wn8[k] if k < wn_int8_flows else None,
+                        in_int8_quant=wn_int8_quant,
+                        rs_int8=wn8[k] if k < wn_int8_rs_flows else None,
+                        model_group=model_group)
+                elif wn_impl == "layer":
+                    wn_out = wn_apply_layer(cfg, packed[k], audio_0,
+                                            spect_g)
+                elif wn_impl == "flow":
+                    wn_out = wn_apply_flow(cfg, packed[k], audio_0,
+                                           spect_g, c8)
+                else:
+                    wn_out = wn_apply(
+                        cfg, params["wn"][k], audio_0, spect_g, c8,
+                        in_int8=wn8[k] if k < wn_int8_flows else None,
+                        in_int8_quant=wn_int8_quant,
+                        rs_int8=wn8[k] if k < wn_int8_rs_flows else None)
+                s, b = wn_out[:, n_half:], wn_out[:, :n_half]
+                audio_1 = (audio_1 - b) * torch.exp(-s)
+                audio = torch.cat([audio_0, audio_1], dim=1)
+
+            with span("waveglow.inverse", dev, B=B, T=G, c=audio.shape[1]):
+                conv = params["convinv"][k]
+                w_inv = conv.get("weight_inverse")
+                if w_inv is None:
+                    w_inv = torch.linalg.inv(conv["weight"].float())
+                audio = torch.einsum("oc,bct->bot", w_inv.float(),
+                                     audio.float()).to(dt)
+                if k % cfg.n_early_every == 0 and k > 0:
+                    z = (sigma * draw()).to(dt)
+                    audio = torch.cat([z, audio], dim=1)
+        return ungroup_audio(audio)

@@ -24,7 +24,7 @@ from fac_via_ppg_torch.scripts.make_substitute_am import make_bundle
 from fac_via_ppg_torch.train import checkpoint as ckpt
 from fac_via_ppg_torch.train import preemption
 from fac_via_ppg_torch.train.optim import make_optimizer
-from fac_via_ppg_torch.train.profiling import StepTimer, annotate, trace
+from fac_via_ppg_torch.train.profiling import span, spans, trace
 from fac_via_ppg_torch.train.step import make_tacotron2_train_step
 from fac_via_ppg_torch.utils.tree import tree_leaves
 
@@ -348,14 +348,18 @@ def test_unported_options_raise(tmp_path, option, value, match,
 
 
 def test_profiling_trace_and_timer(tmp_path):
-    timer = StepTimer()
     with trace(str(tmp_path / "prof")):
-        with timer, annotate("matmul"):
+        with span("matmul", None, n=8):
             torch.ones(8, 8) @ torch.ones(8, 8)
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
-    assert timer.duration > 0 and timer.ema == timer.duration
+    with open(tmp_path / "prof" / "trace.json") as f:
+        assert '"matmul"' in f.read()
+    (rec,) = spans()
+    assert rec.name == "matmul" and rec.attrs == {"n": 8}
+    assert rec.seconds > 0 and rec.self_seconds == rec.seconds
     with trace(""):  # disabled
-        pass
+        with span("off"):
+            pass
+    assert [s.name for s in spans()] == ["matmul"]
 
 
 def test_parse_overrides():
