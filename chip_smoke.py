@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; there is no CPU path):
-  1. build both kernels at once (csrc/wn_layer.cu, csrc/wn_flow.cu, both
+  1. build the kernels at once (csrc/wn_layer.cu, csrc/wn_flow.cu, both
      with the shared bf16 wgmma tile csrc/wn_wgmma.cuh and f32 SIMT tile
-     csrc/wn_simt.cuh; one nvcc each for sm_90a) and print their ptxas
-     register / spill lines;
+     csrc/wn_simt.cuh, and csrc/cond_int8.cu; one nvcc each for sm_90a)
+     and print their ptxas register / spill lines;
   2. print the bf16 and f32 layer kernels' registers, spills (ptxas),
      dynamic shared memory and blocks per SM; hold the WN layer kernel against
      `wn_layer_plain` on the card: dilations 1, 2, 8, 128 and the last
@@ -37,9 +37,13 @@ Phases (any failure exits nonzero; there is no CPU path):
      dict by the port's exporter: 16 seeded mels of 449-512 frames, -b 8
      --mel_bucket 64 -s 0.6 -d 0.005, bf16, --wn_impl flow (two batches of
      8 x 512 frames); check each wav and 12 flow kernel launches per
-     batch; then --cond_impl auto over the first 8 mels; profile one
-     batch's device work; check torch._int_mm against the exact int32 CPU
-     product, bit for bit;
+     batch; then --cond_impl auto over the first 8 mels (the int8 cond
+     kernel 12 launches a call, counted_cond); profile one
+     batch's device work; hold the int8 cond projection's kernel
+     (ops/cond_int8.py) against its plain version and the exact int32 CPU
+     chain, bit for bit, and time it at the vocoder cell's mean bucket
+     (B=24 x 640 frames) beside its bound, the plain version and the
+     torch._int_mm chain it replaced (`library_ms`);
   7. time both kernels and their plain versions at their main path's
      shapes, with each one's bound; and both f32 forms, held against their
      plain versions, at the synthesis CLI's shape (B=8, T=20000: 8
@@ -57,8 +61,8 @@ Phases (any failure exits nonzero; there is no CPU path):
      as a directory, --batch_size 8, (d) (c) with --cond_impl int8, (e)
      (c) with --cond_impl auto; check every wav (16 kHz int16, finite, not
      constant, 1000 * hop long), >= 96 layer kernel launches per dense
-     batch and 12 flow kernel launches per int8 batch; profile one batch
-     of (c);
+     batch and 12 flow kernel launches per int8 batch, 12 int8 cond
+     kernel launches a call in (d) and (e); profile one batch of (c);
   9. streaming, and the decode on the card (models/tacotron2.py::decode:
      k-step chunks, each a CUDA graph replay): (a) at B=8, T_in=448,
      M=1000 (full-width Tacotron2, seeded, one set of prenet masks), the
@@ -74,7 +78,7 @@ Phases (any failure exits nonzero; there is no CPU path):
      2-4 s: every PCM checked, >= 96 layer kernel launches a batch, the
      native MFCC built and serving; depth 1 against depth 2 on one
      front-end thread, bit for bit; cond_impl="int8" (12 flow kernel
-     launches a batch); the staged route over 2 wavs; the native MFCC
+     and 12 int8 cond kernel launches a batch); the staged route over 2 wavs; the native MFCC
      against numpy at dither 0 (1e-3); (d) the streaming CLI in-process on
      a generated .pt pair, --fused --batch_size 8 over 8 wavs;
  10. training (TF32 off): (a) one Tacotron2 train step at full width
@@ -129,7 +133,9 @@ Phases (any failure exits nonzero; there is no CPU path):
      frames 400), read by eval/roofline.py: the flow and layer kernels'
      floors equal to flow_bound / layer_bound summed over their launches
      at the traced shapes, their traced times within TRACE_TOL of the
-     same launches timed alone by CUDA events; (c) eval/duration_check's
+     same launches timed alone by CUDA events, and so the int8 cond
+     kernel's 12 launches in the rtf call (the bench's rtf line 12 a
+     call); (c) eval/duration_check's
      CLI on 2 seeded wavs with a random Tacotron2 at create_hparams() in
      the PPG trainer's checkpoint format (a random model may run to
      CAP);
@@ -145,7 +151,8 @@ Phases (any failure exits nonzero; there is no CPU path):
      bench rtf --wn_impl conv --cond_impl int8 with --wn_int8_flows 0, 12,
      12 --wn_int8_quant tensor and --wn_int8_rs_flows 12 (1 + 2 calls,
      batch WN8_BENCH_BATCH x 10 s); run_ladder(include_wn_int8=True) on 4
-     mels x 2 s, every rung's SNR; (c) Denoiser(mode="normal") on the card
+     mels x 2 s, every rung's SNR; 12 int8 cond kernel launches a call
+     in each; (c) Denoiser(mode="normal") on the card
      against the CPU, the bias template within 1e-4; (d) eval/runbook.py
      --stages am on the substitute AM and 4 wavs; trained_parity's
      framework_serve (full width, SERVE_STEPS steps, gate held off) on the
@@ -170,10 +177,11 @@ Phases (any failure exits nonzero; there is no CPU path):
      loss within 1e-5; waveglow_infer tensor parallel over the ranks
      (conv formulation) at PAR_TP_B x PAR_TP_FRAMES against the
      one-process conv call: f32 within 1e-4 of the audio's max, bf16
-     within PAR_TP_BF16_TOL, int8 cond within 25 dB SNR of dense; the
-     vocoder CLI with --data_parallel (PAR_CLI: the flow kernel, int8
-     cond) against the one-process CLI (wavs within 1 step, n_flows flow
-     launches a batch on every rank); train_waveglow.main under the mesh
+     within PAR_TP_BF16_TOL, int8 cond within 25 dB SNR of dense (n_flows
+     cond kernel launches at the rank's N); the vocoder CLI with
+     --data_parallel (PAR_CLI: the flow kernel, int8 cond) against the
+     one-process CLI (wavs within 1 step, n_flows flow and n_flows cond
+     kernel launches a batch on every rank); train_waveglow.main under the mesh
      (ZeRO-1, PAR_TRAIN_ITERS iterations: loss lines on rank 0 alone,
      params equal on every rank, its checkpoint whole).  The same ranks
      then train tensor parallel on a (world/2 data x 2 model) mesh: one
@@ -201,6 +209,7 @@ Imports nothing of JAX or of the JAX package.
     python3 chip_smoke.py --time-layer CHECKOUT
     python3 chip_smoke.py --time-f32 CHECKOUT
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --cond
     python3 chip_smoke.py --tools
     python3 chip_smoke.py --measure
     python3 chip_smoke.py --tools2
@@ -212,7 +221,9 @@ run only the flow kernel (at the CLI's shape), only the layer kernel
 f32 forms (at the synthesis CLI's shape, B=8, T=20000; TF32 off, atol
 1e-4) of the port in CHECKOUT (another commit unpacked with `git
 archive`): build, hold against the plain versions and time as phase 7
-does; print one JSON line.  `--train` runs phase 10 alone, `--tools`
+does; print one JSON line.  `--cond` builds the int8 cond kernel alone
+and runs phase 6's check and timing of it (a `cond:` line).  `--train`
+runs phase 10 alone, `--tools`
 phase 11 (with the flow kernel's build), `--measure` phase 12,
 `--tools2` phase 13 and `--parallel` phase 14 (each with both kernels'
 builds); `--cards N` runs phase 14 (b)'s rank checks on N NCCL ranks,
@@ -1010,6 +1021,7 @@ def run_cli(wf, tmp):
     --mel_bucket 64 -s 0.6 -d 0.005, bf16, --wn_impl flow; then
     --cond_impl auto over the first 8 mels."""
     from fac_via_ppg_torch.scripts import waveglow_inference as cli
+    from fac_via_ppg_torch.utils.inference import load_waveglow_model
 
     cfg, ckpt, paths, frames = write_cli_inputs(tmp)
     lists = {}
@@ -1032,45 +1044,150 @@ def run_cli(wf, tmp):
             n != cfg.n_flows * len(per_batch):
         raise AssertionError(f"expected {cfg.n_flows} flow kernel launches "
                              f"per batch, got {per_batch} (total {n})")
-    auto = cli.main(lists["first8"], ckpt, f"{tmp}/out8", 0.6, 0.005,
-                    cond_impl="auto", **kw)
+    with counted_cond("cli_auto", cfg.n_flows) as c8:
+        auto = cli.main(lists["first8"], ckpt, f"{tmp}/out8", 0.6, 0.005,
+                        cond_impl="auto", **kw)
+    # the gate's calibration call, then each batch if it served int8
+    if auto["cond_impl"] == "int8" and \
+            c8["calls"] < 1 + len(auto["batches"]):
+        raise AssertionError(f"cli --cond_impl auto: {c8} for "
+                             f"{len(auto['batches'])} int8 batches")
     check_wavs(f"{tmp}/out8", paths[:8], frames[:8], cfg.hop_length)
     log(f"cli --cond_impl auto: served {auto['cond_impl']!r}, gate's "
         f"worst-utterance SNR {auto['gate_snr_db']} dB")
     log("cli profile: " + json.dumps(profile_cli_batch(cfg, ckpt, paths)))
-    return summary, n, auto, check_int_mm(cfg, ckpt)
+    return summary, n, auto, check_cond_int8(cfg,
+                                          load_waveglow_model(ckpt, cfg))
 
 
-def check_int_mm(cfg, ckpt):
-    """torch._int_mm (the int8 cond projection on CUDA) against the exact
-    int32 CPU product, bit for bit: the CLI batch's codes (B=8 x 512
-    frames) against flow 0's int8 weights, every 160th row checked."""
+def check_cond_int8(cfg, params):
+    """The int8 cond projection's kernel (ops/cond_int8.py) against its
+    plain version on the card, bit for bit, at the CLI batch's shapes
+    (B=8 x 512 frames, flow 0's int8 pack), every 160th row also against
+    the exact int32 chain on the CPU; then its time at the vocoder cell's
+    mean bucket (B=24 x 640 frames, M = 307,200 rows) beside its bound
+    (the products at int8's peak), the plain version's (a float64 product
+    on the card), and `library_ms`, the chain the port ran before
+    (torch._int_mm, then the f32 passes), which it no longer calls."""
     from fac_via_ppg_torch.models.waveglow import (
-        _int8_matmul,
         pack_waveglow_int8cond,
-        quantize_per_column_int8,
+        quantize_cond,
     )
-    from fac_via_ppg_torch.utils.inference import load_waveglow_model
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
+    from fac_via_ppg_torch.weights import move
 
-    pk = pack_waveglow_int8cond(cfg, load_waveglow_model(ckpt, cfg))[0]
+    pk = move(pack_waveglow_int8cond(cfg, params)[0], torch.device("cuda"))
+    N, K = pk["wq"].shape
     g = torch.Generator("cuda").manual_seed(SEED + 5)
-    G = MEL_FRAMES[1] * cfg.hop_length // cfg.n_group
-    spect = torch.randn((CLI_BATCH, cfg.n_mel_channels * cfg.n_group, G),
-                        generator=g, device="cuda")
-    sq, _ = quantize_per_column_int8(spect)
-    rows = sq.transpose(1, 2).reshape(CLI_BATCH * G, -1)
-    wq = pk["wq"].T.to("cuda")
-    got = _int8_matmul(rows, wq)
+    bf16 = torch.bfloat16
+
+    def codes_at(B, frames):
+        G = frames * cfg.hop_length // cfg.n_group
+        return quantize_cond(torch.randn((B, K, G), generator=g,
+                                         device="cuda"))
+
+    codes, s = codes_at(CLI_BATCH, MEL_FRAMES[1])
+    n0 = ci8.launches
+    got = ci8.cond_int8(codes, s, pk, bf16)
     torch.cuda.synchronize()
-    idx = torch.arange(0, rows.shape[0], 160, device="cuda")
-    want = torch.matmul(rows[idx].cpu().int(), wq.cpu().int())
-    same = torch.equal(got[idx].cpu(), want)
-    log(f"torch._int_mm ({rows.shape[0]} x {rows.shape[1]}) @ "
-        f"({wq.shape[0]} x {wq.shape[1]}) -> {got.dtype}: {len(idx)} rows "
-        f"{'bit-equal to' if same else 'DIFFER from'} the CPU int32 product")
-    if got.dtype != torch.int32 or not same:
-        raise AssertionError("torch._int_mm disagrees with the exact product")
-    return len(idx)
+    same = torch.equal(got, ci8.cond_int8_plain(codes, s, pk, bf16))
+    M = codes.shape[0] * codes.shape[1]
+    idx = torch.arange(0, M, 160, device="cuda")
+    want = ci8.cond_int8_plain(
+        codes.reshape(M, K)[idx][None].cpu(), s.reshape(M)[idx][None].cpu(),
+        move(pk, torch.device("cpu")), bf16)
+    same_cpu = torch.equal(got.reshape(M, N)[idx][None].cpu(), want)
+    log(f"cond_int8 ({M} x {K}) @ ({K} x {N}) -> {got.dtype}: "
+        f"{'bit-equal to' if same else 'DIFFERS from'} the plain version, "
+        f"{len(idx)} rows {'bit-equal to' if same_cpu else 'DIFFER from'} "
+        f"the CPU int32 chain; {ci8.launches - n0} launch")
+    if not (same and same_cpu) or ci8.launches != n0 + 1:
+        raise AssertionError("the cond kernel disagrees with its plain "
+                             "version")
+    del got
+    codes, s = codes_at(24, 640)
+    B, G = codes.shape[:2]
+    M = B * G
+
+    def library():
+        acc = torch._int_mm(codes.reshape(M, K), pk["wq"].T.contiguous())
+        return ci8.dequantize(acc.reshape(B, G, N), s, pk, bf16)
+
+    rl = roofline()
+    bound_ms, bound_by = rl.floor_ms(*rl.cond_counts(M, K, N, bf16),
+                                     torch.int8)
+    out = {"M": M, "K": K, "N": N, "rows_bit_equal": len(idx),
+           "ms": cuda_ms(lambda: ci8.cond_int8(codes, s, pk, bf16)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "store_ms": M * N * 2 / 3.35e12 * 1e3,
+           "plain_ms": cuda_ms(
+               lambda: ci8.cond_int8_plain(codes, s, pk, bf16), reps=3,
+               warmup=1),
+           "library_ms": cuda_ms(library, reps=5, warmup=1)}
+    same = torch.equal(ci8.cond_int8(codes, s, pk, bf16), library())
+    log(f"cond_int8 at M={M}: {out['ms']:.4f} ms (bound "
+        f"{out['bound_ms']:.4f} ms by {bound_by}, {out['store_ms']:.4f} "
+        f"ms to store the bf16 cond), plain {out['plain_ms']:.4f} ms, "
+        f"torch._int_mm chain {out['library_ms']:.4f} ms, "
+        f"{'bit-equal to' if same else 'DIFFERS from'} it")
+    if not same:
+        raise AssertionError("the cond kernel disagrees with the "
+                             "torch._int_mm chain")
+    return out
+
+
+# the int8 cond kernel's launches on each smoke path that runs int8 cond,
+# for the kernels line (counted_cond's keys)
+COND_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def counted_cond(key, n_flows, min_calls=1):
+    """Counts the int8 cond kernel's launches over the block
+    (ops/cond_int8.py's `launches`, set to 0 here) and the int8
+    `waveglow_infer` calls (each quantizes its codes once: models/
+    waveglow.py::quantize_cond, wrapped for the block); holds n_flows
+    launches a call and at least `min_calls` calls.  Yields a dict that
+    holds "launches" and "calls" after the block; keeps the launches
+    under COND_LAUNCHES[key]."""
+    from fac_via_ppg_torch.models import waveglow as tw
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
+
+    quantize, calls, rec = tw.quantize_cond, [], {}
+
+    def counted(*a, **k):
+        calls.append(1)
+        return quantize(*a, **k)
+
+    tw.quantize_cond, ci8.launches = counted, 0
+    try:
+        yield rec
+    finally:
+        tw.quantize_cond = quantize
+    rec.update(launches=ci8.launches, calls=len(calls))
+    COND_LAUNCHES[key] = rec["launches"]
+    log(f"cond kernel, {key}: {rec['launches']} launches in {rec['calls']} "
+        "int8 calls")
+    if rec["calls"] < min_calls or rec["launches"] != n_flows * rec["calls"]:
+        raise AssertionError(f"{key}: {rec['launches']} cond kernel launches "
+                             f"in {rec['calls']} int8 calls, not {n_flows} a "
+                             f"call over at least {min_calls} calls")
+
+
+def run_cond(card):
+    """`--cond`: the cond kernel's build report, registers, spills and
+    shared memory, and `check_cond_int8` on a seeded full-width WaveGlow."""
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
+
+    report = build_kernels((ci8,))[0]
+    blocks, smem = ci8.kernel_resources()
+    res = {"kernels": [{"name": name, "registers": regs,
+                        "spill_bytes": spill}
+                       for name, regs, spill in ptxas_entries(report)],
+           "smem_bytes": smem, "blocks_per_sm": blocks}
+    cfg, params = waveglow_params(SEED + 3)
+    log("cond: " + json.dumps({"card": card, **res,
+                               **check_cond_int8(cfg, params)}))
 
 
 def write_t2_pt(path, seed):
@@ -1182,14 +1299,19 @@ def run_synthesis(wl, wf, tmp):
         for name, extra in runs.items():
             wl.launches = wf.launches = 0
             t0 = time.time()
-            summary = gs.main(base + ["--output_dir", f"{tmp}/{name}",
-                                      "--teacher_utterance_path"] + extra)
+            with (counted_cond(f"synth_{name}", wg_cfg.n_flows)
+                  if "--cond_impl" in extra
+                  else contextlib.nullcontext({})) as c8:
+                summary = gs.main(base + ["--output_dir", f"{tmp}/{name}",
+                                          "--teacher_utterance_path"]
+                                  + extra)
             torch.cuda.synchronize()
             wall = time.time() - t0
             res = {"wall_s": wall, "wavs": len(summary["outputs"]),
                    "cond_impl": summary["cond_impl"],
                    "wn_layer_launches": wl.launches,
                    "wn_flow_launches": wf.launches,
+                   "cond_int8_launches": c8.get("launches", 0),
                    "batches": summary["batches"]}
             want = 1 if name[0] in "ab" else len(wavs)
             if res["wavs"] != want:
@@ -1198,6 +1320,10 @@ def run_synthesis(wl, wf, tmp):
             # every route decodes all 1000 steps; the staged route's
             # denoiser keeps the length too
             check_synth_wavs(summary["outputs"], 160)
+            if summary["cond_impl"] == "int8" and \
+                    c8["calls"] < len(summary["batches"]):
+                raise AssertionError(f"{name}: {c8} for "
+                                     f"{len(summary['batches'])} batches")
             for b in summary["batches"]:
                 if summary["cond_impl"] == "int8":
                     ok = (b["wn_flow_launches"] == wg_cfg.n_flows
@@ -1525,6 +1651,7 @@ def run_streaming(wl, wf, tmp):
     from fac_via_ppg_torch.eval.streaming import StreamingAccentConverter
     from fac_via_ppg_torch.frontend import feat as feat_mod
     from fac_via_ppg_torch.frontend import mfcc as mfcc_mod
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
 
     t2_cfg, t2_params, t2_state, wg_cfg, wg_params = serving_models()
     t2_cfg = dataclasses.replace(t2_cfg, max_decoder_steps=MAX_FRAMES)
@@ -1552,12 +1679,13 @@ def run_streaming(wl, wf, tmp):
             return out
 
         def timed_launch(*a, **k):
-            n = (wl.launches, wf.launches)
+            n = (wl.launches, wf.launches, ci8.launches)
             t = time.time()
             handle = launch(*a, **k)
             stages["launch_s"] += time.time() - t
             stages["launches"].append([wl.launches - n[0],
-                                       wf.launches - n[1]])
+                                       wf.launches - n[1],
+                                       ci8.launches - n[2]])
             return handle
 
         def timed_collect(handle):
@@ -1600,7 +1728,7 @@ def run_streaming(wl, wf, tmp):
         wl.launches, wf.launches
     launches = stages.pop("launches")
     if len(launches) != STREAM_WAVS // STREAM_BATCH or any(
-            n_l < 96 or n_f for n_l, n_f in launches):
+            n_l < 96 or n_f or n_c for n_l, n_f, n_c in launches):
         raise AssertionError(f"dense stream launches per batch {launches}")
     if native.calls < STREAM_WAVS:
         raise AssertionError(f"native MFCC served {native.calls} calls")
@@ -1635,11 +1763,14 @@ def run_streaming(wl, wf, tmp):
     int8_conv, int8_stages = converter(
         fused=True, batch_size=STREAM_BATCH, frontend_threads=2,
         pipeline_depth=2, cond_impl="int8")
-    wl.launches = wf.launches = 0
+    wl.launches = wf.launches = ci8.launches = 0
     _, out["int8_wall_s"] = serve(int8_conv, SEED + 15)
     out["int8_wn_flow_launches"] = wf.launches
+    out["int8_cond_launches"] = ci8.launches
     launches = int8_stages["launches"]
-    if any(n_l or n_f != wg_cfg.n_flows for n_l, n_f in launches):
+    if any(n_l or n_f != wg_cfg.n_flows or n_c != wg_cfg.n_flows
+           for n_l, n_f, n_c in launches) \
+            or ci8.launches != wg_cfg.n_flows * len(launches):
         raise AssertionError(f"int8 stream launches per batch {launches}")
     out["int8_launches_per_batch"] = launches
     del int8_conv
@@ -2556,7 +2687,9 @@ def trace_rtf_flow(wf, tmp):
     """One bench rtf call at its defaults (B=24 x 10 s, bf16, the flow
     kernel, int8 cond) under torch.profiler, read by eval/roofline.py:
     the flow kernel's row against flow_bound and against the 12 launches
-    timed alone by CUDA events at the traced shapes."""
+    timed alone by CUDA events at the traced shapes; the cond kernel's
+    row (12 launches) against the same 12 projections timed alone.
+    Returns both rows."""
     from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
     from fac_via_ppg_torch.models.waveglow import (
         cast_params,
@@ -2564,9 +2697,11 @@ def trace_rtf_flow(wf, tmp):
         init_waveglow,
         pack_waveglow_flow,
         pack_waveglow_int8cond,
+        quantize_cond,
         remove_weightnorm,
         waveglow_infer,
     )
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
     from fac_via_ppg_torch.weights import move
 
     rl, bf16, dev = roofline(), torch.bfloat16, torch.device("cuda")
@@ -2589,7 +2724,7 @@ def trace_rtf_flow(wf, tmp):
                            packed_cond=packed_cond).float().sum().item()
 
     call()
-    counts = rl.waveglow_counts(cfg, B, F, bf16, "flow")
+    counts = rl.waveglow_counts(cfg, B, F, bf16, "flow", cond_impl="int8")
     rows = traced_rows(call, f"{tmp}/rtf.json", counts,
                        f"trace rtf wn_flow B={B} T={T}")
     log_roofline("rtf (flow, bf16, int8 cond)", rows)
@@ -2610,8 +2745,24 @@ def trace_rtf_flow(wf, tmp):
                 for f, b, dt in counts["wn_flow_bf16_kernel"])
     if abs(bound - table) > 1e-12 * bound:
         raise AssertionError("the count table is not flow_bound's")
-    return trace_row(rows, counts, event_ms,
-                     f"trace rtf wn_flow B={B} T={T}")
+    key = "wn_flow_bf16_kernel"
+    flow_row = trace_row(rows, {key: counts[key]}, event_ms,
+                         f"trace rtf wn_flow B={B} T={T}")
+    del halves, cond
+    codes, s = quantize_cond(torch.randn(
+        (B, cfg.n_mel_channels * cfg.n_group, T), generator=g,
+        device="cuda"))
+
+    def projections():
+        for k in reversed(range(cfg.n_flows)):
+            ci8.cond_int8(codes, s, packed_cond[k], bf16)
+
+    key = "cond_int8_kernel"
+    cond_row = trace_row(rows, {key: counts[key]},
+                         cuda_ms_queued(projections),
+                         f"trace rtf cond_int8 B={B} T={T}")
+    COND_LAUNCHES["traced_rtf"] = len(counts[key])
+    return flow_row, cond_row
 
 
 def trace_fused_layer(wl, models, tmp):
@@ -2709,6 +2860,7 @@ def run_measure(card, wl, wf):
     roofline of a traced rtf call and a traced fused batch; the duration
     check."""
     from fac_via_ppg_torch import bench
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 
     t0 = time.time()
     n_l, n_f = wl.launches, wf.launches
@@ -2726,11 +2878,15 @@ def run_measure(card, wl, wf):
     }
     lines = {}
     for name, run in runs.items():
-        lines[name] = run()
+        # the rtf line's defaults run int8 cond
+        with (counted_cond("bench_rtf", WaveGlowConfig().n_flows)
+              if name == "rtf" else contextlib.nullcontext()):
+            lines[name] = run()
         check_bench_line(name, lines[name])
         log(f"bench {name}: " + json.dumps(lines[name]))
     with tempfile.TemporaryDirectory() as tmp:
-        traces = {"rtf_wn_flow": trace_rtf_flow(wf, tmp),
+        flow_row, cond_row = trace_rtf_flow(wf, tmp)
+        traces = {"rtf_wn_flow": flow_row, "rtf_cond_int8": cond_row,
                   "e2e_fused_wn_layer": trace_fused_layer(wl, models, tmp)}
         durations = run_duration_check(tmp)
     wl.launches, wf.launches = n_l, n_f
@@ -2905,10 +3061,11 @@ def run_wn_int8_cli(tmp):
     with open(filelist, "w") as fh:
         fh.write("\n".join(paths[:8]) + "\n")
     t0 = time.time()
-    summary = cli.main(filelist, ckpt, f"{tmp}/wn8", 0.6, 0.005,
-                       batch_size=CLI_BATCH, compute_dtype="bfloat16",
-                       wn_impl="conv", cond_impl="int8", mel_bucket=64,
-                       wn_int8_flows=4)
+    with counted_cond("wn_int8_cli", cfg.n_flows):
+        summary = cli.main(filelist, ckpt, f"{tmp}/wn8", 0.6, 0.005,
+                           batch_size=CLI_BATCH, compute_dtype="bfloat16",
+                           wn_impl="conv", cond_impl="int8", mel_bucket=64,
+                           wn_int8_flows=4)
     check_wavs(f"{tmp}/wn8", paths[:8], frames[:8], cfg.hop_length)
     out = {"batches": [(b["rows"], b["frames"]) for b in summary["batches"]],
            "vocoder_s": [b["vocoder_s"] for b in summary["batches"]],
@@ -2925,19 +3082,25 @@ def run_wn_int8_bench():
     12, 12 --wn_int8_quant tensor and --wn_int8_rs_flows 12, 1 + 2 calls
     each, batch cut to 4 x 10 s (the CLI's 24) for the phase's time."""
     from fac_via_ppg_torch import bench
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 
     lines = {}
-    for name, kw in (("wn_int8_flows 0", {}),
-                     ("wn_int8_flows 12", dict(wn_int8_flows=12)),
-                     ("wn_int8_flows 12 --wn_int8_quant tensor",
-                      dict(wn_int8_flows=12, wn_int8_quant="tensor")),
-                     ("wn_int8_rs_flows 12", dict(wn_int8_rs_flows=12))):
-        lines[name] = bench.bench_waveglow_rtf(
-            batch=WN8_BENCH_BATCH, warmup=1, iters=2, wn_impl="conv",
-            cond_impl="int8", **kw)
-        check_bench_line(name, lines[name])
-        log(f"slice12: bench rtf --wn_impl conv --cond_impl int8 --{name} "
-            f"(batch {WN8_BENCH_BATCH}): " + json.dumps(lines[name]))
+    runs = (("wn_int8_flows 0", {}),
+            ("wn_int8_flows 12", dict(wn_int8_flows=12)),
+            ("wn_int8_flows 12 --wn_int8_quant tensor",
+             dict(wn_int8_flows=12, wn_int8_quant="tensor")),
+            ("wn_int8_rs_flows 12", dict(wn_int8_rs_flows=12)))
+    # 1 + 2 int8 calls a line at least
+    with counted_cond("wn_int8_bench", WaveGlowConfig().n_flows,
+                      min_calls=3 * len(runs)):
+        for name, kw in runs:
+            lines[name] = bench.bench_waveglow_rtf(
+                batch=WN8_BENCH_BATCH, warmup=1, iters=2, wn_impl="conv",
+                cond_impl="int8", **kw)
+            check_bench_line(name, lines[name])
+            log(f"slice12: bench rtf --wn_impl conv --cond_impl int8 "
+                f"--{name} (batch {WN8_BENCH_BATCH}): "
+                + json.dumps(lines[name]))
     return {k: v["value"] for k, v in lines.items()}
 
 
@@ -2953,9 +3116,12 @@ def run_wn_int8_ladder():
     params = move(remove_weightnorm(params), torch.device("cuda"))
     mel = torch.as_tensor(np.random.RandomState(SEED + 75).randn(
         4, cfg.n_mel_channels, 200) * 0.5 - 5.0, dtype=torch.float32)
-    ladder = run_ladder(cfg, params, mel, 0.6, seed=0, include_wn_int8=True,
-                        detailed=True, wn_impl="flow")
     n = cfg.n_flows
+    # the seven int8 rungs
+    with counted_cond("ladder", n, min_calls=7):
+        ladder = run_ladder(cfg, params, mel, 0.6, seed=0,
+                            include_wn_int8=True, detailed=True,
+                            wn_impl="flow")
     want = {"bf16_dense", "bf16_int8", "f32_int8", "bf16_int8_wn4",
             "bf16_int8_wn8", f"bf16_int8_wn{n}", f"bf16_int8_wn{n}t",
             f"bf16_int8_rs{n}"}
@@ -3295,6 +3461,7 @@ def par_tp(mesh):
     max |error| over max |reference|, the SNR, each call's wall s and its
     all-reduces."""
     from fac_via_ppg_torch.models import waveglow as tw
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
     from fac_via_ppg_torch.parallel.mesh import collectives
     from fac_via_ppg_torch.weights import move
 
@@ -3325,11 +3492,15 @@ def par_tp(mesh):
         out[key] = {"err_rel": float((dense - ref).abs().max()
                                      / ref.abs().max()),
                     "one_process_s": ref_s, "tp_s": s, "all_reduces": n}
-    # int8 cond against the bf16 dense call above, both tensor parallel
+    # int8 cond against the bf16 dense call above, both tensor parallel:
+    # the cond kernel at this rank's N, once a flow
     pk = tw.tp_shard_int8cond(cfg, tw.pack_waveglow_int8cond(cfg, params),
                               mesh)
+    ci8.launches = 0
     int8, s, _ = call(p, mesh=mesh, packed_wn=local, cond_impl="int8",
                       packed_cond=pk)
+    out["int8_cond_launches"] = ci8.launches
+    out["int8_cond_n"] = int(pk[0]["wq"].shape[0])
     err = (int8 - dense).double()
     out["int8_snr_db"] = float(10 * torch.log10(
         (dense.double() ** 2).sum() / (err ** 2).sum()))
@@ -3377,16 +3548,18 @@ def par_cli(tmp, out, **kw):
     """The vocoder CLI (scripts/waveglow_inference.main) as a user runs
     it with PAR_CLI's options on write_par_inputs' files, writing to
     tmp/out: its flow kernel launches, each batch's launches and rows,
-    its wall s and the mesh line it printed."""
+    its wall s and the mesh line it printed; the int8 cond kernel's
+    launches."""
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
     from fac_via_ppg_torch.ops import wn_flow as wf
     from fac_via_ppg_torch.scripts import waveglow_inference as cli
 
-    wf.launches = 0
+    wf.launches = ci8.launches = 0
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         s = cli.main(f"{tmp}/cli_mels.txt", f"{tmp}/waveglow.pt",
                      f"{tmp}/{out}", 0.6, 0.005, **PAR_CLI, **kw)
-    return {"launches": wf.launches,
+    return {"launches": wf.launches, "cond_launches": ci8.launches,
             "launches_per_batch": [b["launches"] for b in s["batches"]],
             "rows_per_batch": [b["rows"] for b in s["batches"]],
             "wall_s": s["wall_s"],
@@ -3701,12 +3874,14 @@ def check_ranks(card, res, one, rows_ref, resume, cli_one, tmp, frames,
     int8 cond 25 dB from dense; the ZeRO-1 checkpoint's next loss within
     1e-5 of the one-process resume; the data-parallel vocoder CLI's wavs
     (tmp/cli_dp) within 1 step of the one-process CLI's (`cli_one`,
-    tmp/cli_one) at the mels' lengths, n_flows flow kernel launches a
-    batch on every rank; the trainer's iterations on every rank, its loss
-    lines on rank 0 alone, its params equal on every rank and its
+    tmp/cli_one) at the mels' lengths, n_flows flow kernel and n_flows
+    int8 cond kernel launches a batch on every rank; n_flows cond kernel
+    launches in the TP int8 call; the trainer's iterations on every rank,
+    its loss lines on rank 0 alone, its params equal on every rank and its
     checkpoint loading at world 1.  Prints a `parallel:` line a rank, then
     fails on the first rank that disagrees; returns the ranks' layer
-    launches in the fused batch and flow launches in the CLI."""
+    launches in the fused batch, flow and cond launches in the CLI and
+    cond launches in the TP call."""
     from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
     from fac_via_ppg_torch.train import checkpoint as ckpt
     from fac_via_ppg_torch.train.optim import make_optimizer
@@ -3764,6 +3939,9 @@ def check_ranks(card, res, one, rows_ref, resume, cli_one, tmp, frames,
                 or cli_diff > 1 \
                 or cli["launches_per_batch"] != [n_flows] * len(
                     cli["launches_per_batch"]) \
+                or cli["cond_launches"] != n_flows * len(
+                    cli["launches_per_batch"]) \
+                or tp["int8_cond_launches"] != n_flows \
                 or cli["mesh"] != [f"vocoder mesh: {world} data x 1 model"] \
                 or tr["iterations"] != PAR_TRAIN_ITERS \
                 or len(tr["loss_lines"]) != want_lines \
@@ -3776,7 +3954,9 @@ def check_ranks(card, res, one, rows_ref, resume, cli_one, tmp, frames,
         raise AssertionError(f"phase 14: rank {failed[0]} of {world} "
                              "disagrees (its parallel: line above)")
     return ([r["serve"]["launches"] for r in res],
-            [r["cli"]["launches"] for r in res])
+            [r["cli"]["launches"] for r in res],
+            [r["cli"]["cond_launches"] for r in res],
+            [r["tp"]["int8_cond_launches"] for r in res])
 
 
 def run_ranks_on_cards(card, world, backend, devices, pairs, tmp):
@@ -3849,9 +4029,10 @@ def run_parallel(card):
     fused batch data parallel against the same synthesizer without a
     mesh, one DP + ZeRO-1 step of each trainer against the one-process
     step; (b) PAR_RANKS spawned gloo ranks sharing cuda:0 (rank_parallel)
-    against the one-process runs.  Returns the ranks' layer kernel
-    launches in their fused batch and flow kernel launches in the vocoder
-    CLI."""
+    against the one-process runs.  Returns check_ranks' launches: the
+    ranks' layer kernel launches in their fused batch, flow and int8 cond
+    kernel launches in the vocoder CLI, cond kernel launches in the TP
+    call."""
     import torch.distributed as dist
 
     from fac_via_ppg_torch.ops import wn_layer as wl
@@ -3932,6 +4113,9 @@ def main():
     ap.add_argument("--measure", action="store_true",
                     help="only run phase 12, the bench, the roofline and "
                     "the duration check")
+    ap.add_argument("--cond", action="store_true",
+                    help="only build the int8 cond kernel and run its "
+                    "check and timing (phase 6's check_cond_int8)")
     ap.add_argument("--tools2", action="store_true",
                     help="only run phase 13, the grouped upsampler, the WN "
                     "int8 rungs, the denoiser's normal mode, the runbook "
@@ -3954,6 +4138,7 @@ def main():
     if args.time_f32:
         return time_f32_at(args.time_f32)
     try:
+        from fac_via_ppg_torch.ops import cond_int8 as ci8
         from fac_via_ppg_torch.ops import wn_flow as wf
         from fac_via_ppg_torch.ops import wn_layer as wl
         from fac_via_ppg_torch.weights import move
@@ -3967,28 +4152,31 @@ def main():
     if args.train:
         run_training(card)
         return 0
+    if args.cond:
+        run_cond(card)
+        return 0
     if args.tools:
-        build_kernels((wf,))
+        build_kernels((wf, ci8))
         run_tools(card, wf)
         return 0
     if args.measure:
-        build_kernels((wl, wf))
+        build_kernels((wl, wf, ci8))
         run_measure(card, wl, wf)
         return 0
     if args.tools2:
-        build_kernels((wl, wf))
+        build_kernels((wl, wf, ci8))
         run_slice12(card, wl, wf)
         return 0
     if args.parallel:
-        build_kernels((wl, wf))
+        build_kernels((wl, wf, ci8))
         run_parallel(card)
         return 0
     if args.cards:
-        build_kernels((wl, wf))
+        build_kernels((wl, wf, ci8))
         run_cards(card, args.cards)
         return 0
 
-    reports = build_kernels((wl, wf))
+    reports = build_kernels((wl, wf, ci8))
     layer_res = kernel_resources(wl, reports[0], "wn_layer_bf16_kernel")
     layer_res.update(kernel_resources(wl, reports[0], "wn_layer_f32_kernel",
                                       torch.float32))
@@ -4016,7 +4204,7 @@ def main():
     del synth
 
     with tempfile.TemporaryDirectory() as tmp:
-        cli, flow_launches, auto, int_mm_rows = run_cli(wf, tmp)
+        cli, flow_launches, auto, cond8 = run_cli(wf, tmp)
     log("cli: " + json.dumps({
         "card": card, "batch": CLI_BATCH, "mels": N_MELS,
         "vocoder_s_per_batch": [b["vocoder_s"] for b in cli["batches"]],
@@ -4025,7 +4213,7 @@ def main():
         "audio_s_per_wall_s": cli["audio_s"] / cli["wall_s"],
         "auto_cond_impl": auto["cond_impl"],
         "auto_gate_snr_db": auto["gate_snr_db"],
-        "int_mm_rows_bit_equal": int_mm_rows}))
+        "cond_int8_rows_bit_equal": cond8["rows_bit_equal"]}))
     flow_t = time_flow_kernel(wf)
     f_ms, f_plain_ms, f_bound_ms, f_bound_by = flow_t[torch.bfloat16]
     f32_synth = time_f32_at_synth(wl, wf)
@@ -4074,7 +4262,7 @@ def main():
     tools = run_tools(card, wf)
     run_measure(card, wl, wf)
     grouped = run_slice12(card, wl, wf)
-    par_layer, par_flow = run_parallel(card)
+    par_layer, par_flow, par_cond_cli, par_cond_tp = run_parallel(card)
     log(json.dumps({"kernels": [{
         "name": "wn_layer", "route": "cuda",
         "source": "fac_via_ppg_torch/csrc/wn_layer.cu",
@@ -4107,7 +4295,16 @@ def main():
             tools["pickled"]["flow_launches"].values()),
         "launches_grouped": grouped["wn_flow"],
         "launches_parallel_cli_per_rank": par_flow,
-        **flow_res, "library_ms": None}]}))
+        **flow_res, "library_ms": None}, {
+        "name": "cond_int8", "route": "cuda",
+        "source": "fac_via_ppg_torch/csrc/cond_int8.cu", "replaces": None,
+        **{k: cond8[k] for k in ("rows_bit_equal", "M", "K", "N", "ms",
+                                 "bound_ms", "bound_by", "plain_ms",
+                                 "library_ms")},
+        **{f"launches_{k}": n for k, n in COND_LAUNCHES.items()},
+        "launches_stream_int8": stream["int8_cond_launches"],
+        "launches_parallel_cli_per_rank": par_cond_cli,
+        "launches_parallel_tp_per_rank": par_cond_tp}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -624,8 +624,9 @@ def parse_args(argv=None):
     parser.add_argument("--cond_impl", default="int8",
                         choices=["dense", "int8"],
                         help="int8 (default): the stacked cond projections "
-                             "as int8 matmuls (torch._int_mm; lossy, gate "
-                             "it with eval/int8_snr.py); dense: bf16.  "
+                             "as int8 matmuls (the cond kernel, "
+                             "ops/cond_int8.py; lossy, gate it with "
+                             "eval/int8_snr.py); dense: bf16.  "
                              "Applies to rtf / e2e_fused / e2e_fused_batch "
                              "/ streaming_fused; e2e and streaming are "
                              "staged and always dense")

@@ -8,7 +8,8 @@ name, start and duration, and neither count.  So the time comes from the
 trace and the counts from a table the caller passes: `counts` maps a
 substring of a kernel's name to the launches of that kernel in one call,
 each `(flops, bytes, dtype)`.  The hand kernels' counts are here
-(`layer_counts`, `flow_counts`, `waveglow_counts`), and so are their
+(`layer_counts`, `flow_counts`, `cond_counts`, `waveglow_counts`), and
+so are their
 bounds (`layer_bound`, `flow_bound`), which chip_smoke.py quotes, so that
 a bound in PERF.md and a floor in this table come from one formula.  A
 kernel with no count gets `floor_ms` None, never a guessed one.
@@ -24,7 +25,7 @@ them):
         [--counts counts.json]
 
 Peaks are an H100 SXM's (dense): 67 TFLOP/s f32 on the CUDA cores, 989
-TFLOP/s bf16 on the tensor cores, 3.35 TB/s HBM3.  The floor of a launch
+TFLOP/s bf16 and 1,979 TOP/s int8 on the tensor cores, 3.35 TB/s HBM3.  The floor of a launch
 is max(bytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]); a kernel's floor
 is the sum over its launches in one call.  A kernel at ~100 % of its
 floor cannot be made faster without changing its bytes or operations.
@@ -41,7 +42,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM dense
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.int8: 1979e12}  # H100 SXM dense
 PEAK_BYTES = 3.35e12
 
 
@@ -100,6 +102,15 @@ def flow_bound(B: int, T: int, n_half: int, dtype, C: int = 256,
     return (flops, nbytes) + floor_ms(flops, nbytes, dtype)
 
 
+def cond_counts(M: int, K: int, N: int, dtype) -> tuple:
+    """(int8 operations, bytes) of one int8 cond projection launch
+    (ops/cond_int8.py): operations 2*M*K*N; bytes: the (M, K) codes, the
+    (N, K) weights, the (M, N) output in `dtype` once, the row scales and
+    the f32 w_scale and bias."""
+    esz = 2 if _dtype(dtype) == torch.bfloat16 else 4
+    return 2 * M * K * N, M * K + N * K + M * N * esz + 4 * (M + 2 * N)
+
+
 def kernel_name(op: str, dtype, C: int = 256, last: bool = False) -> str:
     """The CUDA kernel (as a trace names it, demangled) that a WN op
     ("layer" or "flow") launches in `dtype`: the Hopper tiles at C = 256,
@@ -115,10 +126,13 @@ def kernel_name(op: str, dtype, C: int = 256, last: bool = False) -> str:
 
 
 def waveglow_counts(cfg, batch: int, n_frames: int, dtype,
-                    wn_impl: str) -> Dict[str, list]:
+                    wn_impl: str, cond_impl: str = "dense"
+                    ) -> Dict[str, list]:
     """The hand kernels' launches in one `waveglow_infer` call on a
     (batch, n_mel, n_frames) mel: {kernel name: [(flops, bytes, dtype),
-    ...]}; {} for wn_impl "conv"."""
+    ...]}: the WN kernels of `wn_impl` (none for "conv"), and with
+    cond_impl "int8" the cond kernel's, one a flow (its operations in
+    int8)."""
     from fac_via_ppg_torch.models.waveglow import flow_channels
 
     dtype = _dtype(dtype) or torch.float32
@@ -135,6 +149,10 @@ def waveglow_counts(cfg, batch: int, n_frames: int, dtype,
                 last = i == L - 1
                 counts[kernel_name("layer", dtype, C, last)].append(
                     layer_counts(batch, T, dtype, C, last) + (dtype,))
+        if cond_impl == "int8":
+            counts["cond_int8_kernel"].append(cond_counts(
+                batch * T, cfg.n_mel_channels * cfg.n_group, L * 2 * C,
+                dtype) + (torch.int8,))
     return dict(counts)
 
 
@@ -142,20 +160,34 @@ def waveglow_counts(cfg, batch: int, n_frames: int, dtype,
 
 def capture(fn, path: str, calls: int = 1) -> str:
     """Run `fn` `calls` times under torch.profiler (CPU and CUDA activity)
-    and write its chrome trace to `path`; returns `path`."""
-    from torch.profiler import ProfilerActivity, profile
+    and write its chrome trace to `path`; returns `path`.  `fn` runs
+    calls + 1 times in all: one more call runs first, in the profiler's
+    warm-up step, whose records are dropped (a freshly started profiler
+    loses the kernel records of its first tens of milliseconds, the first
+    flows of a vocoder call), so a counter read around `capture` counts
+    calls + 1 calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
-        torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        for _ in range(calls):
-            fn()
+
+    def step():
         if cuda:
             torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
+        prof.step()
+
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+        fn()
+        step()
+        for _ in range(calls):
+            fn()
+        step()
     return path
 
 
@@ -272,6 +304,7 @@ def kernel_table(trace: str, calls: int = 1,
 FAMILIES = {
     "wn_flow (hand)": ("wn_flow",),
     "wn_layer (hand)": ("wn_layer",),
+    "cond_int8 (hand)": ("cond_int8",),
     "conv (cuDNN)": ("conv", "fprop", "dgrad", "wgrad", "winograd"),
     "gemm (cuBLAS)": ("gemm", "gemv", "xmma", "cutlass", "kernel2"),
     "fft (cuFFT)": ("fft",),

@@ -21,7 +21,9 @@ Three coupling-net implementations:
 
 The cond projection runs dense or, with `cond_impl="int8"`, as an int8
 matmul with int32 accumulation (per-column activation scales,
-per-out-channel weight scales) and exact dequantization.  The WN int8
+per-out-channel weight scales) and exact dequantization: on the card one
+launch of the hand-written kernel of ops/cond_int8.py, on channels-last
+codes made once a call (`quantize_cond`).  The WN int8
 rungs (conv formulation only, as in the JAX package) also run the dilated
 in_layer convs and the res_skip convs of chosen flows on int8 codes
 (`pack_waveglow_wn_int8`).  Training and inference both take the grouped
@@ -54,6 +56,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+from fac_via_ppg_torch.ops.cond_int8 import cond_int8
 from fac_via_ppg_torch.ops.layers import conv1d
 from fac_via_ppg_torch.ops.wn_flow import pack_wn_flow, wn_flow
 from fac_via_ppg_torch.ops.wn_image import KERNEL_C
@@ -84,8 +87,8 @@ def tp_shard_int8cond(cfg: WaveGlowConfig, packed: list, mesh) -> list:
     """This rank's rows of `pack_waveglow_int8cond`'s packs: each layer's
     two gate halves cut as the dense cond_layers are
     (parallel/sharding.py::int8cond_shardings).  On the card the rows feed
-    torch._int_mm, whose N (the row count, L*2C/model) must be a multiple
-    of 8."""
+    the cond kernel (ops/cond_int8.py), whose N (the row count,
+    L*2C/model) must be a multiple of 8."""
     from fac_via_ppg_torch.parallel.sharding import (
         apply_shardings,
         int8cond_shardings,
@@ -95,7 +98,7 @@ def tp_shard_int8cond(cfg: WaveGlowConfig, packed: list, mesh) -> list:
     if packed[0]["wq"].is_cuda and n % 8:
         raise ValueError(f"int8 cond under model_parallel="
                          f"{mesh.shape['model']} gives {n} rows a rank; "
-                         f"torch._int_mm needs a multiple of 8")
+                         f"the int8 cond kernel needs a multiple of 8")
     return apply_shardings(packed, int8cond_shardings(mesh, packed,
                                                       cfg.wn_n_layers),
                            mesh)
@@ -480,16 +483,28 @@ def _project_span(x: torch.Tensor, N: int, impl: str, esz: int):
                 impl=impl, esz=esz)
 
 
-def _cond_int8(sq: torch.Tensor, s_scale: torch.Tensor, pk: dict,
+def quantize_cond(spect_grouped: torch.Tensor, quant: str = "column"):
+    """The grouped spect (B, K, G) as `_cond_int8` takes it, once a call:
+    its int8 codes channels-last (B, G, K), the kernel's K-major rows,
+    and their scale, (B, G) per (batch, position) column (quant="column")
+    or one per tensor ("tensor")."""
+    quantize = (quantize_per_column_int8 if quant == "column"
+                else quantize_per_tensor_int8)
+    q, s = quantize(spect_grouped)
+    return q.transpose(1, 2).contiguous(), s
+
+
+def _cond_int8(codes: torch.Tensor, s_scale: torch.Tensor, pk: dict,
                out_dtype: torch.dtype) -> torch.Tensor:
-    """The stacked cond projection on int8 codes, channels-last
-    (B, G, L*2C): int32 accumulation, then acc * s_scale * w_scale + bias
-    in f32 (the JAX package's order), rounded to out_dtype.  s_scale is a
-    scalar (per-tensor) or (B, G) (per-column)."""
-    with _project_span(sq, pk["wq"].shape[0], "int8", out_dtype.itemsize):
-        acc = _int8_conv1x1(pk["wq"], sq)
-        s = s_scale if s_scale.dim() == 0 else s_scale[:, :, None]
-        return (acc.float() * s * pk["w_scale"] + pk["bias"]).to(out_dtype)
+    """The stacked cond projection on the channels-last int8 codes
+    (B, G, K) of `quantize_cond`, channels-last (B, G, L*2C): int32
+    accumulation, then acc * s_scale * w_scale + bias in f32 (the JAX
+    package's order), rounded to out_dtype (ops/cond_int8.py: one kernel
+    launch on the card).  s_scale is a scalar (per-tensor) or (B, G)
+    (per-column)."""
+    with _project_span(codes.transpose(1, 2), pk["wq"].shape[0], "int8",
+                       out_dtype.itemsize):
+        return cond_int8(codes, s_scale, pk, out_dtype)
 
 
 def _cond_all(wn: dict, spect_grouped: torch.Tensor,
@@ -955,11 +970,9 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                 if model_group is not None:
                     pack_c = tp_shard_int8cond(cfg, pack_c, mesh)
             # the spect is constant across flows: quantized once per call
-            quantize = (quantize_per_column_int8 if cond_quant == "column"
-                        else quantize_per_tensor_int8)
             with span("waveglow.cond.quantize", dev, M=B * G, K=K,
                       esz=spect_g.element_size()):
-                cond_q = quantize(spect_g)
+                cond_q = quantize_cond(spect_g, cond_quant)
 
         for k in reversed(range(cfg.n_flows)):
             n_half = audio.shape[1] // 2

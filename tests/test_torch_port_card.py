@@ -30,6 +30,13 @@ its shape guard, the tap products on the card against the CPU (the same
 codes, within 1e-6 of the output's scale); and the grouped upsampler's
 spect feeding both kernels, bit for bit equal to the two-step spect's.
 
+And the int8 cond projection's kernel (ops/cond_int8.py) against its
+plain version, bit for bit (torch.equal), at the vocoder cell's shortest
+and longest buckets, a ragged single utterance, N = 4096 / 2048 / 1024
+(whole, and a rank's rows under tensor parallelism), per-column and
+per-tensor scales, bf16 and f32; its launch count per `waveglow_infer`
+call and the shapes it refuses.
+
 And several GPUs' collectives: a 1-rank NCCL group and 2 gloo ranks
 sharing cuda:0 (NCCL refuses two ranks on one card), each collective the
 port relies on and the global batch norm against one process's.
@@ -812,6 +819,124 @@ def test_int8_matmul_names_a_shape_int_mm_refuses(card):
     with pytest.raises(ValueError, match="M=32, K=12, N=512"):
         _int8_matmul(torch.zeros((32, 12), dtype=torch.int8, device=card),
                      torch.zeros((12, 512), dtype=torch.int8, device=card))
+
+
+# ----------------------------------------------- the int8 cond projection
+
+HOP_GROUPS = 20          # grouped positions a mel frame: hop 160 / n_group 8
+
+
+def _cond_inputs(B, frames, N, quant, seed, device):
+    """The codes of a seeded grouped spect (B, 640, frames x 20), one
+    position all zero (scale 1e-8 / 127, codes 0), and a seeded (N, 640)
+    int8 pack with per-row scales and a bias, on the card."""
+    from fac_via_ppg_torch.models.waveglow import _per_row_int8, quantize_cond
+
+    g = torch.Generator(device).manual_seed(seed)
+    G = frames * HOP_GROUPS
+    spect = torch.randn((B, 640, G), generator=g, device=device) \
+        * torch.linspace(0.1, 3.0, G, device=device)
+    spect[0, :, G // 2] = 0.0
+    codes, s = quantize_cond(spect, quant)
+    wq, w_scale = _per_row_int8(
+        torch.randn((N, 640), generator=g, device=device) * 0.05)
+    bias = torch.randn((N,), generator=g, device=device) * 0.1
+    return codes, s, {"wq": wq, "w_scale": w_scale, "bias": bias}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,frames,N,quant,dtype", [
+    (24, 256, 4096, "column", torch.bfloat16),   # the cell's shortest bucket
+    (24, 1024, 4096, "column", torch.bfloat16),  # and its longest
+    (1, 37, 4096, "column", torch.bfloat16),     # ragged: M = 740
+    (1, 37, 2048, "tensor", torch.float32),
+    (1, 37, 1024, "column", torch.float32),
+    (3, 50, 2048, "column", torch.bfloat16),
+    (2, 64, 1024, "tensor", torch.bfloat16),
+    (24, 256, 4096, "tensor", torch.float32),
+])
+def test_cond_int8_kernel_equals_plain(card, B, frames, N, quant, dtype):
+    """One counted launch against cond_int8_plain (an exact float64
+    product on the card, then the f32 chain) a batch row at a time, and
+    the first row against the chain the kernel replaced (torch._int_mm,
+    then the same f32 passes): torch.equal; the all-zero position gives
+    the bias."""
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
+
+    codes, s, pk = _cond_inputs(B, frames, N, quant, B * frames + N, card)
+    G = frames * HOP_GROUPS
+    n0 = ci8.launches
+    got = ci8.cond_int8(codes, s, pk, dtype)
+    torch.cuda.synchronize()
+    assert ci8.launches == n0 + 1
+    assert got.shape == (B, G, N) and got.dtype == dtype
+    for b in range(B):
+        sb = s if s.dim() == 0 else s[b:b + 1]
+        want = ci8.cond_int8_plain(codes[b:b + 1], sb, pk, dtype)
+        assert torch.equal(got[b:b + 1], want), f"batch row {b}"
+    acc = torch._int_mm(codes[0], pk["wq"].T.contiguous())
+    s0 = s if s.dim() == 0 else s[:1]
+    assert torch.equal(got[:1], ci8.dequantize(acc[None], s0, pk, dtype))
+    assert torch.equal(got[0, G // 2], pk["bias"].to(dtype))
+
+
+@pytest.mark.cuda
+def test_cond_int8_kernel_launches_once_a_flow(card, monkeypatch):
+    """waveglow_infer(wn_impl="flow", cond_impl="int8") at the full
+    WaveGlowConfig (B=2 x 128 frames, bf16): n_flows launches a call, and
+    the audio equal to the same call on the plain projection."""
+    import chip_smoke as smoke
+    from fac_via_ppg_torch.models import waveglow
+    from fac_via_ppg_torch.models.waveglow import (
+        cast_params,
+        pack_waveglow_flow,
+        pack_waveglow_int8cond,
+        remove_weightnorm,
+        waveglow_infer,
+    )
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
+    from fac_via_ppg_torch.weights import move
+
+    cfg, params = smoke.waveglow_params(23)
+    params = move(remove_weightnorm(params), card)
+    packed_cond = pack_waveglow_int8cond(cfg, params)
+    params = cast_params(params, torch.bfloat16)
+    pack = pack_waveglow_flow(cfg, params)
+    mel = (torch.randn((2, 80, 128), device=card) * 0.5 - 5).to(
+        torch.bfloat16)
+    outs, counts = [], []
+    for project in (ci8.cond_int8, ci8.cond_int8_plain):
+        monkeypatch.setattr(waveglow, "cond_int8", project)
+        n0 = ci8.launches
+        with torch.no_grad():
+            outs.append(waveglow_infer(
+                cfg, params, mel, 0.6,
+                torch.Generator("cuda").manual_seed(3), wn_impl="flow",
+                packed_wn=pack, cond_impl="int8", packed_cond=packed_cond))
+        torch.cuda.synchronize()
+        counts.append(ci8.launches - n0)
+    assert counts == [cfg.n_flows, 0]
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_cond_int8_kernel_names_a_shape_it_refuses(card):
+    from fac_via_ppg_torch.ops import cond_int8 as ci8
+
+    def pack(N, K):
+        return {"wq": torch.zeros((N, K), dtype=torch.int8, device=card),
+                "w_scale": torch.ones((N,), device=card),
+                "bias": torch.zeros((N,), device=card)}
+
+    s = torch.ones((), device=card)
+    with pytest.raises(ValueError, match="M=40, K=632, N=4096"):
+        ci8.cond_int8(torch.zeros((1, 40, 632), dtype=torch.int8,
+                                  device=card), s, pack(4096, 632),
+                      torch.bfloat16)
+    with pytest.raises(ValueError, match="M=80, K=640, N=4092"):
+        ci8.cond_int8(torch.zeros((2, 40, 640), dtype=torch.int8,
+                                  device=card), s, pack(4092, 640),
+                      torch.bfloat16)
 
 
 def _wn8_layer(seed):

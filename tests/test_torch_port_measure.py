@@ -188,6 +188,41 @@ def test_roofline_bounds_are_the_smokes_formula():
         for n in (2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4)]
 
 
+def test_roofline_cond_counts():
+    """The int8 cond kernel's counts: 2*M*K*N operations at int8's peak,
+    its codes, weights, output, scales and bias once; one launch a flow
+    in waveglow_counts with cond_impl "int8", none without it."""
+    f, b = t_roof.cond_counts(307200, 640, 4096, torch.bfloat16)
+    assert f == 2 * 307200 * 640 * 4096
+    assert b == (307200 * 640 + 4096 * 640 + 307200 * 4096 * 2
+                 + 4 * (307200 + 2 * 4096))
+    ms, by = t_roof.floor_ms(f, b, torch.int8)
+    assert by == "operations" and ms == pytest.approx(f / 1979e12 * 1e3)
+    assert t_roof.cond_counts(8, 640, 1024, torch.float32)[1] == \
+        8 * 640 + 1024 * 640 + 8 * 1024 * 4 + 4 * (8 + 2 * 1024)
+    cfg = t_hp.WaveGlowConfig()
+    counts = t_roof.waveglow_counts(cfg, 24, 640, torch.bfloat16, "flow",
+                                    cond_impl="int8")
+    M = 24 * 640 * cfg.hop_length // cfg.n_group
+    assert {k: len(v) for k, v in counts.items()} == {
+        "wn_flow_bf16_kernel": 12, "cond_int8_kernel": 12}
+    assert set(counts["cond_int8_kernel"]) == {
+        t_roof.cond_counts(M, 640, 4096, torch.bfloat16) + (torch.int8,)}
+    assert "cond_int8_kernel" not in t_roof.waveglow_counts(
+        cfg, 24, 640, torch.bfloat16, "flow")
+    assert list(t_roof.waveglow_counts(cfg, 24, 640, torch.bfloat16, "conv",
+                                       cond_impl="int8")) == [
+        "cond_int8_kernel"]
+
+
+def test_roofline_capture_runs_one_more_call(tmp_path):
+    """capture() runs `fn` calls + 1 times: the first in the profiler's
+    warm-up step, whose records are dropped."""
+    ran = []
+    t_roof.capture(lambda: ran.append(1), str(tmp_path / "t.json"), calls=2)
+    assert len(ran) == 3
+
+
 def test_roofline_capture_and_cli(tmp_path, capsys):
     """capture() writes a chrome trace torch.profiler can produce here
     (CPU events only: no kernel rows), and the CLI reads a trace."""

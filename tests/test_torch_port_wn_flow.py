@@ -346,7 +346,8 @@ def test_int8_codes_scales_and_cond_match_jax(params):
         np.testing.assert_array_equal(pk_t[k].numpy(), np.asarray(pk_j[k]))
     q_t, s_t = twg.quantize_per_column_int8(torch.from_numpy(x))
     q_j, s_j = jwg.quantize_per_column_int8(jnp.asarray(x))
-    got = twg._cond_int8(q_t, s_t, pk_t, torch.float32)
+    got = twg._cond_int8(q_t.transpose(1, 2).contiguous(), s_t, pk_t,
+                         torch.float32)
     want = jwg._cond_all(CFG, None, None, (q_j, s_j, pk_j), jnp.float32)
     np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(want),
                                rtol=1e-6, atol=1e-6)
