@@ -16,7 +16,10 @@ Phases (any failure exits nonzero; there is no CPU path):
      layers of a flow at the fused path's shapes: bf16 B=4, T=10000 (the
      served batch) and f32 B=1, T=1760 (the denoiser's bias pass);
   3. print the bf16 and f32 flow kernels' registers, spills, dynamic
-     shared memory and blocks per SM; hold one tile's GEMM 1 of the wgmma
+     shared memory and blocks per SM, and the bf16 kernel's cluster size,
+     its clusters on the card at once and whether its launch with the
+     cluster and cooperative attributes together was taken (one launch at
+     one tile); hold one tile's GEMM 1 of the wgmma
      tile (its cp.async ring, weight image, swizzles and wgmma
      descriptors) against torch.matmul (atol 1e-3), and of the f32 SIMT
      tile (ring, ownership; atol 1e-4); hold the whole-net flow kernel
@@ -37,7 +40,7 @@ Phases (any failure exits nonzero; there is no CPU path):
      dict by the port's exporter: 16 seeded mels of 449-512 frames, -b 8
      --mel_bucket 64 -s 0.6 -d 0.005, bf16, --wn_impl flow (two batches of
      8 x 512 frames); check each wav and 12 flow kernel launches per
-     batch; then --cond_impl auto over the first 8 mels (the int8 cond
+     batch, every one in clusters (`cluster_launches`); then --cond_impl auto over the first 8 mels (the int8 cond
      kernel 12 launches a call, counted_cond); profile one
      batch's device work; hold the int8 cond projection's kernel
      (ops/cond_int8.py) against its plain version and the exact int32 CPU
@@ -397,12 +400,37 @@ def kernel_resources(mod, report, kernel, dtype=torch.bfloat16):
     memory and blocks per SM on this card: the bf16 wgmma kernel, or the
     f32 SIMT kernel (its keys then end in _f32)."""
     regs, spill = ptxas_usage(report, kernel)
-    blocks, smem = mod.kernel_resources(dtype)
+    found = mod.kernel_resources(dtype)
+    blocks, smem = found[:2]
     log(f"{kernel}: {regs} registers, {spill} bytes spilled (ptxas), {smem} "
         f"bytes of dynamic shared memory, {blocks} block(s) per SM")
     sfx = "_f32" if dtype == torch.float32 else ""
-    return {f"registers{sfx}": regs, f"spill_bytes{sfx}": spill,
-            f"smem_bytes{sfx}": smem, f"blocks_per_sm{sfx}": blocks}
+    res = {f"registers{sfx}": regs, f"spill_bytes{sfx}": spill,
+           f"smem_bytes{sfx}": smem, f"blocks_per_sm{sfx}": blocks}
+    if len(found) == 4:     # the clustered bf16 flow kernel
+        res["cluster_size"], res["active_clusters"] = found[2:]
+        log(f"{kernel}: clusters of {found[2]} blocks, {found[3]} clusters "
+            f"on the card at once")
+    return res
+
+
+def cluster_launch_probe(wf, g):
+    """The bf16 flow kernel's launch with the cluster and the cooperative
+    attribute together (it has no other), once, at one tile: "taken", or
+    the error the runtime answered (then raised)."""
+    args = flow_inputs(wf, g, 1, 50, 4, torch.bfloat16)
+    c0 = wf.cluster_launches
+    try:
+        wf.wn_flow(*args)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"cluster + cooperative launch refused: {e}")
+        raise
+    if wf.cluster_launches != c0 + 1:
+        raise AssertionError("the bf16 flow launch was not counted as "
+                             "clustered")
+    log("cluster + cooperative launch: taken")
+    return "taken"
 
 
 def check_kernel(wl):
@@ -577,6 +605,7 @@ def check_flow_kernel(wf, report):
     res.update(kernel_resources(wf, report, "wn_flow_f32_kernel",
                                 torch.float32))
     g = torch.Generator("cuda").manual_seed(SEED + 4)
+    res["cluster_launch"] = cluster_launch_probe(wf, g)
     res["gemm1_tile_max_abs_err"] = check_gemm1_tile(wf, g)
     res["gemm1_tile_max_abs_err_f32"] = check_gemm1_tile(wf, g,
                                                          torch.float32)
@@ -1031,9 +1060,12 @@ def run_cli(wf, tmp):
             fh.write("\n".join(paths[:n]) + "\n")
     kw = dict(batch_size=CLI_BATCH, compute_dtype="bfloat16",
               wn_impl="flow", mel_bucket=64)
-    wf.launches = 0
+    wf.launches = wf.cluster_launches = 0
     summary = cli.main(lists["all"], ckpt, f"{tmp}/out", 0.6, 0.005, **kw)
     n = wf.launches
+    if wf.cluster_launches != n:
+        raise AssertionError(f"cli: {wf.cluster_launches} of {n} flow "
+                             f"kernel launches in clusters")
     check_wavs(f"{tmp}/out", paths, frames, cfg.hop_length)
     per_batch = [b["launches"] for b in summary["batches"]]
     log(f"cli: {len(per_batch)} batches, flow kernel launches {per_batch} "
@@ -1420,6 +1452,7 @@ def time_flow_at(root):
                        f"bfloat16 B={B} T={T} n_half=4")
     t = time_flow_kernel(wf)
     log(json.dumps({"module": wf.__file__, "card": card,
+                    "resources": list(wf.kernel_resources(torch.bfloat16)),
                     "ms": t[torch.bfloat16][0],
                     "plain_ms": t[torch.bfloat16][1],
                     "ms_f32": t[torch.float32][0], "max_abs_err": err}))

@@ -63,11 +63,9 @@
 // point, so nothing links the driver library.  ops/cond_int8.py holds the
 // wrapper and the plain version.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <cstdint>
+#include "hopper.cuh"
 
 namespace {
 
@@ -90,46 +88,6 @@ constexpr uint64_t SW128 = 1;        // wgmma descriptor: 128 B swizzle
 constexpr int smem_bytes(int kb) { return 1024 + RING_BYTES + kb * B_BLOCK + WB_BYTES + BAR_BYTES; }
 static_assert(smem_bytes(MAX_KB) <= 232448, "fits a block's shared memory");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// arrive and expect `bytes` of TMA transfer in the current phase
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// a 2-D box at (c0 inner, c1 outer) of `map` into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 // the 256 consumer threads (named barrier 1)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -252,7 +210,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int st = it % S;
           mbar_wait(empty + 8 * st, ((it / S) & 1) ^ 1);
           mbar_expect_tx(full + 8 * st, A_STAGE);
-          tma_load(ring + st * A_STAGE, &map_a, full + 8 * st, kb * BK, mt * BM);
+          tma_load_2d(ring + st * A_STAGE, &map_a, full + 8 * st, kb * BK, mt * BM);
         }
     }
   } else {
@@ -348,23 +306,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
-}
-
-// The CUDA driver's cuTensorMapEncodeTiled, looked up once through the runtime
-// (nullptr if the driver lacks it).
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 template <typename OutT>

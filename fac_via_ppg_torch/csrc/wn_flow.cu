@@ -56,20 +56,32 @@
 // (CUDA-core FMAs in f32, wmma in bf16; one staged K tile, a f32 staging
 // tile for the gate).
 //
-// bf16 (wn_flow_bf16), built for C = 256: one block of two warpgroups per
-// SM runs each tile and layer on the wgmma tile of wn_wgmma.cuh (shared
-// with the layer kernel): both GEMMs on wgmma m64n128k16, fed by a
-// cp.async ring over the host's weight image, the gate in registers.  Its
-// epilogue here: x' = round(x + rs[:, :C]) into the other ping-pong
-// buffer, skip = rs[:, C:] in layer 0, else round(skip + rs[:, C:]).  The
-// start and end convs are 16 B vectors.  Rounding follows the TPU kernel:
-// x after the start conv, the gate output and the residual and skip adds
-// in bf16, biases in f32, the cond add in f32 before the gate, tanh and
-// the sigmoid in full f32 precision.
-// Ceiling of this design: every tile and layer streams ~1 MB of bf16
-// weights from L2 into its SM (wn_wgmma.cuh): 10.2 GB a launch at the
-// serving shape, ~2 ms at an assumed 5 TB/s of L2, against the 0.68 ms
-// bound, even with all else hidden.
+// bf16 (wn_flow_bf16), built for C = 256: one block of three warpgroups
+// per SM, the blocks in clusters of two (one TPC), runs each tile and
+// layer on the wgmma tile of wn_wgmma.cuh (shared with the layer kernel,
+// which feeds it from its own cp.async ring): both GEMMs on wgmma
+// m64n128k16, the gate in registers.  Here a producer warpgroup feeds it
+// through mbarrier rings (ClusterRing, below): each K step's 32 KB slice of
+// the host's weight image is read from L2 once for the cluster, each
+// block multicasting its half into both blocks' stages (16 KB a step a
+// block from L2), and the x slices come by TMA from a (B, T, C) map.  The
+// two blocks of a cluster walk their own tiles in lock-step (a block whose
+// tile runs past the last one runs it masked).  The last layer is a
+// template parameter.  Its epilogue here: x' = round(x + rs[:, :C]) into
+// the other ping-pong buffer, skip = rs[:, C:] in layer 0, else
+// round(skip + rs[:, C:]).  The start and end convs are 16 B vectors.
+// Rounding follows the TPU kernel: x after the start conv, the gate output
+// and the residual and skip adds in bf16, biases in f32, the cond add in
+// f32 before the gate, tanh and the sigmoid in full f32 precision.  The
+// arithmetic is the layer kernel's, step for step, so the output is bit
+// for bit that of the kernel fed by the cp.async ring.
+// What bounds it now: not the L2's weight stream (the same rings with each
+// block reading its whole slice run as fast), but that the gate and the
+// epilogue, about 14 us of a tile and layer's ~31 at the serving shape on
+// an H100, leave the tensor cores idle (two warps a scheduler cannot hide
+// the gate's latency, and a second tile in flight does not fit the
+// registers), and that a block takes in 32 KB a step with three steps in
+// flight, so GEMM 1 waits ~5 us a tile for its stages.
 
 #include <cooperative_groups.h>
 
@@ -293,55 +305,272 @@ __device__ void end_conv_bf16(const FlowArgs<bf16>& a, int n_t, int n_tiles) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) wn_flow_bf16_kernel(const FlowArgs<bf16> a) {
-  extern __shared__ __align__(1024) unsigned char dsmem[];
-  const uint32_t raw = smem_u32(dsmem), ring = (raw + 1023) & ~1023u;
-  const uint32_t tile_s = ring + S * STAGE;
-  unsigned char* const tile_p = dsmem + (tile_s - raw);
-  cg::grid_group grid = cg::this_grid();
-  const int n_t = (a.t_len + TT - 1) / TT, n_tiles = a.B * n_t;
-  const size_t plane = static_cast<size_t>(a.t_len) * WC;
-  const int n_mine = (n_tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
-  const int steps = n_mine * STEPS;
+// The flow kernel's rings (ClusterRing, below).  The blocks run in clusters
+// of CLUSTER (one TPC), and each K step's weight slice is read from L2 once
+// for the cluster: each block copies its 1/CLUSTER of the slice into every
+// block's stage with one multicast bulk copy.  A block is three
+// warpgroups: the two consumer warpgroups of layer_tile (threads 0-255), then
+// a producer warpgroup (256-383) in which one thread of warp 8 issues the
+// weight slices and one thread of warp 9 the x slices by TMA (zero-filled
+// outside [0, T): the conv's padding) and, once a tile, the tile's cond
+// rows, one bulk copy a row.  The weights run through S stages, each with
+// a full barrier (the local producer's arrival and the whole slice's
+// bytes, half of which the peer block sends) and an empty barrier (one
+// arrival from each consumer warpgroup of both blocks, once the wgmma that
+// read the stage has completed), so no producer overwrites a stage before
+// both blocks are done with it.  The x slices, which come from device
+// memory, run SX steps ahead through their own stages (x_full: the bytes;
+// x_empty: the block's two consumer warpgroups), so that their latency
+// hides behind more steps than the weights' stages hold.  The tile buffer
+// has a cond_full barrier (the cond bytes) and a tile_free barrier (every
+// consumer thread, after the epilogue).
+constexpr int CLUSTER = 2;
+constexpr int FLOW_THREADS = THREADS + 128;
+constexpr int SX = 8;                         // x stages
+constexpr int COND_ROW = 2 * WC * 2;          // bytes of one tile row of cond
+// the x producer issues a tile's cond with this GEMM 1 step of the tile: by
+// then the block has released the tile's x step COND_AT - SX, so the
+// previous tile's epilogue is done with the tile buffer and the tile_free
+// wait does not stall
+constexpr int COND_AT = SX;
+constexpr int X_RING = S * B_BYTES;           // the x stages' offset from the weight stages'
+constexpr int TILE_AT = X_RING + SX * A_BYTES;  // the tile buffer's
+constexpr int BARS_AT = TILE_AT + TILE_BYTES;   // the barriers'
+// full[S], empty[S], x_full[SX], x_empty[SX], cond_full, tile_free
+constexpr int FLOW_SMEM = 1024 + BARS_AT + 8 * (2 * S + 2 * SX + 2);
+// registers a thread: 168 at launch (65,536 / 384, rounded down to 8); the
+// producer warpgroup gives most of its own to the consumers
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+static_assert(128 * PRODUCER_REGS + THREADS * CONSUMER_REGS <= FLOW_THREADS * 168,
+              "the register split fits what the block was given");
+static_assert(COND_AT < STEPS1, "cond lands before the gate");
+static_assert(FLOW_SMEM <= 232448, "fits a block's shared memory");
+static_assert(TILE_AT % 1024 == 0 && B_BYTES % 1024 == 0, "swizzle atoms need 1 KB alignment");
 
-  start_conv_bf16(a, n_t, n_tiles);
-  grid.sync();
+// the 256 consumer threads (named barrier 1; grid.sync uses barrier 0)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
 
-  float acc[2][64];
-  for (int l = 0; l < a.L; ++l) {
-    const bf16* xin = (l & 1) ? a.x1 : a.x0;
-    bf16* xout = (l & 1) ? a.x0 : a.x1;
-    const bool last = l == a.L - 1;
-    const int d = 1 << l;
-    const bf16* w_in = a.w_in + static_cast<size_t>(l) * STEPS1 * IMG_N * KC;
-    const bf16* w_rs = a.w_rs + static_cast<size_t>(l) * STEPS2 * IMG_N * KC;
-    const float* b_in = a.b_in + static_cast<size_t>(l) * 2 * WC;
-    const float* b_rs = a.b_rs + static_cast<size_t>(l) * 2 * WC;
-    auto issue = [&](int g) {
-      if (g < steps) {
-        const int tile = blockIdx.x + (g / STEPS) * gridDim.x, b = tile / n_t;
-        issue_step(ring + (g % S) * STAGE, g % STEPS, xin + b * plane, a.t_len,
-                   (tile % n_t) * TT, d, w_in, w_rs, last,
-                   a.cond + b * a.cond_sb + static_cast<size_t>(l) * 2 * WC, a.cond_st, tile_s);
-      }
-      cp_async_commit();
-    };
-    for (int g = 0; g < AHEAD; ++g) issue(g);
-
-    const FlowEpi epi{xin, xout, a.skip, l > 0};
-    int g = 0;
-    for (int i = 0; i < n_mine; ++i) {
-      const int tile = blockIdx.x + i * gridDim.x, b = tile / n_t;
-      layer_tile(acc, ring, tile_s, tile_p, g, issue, b_in, b_rs, 0, last, (tile % n_t) * TT,
-                 a.t_len, static_cast<size_t>(b) * a.t_len, epi);
-    }
-    if (!last) grid.sync();
+// layer_tile's ring policy in the flow kernel (see above).  g is the block's
+// ring step over the whole launch, the same count as its weight producer's;
+// tiles counts the tiles done, for the x stages (STEPS1 a tile, as the x
+// producer counts them) and the tile buffer's barriers.  A step's stages go
+// back to their producers as soon as its wgmma has completed (kPending 0).
+struct ClusterRing {
+  static constexpr int kPending = 0;
+  uint32_t w_base, x_base, full, empty, empty_peer, x_full, x_empty, cond_full, tile_free;
+  int tiles;
+  __device__ __forceinline__ uint32_t acquire(int g) {
+    mbar_wait(full + 8 * (g % S), (g / S) & 1);
+    return w_base + (g % S) * B_BYTES;
   }
+  __device__ __forceinline__ uint32_t x_slice(int, int s) {
+    const int k = tiles * STEPS1 + s;
+    mbar_wait(x_full + 8 * (k % SX), (k / SX) & 1);
+    return x_base + (k % SX) * A_BYTES;
+  }
+  // after mma_step(g): step g's wgmma has completed
+  __device__ __forceinline__ void step_done(int g) {
+    if (threadIdx.x % 128 == 0) {
+      mbar_arrive(empty + 8 * (g % S));
+      mbar_arrive_cluster(empty_peer + 8 * (g % S));
+    }
+  }
+  __device__ __forceinline__ void x_done(int s) {
+    if (threadIdx.x % 128 == 0) mbar_arrive(x_empty + 8 * ((tiles * STEPS1 + s) % SX));
+  }
+  __device__ __forceinline__ void sync() { consumers_sync(); }
+  __device__ __forceinline__ void cond_ready() { mbar_wait(cond_full, tiles & 1); }
+  // the gate output, written by the threads, is read by wgmma (async proxy)
+  __device__ __forceinline__ void acts_ready() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    consumers_sync();
+  }
+  // the next tile's cond may be copied over the tile buffer
+  __device__ __forceinline__ void tile_done() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(tile_free);
+    ++tiles;
+  }
+};
 
-  // the end conv reads skip rows that other threads of the block wrote
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-  end_conv_bf16(a, n_t, n_tiles);
+// The buffers and barriers of a block, shared by its producers and consumers.
+struct FlowSmem {
+  uint32_t w_ring, x_ring, tile_s, full, empty, x_full, x_empty, cond_full, tile_free;
+  unsigned char* tile_p;
+  __device__ explicit FlowSmem(unsigned char* dsmem) {
+    const uint32_t raw = smem_u32(dsmem);
+    w_ring = (raw + 1023) & ~1023u;
+    x_ring = w_ring + X_RING;
+    tile_s = w_ring + TILE_AT;
+    tile_p = dsmem + (tile_s - raw);
+    full = w_ring + BARS_AT;
+    empty = full + 8 * S;
+    x_full = empty + 8 * S;
+    x_empty = x_full + 8 * SX;
+    cond_full = x_empty + 8 * SX;
+    tile_free = cond_full + 8;
+  }
+};
+
+// The ping-pong x buffers as TMA maps: x[l % 2] is layer l's input.
+struct XMaps {
+  CUtensorMap x[2];
+};
+
+// The block's tiles of a layer: tile i is blockIdx.x + i * gridDim.x, for i
+// < n_iter, the count of the cluster's first block; a tile past the last
+// (its peer's odd one) is masked: nothing is loaded for it or written.
+struct Tiles {
+  int n_t, n_tiles, n_iter;
+  __device__ Tiles(const FlowArgs<bf16>& a) {
+    n_t = (a.t_len + TT - 1) / TT;
+    n_tiles = a.B * n_t;
+    n_iter = (n_tiles - static_cast<int>(blockIdx.x & ~(CLUSTER - 1)) + gridDim.x - 1) /
+             gridDim.x;
+  }
+};
+
+// The weight producer's layer l: every ring step of the block's tiles, in
+// the consumers' order (the masked tile's too: the peer's stages need this
+// block's part); g runs on over the launch.
+template <bool kLast>
+__device__ __forceinline__ void produce_weights(const FlowArgs<bf16>& a, int l,
+                                                const FlowSmem& sm, const Tiles& tl,
+                                                uint32_t rank, int& g) {
+  const char* w_in = reinterpret_cast<const char*>(a.w_in) + static_cast<size_t>(l) * STEPS1 * B_BYTES;
+  const char* w_rs = reinterpret_cast<const char*>(a.w_rs) + static_cast<size_t>(l) * STEPS2 * B_BYTES;
+  for (int i = 0; i < tl.n_iter; ++i) {
+    for (int s = 0; s < STEPS; ++s, ++g) {
+      const uint32_t full = sm.full + 8 * (g % S);
+      mbar_wait(sm.empty + 8 * (g % S), ((g / S) & 1) ^ 1);
+      // the slice (the last layer's GEMM 2: image rows C.. only), 1/CLUSTER
+      // of it from each block of the cluster
+      const uint32_t w0 = kLast && s >= STEPS1 ? B_BYTES / 2 : 0;
+      const uint32_t part = (B_BYTES - w0) / CLUSTER;
+      mbar_expect_tx(full, B_BYTES - w0);
+      const char* w = s < STEPS1 ? w_in + s * B_BYTES : w_rs + (s - STEPS1) * B_BYTES;
+      bulk_multicast(sm.w_ring + (g % S) * B_BYTES + w0 + rank * part, w + w0 + rank * part,
+                     part, full, (1u << CLUSTER) - 1);
+    }
+  }
+}
+
+// The x producer's layer l: GEMM 1's x slices of the block's tiles and each
+// tile's cond rows; k (x steps) and j (tiles) run on over the launch.
+__device__ __forceinline__ void produce_x(const FlowArgs<bf16>& a, const CUtensorMap* xmap, int l,
+                                          const FlowSmem& sm, const Tiles& tl, int& k, int& j) {
+  const int d = 1 << l;
+  const bf16* cond = a.cond + static_cast<size_t>(l) * 2 * WC;
+  for (int i = 0; i < tl.n_iter; ++i, ++j) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    const bool valid = tile < tl.n_tiles;
+    const int b = valid ? tile / tl.n_t : 0, t0 = (tile % tl.n_t) * TT;
+    for (int s = 0; s < STEPS1; ++s, ++k) {
+      const uint32_t full = sm.x_full + 8 * (k % SX);
+      mbar_wait(sm.x_empty + 8 * (k % SX), ((k / SX) & 1) ^ 1);
+      mbar_expect_tx(full, valid ? A_BYTES : 0);
+      if (valid) {
+        const int k0 = s * KC, tap = k0 / WC;
+        tma_load_3d(sm.x_ring + (k % SX) * A_BYTES, xmap, full, k0 - tap * WC, t0 + (tap - 1) * d,
+                    b);
+      }
+      if (s == COND_AT) {
+        mbar_wait(sm.tile_free, (j & 1) ^ 1);
+        const int rows = valid ? min(TT, a.t_len - t0) : 0;
+        mbar_expect_tx(sm.cond_full, rows * COND_ROW);
+        const bf16* cb = cond + b * a.cond_sb + static_cast<long long>(t0) * a.cond_st;
+        for (int r = 0; r < rows; ++r)
+          bulk_load(sm.tile_s + r * TILE_LD * 2, cb + r * a.cond_st, COND_ROW, sm.cond_full);
+      }
+    }
+  }
+}
+
+// The consumers' layer l over the block's tiles.
+template <bool kLast>
+__device__ __forceinline__ void consume_layer(const FlowArgs<bf16>& a, int l, const FlowSmem& sm,
+                                              const Tiles& tl, ClusterRing& ring,
+                                              float (&acc)[2][64], int& g) {
+  const bf16* xin = (l & 1) ? a.x1 : a.x0;
+  bf16* xout = (l & 1) ? a.x0 : a.x1;
+  const float* b_in = a.b_in + static_cast<size_t>(l) * 2 * WC;
+  const float* b_rs = a.b_rs + static_cast<size_t>(l) * 2 * WC;
+  const FlowEpi epi{xin, xout, a.skip, l > 0};
+  for (int i = 0; i < tl.n_iter; ++i) {
+    const int tile = blockIdx.x + i * gridDim.x;
+    const bool valid = tile < tl.n_tiles;
+    const int b = valid ? tile / tl.n_t : 0, t0 = valid ? (tile % tl.n_t) * TT : a.t_len;
+    layer_tile(acc, sm.tile_s, sm.tile_p, g, ring, b_in, b_rs, 0, kLast, t0, a.t_len,
+               static_cast<size_t>(b) * a.t_len, epi);
+  }
+}
+
+__global__ void __launch_bounds__(FLOW_THREADS, 1)
+    wn_flow_bf16_kernel(const __grid_constant__ XMaps maps, const FlowArgs<bf16> a) {
+  extern __shared__ __align__(1024) unsigned char dsmem[];
+  const FlowSmem sm(dsmem);
+  const Tiles tl(a);
+  const uint32_t rank = cluster_rank();
+  cg::grid_group grid = cg::this_grid();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(sm.full + 8 * i, 1);
+      mbar_init(sm.empty + 8 * i, 2 * CLUSTER);
+    }
+    for (int i = 0; i < SX; ++i) {
+      mbar_init(sm.x_full + 8 * i, 1);
+      mbar_init(sm.x_empty + 8 * i, 2);
+    }
+    mbar_init(sm.cond_full, 1);
+    mbar_init(sm.tile_free, THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the peer's barriers are set up before anything reaches them
+  cluster_sync();
+
+  int g = 0;
+  if (threadIdx.x >= THREADS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    int k = 0, j = 0;
+    grid.sync();
+    for (int l = 0; l < a.L; ++l) {
+      if (threadIdx.x == THREADS) {
+        if (l == a.L - 1)
+          produce_weights<true>(a, l, sm, tl, rank, g);
+        else
+          produce_weights<false>(a, l, sm, tl, rank, g);
+      } else if (threadIdx.x == THREADS + 32) {
+        // x was written by other blocks' threads before the grid barrier
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        produce_x(a, &maps.x[l & 1], l, sm, tl, k, j);
+      }
+      __syncwarp();
+      if (l + 1 < a.L) grid.sync();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+    ClusterRing ring{sm.w_ring,  sm.x_ring, sm.full,      sm.empty,
+                     peer_addr(sm.empty, rank ^ 1), sm.x_full, sm.x_empty,
+                     sm.cond_full, sm.tile_free, 0};
+    start_conv_bf16(a, tl.n_t, tl.n_tiles);
+    // x, written here, is read by the next layer's TMA (async proxy)
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    grid.sync();
+    float acc[2][64];
+    for (int l = 0; l + 1 < a.L; ++l) {
+      consume_layer<false>(a, l, sm, tl, ring, acc, g);
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      grid.sync();
+    }
+    consume_layer<true>(a, a.L - 1, sm, tl, ring, acc, g);
+  }
+  // no block exits while its peer may still copy into its shared memory or
+  // arrive on its barriers; the end conv reads skip rows that other threads
+  // of the block wrote
+  cluster_sync();
+  if (threadIdx.x < THREADS) end_conv_bf16(a, tl.n_t, tl.n_tiles);
 }
 
 }  // namespace wg
@@ -464,6 +693,53 @@ FlowArgs<T> flow_args(const void* audio, const void* cond, long long cond_sb, lo
   return a;
 }
 
+namespace wg {
+
+// The bf16 kernel's launch: `clusters` clusters of CLUSTER blocks, and
+// cooperative, for its grid barrier: the runtime refuses a grid that the
+// card cannot hold at once.
+void launch_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attrs, int clusters) {
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = CLUSTER;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cfg->gridDim = dim3(clusters * CLUSTER);
+  cfg->blockDim = dim3(FLOW_THREADS);
+  cfg->dynamicSmemBytes = FLOW_SMEM;
+  cfg->attrs = attrs;
+  cfg->numAttrs = 2;
+}
+
+// The kernel's clusters the current card holds at once (one a TPC: 66 on an
+// H100 SXM), queried once per device.
+int active_clusters(int* active) {
+  static int cached[64] = {};
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 64 && cached[dev] > 0) {
+    *active = cached[dev];
+    return 0;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wn_flow_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               FLOW_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[2];
+  launch_config(&cfg, attrs, sms / CLUSTER);
+  err = cudaOccupancyMaxActiveClusters(active, wn_flow_bf16_kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*active < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (dev < 64) cached[dev] = *active;
+  return 0;
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Each returns the first CUDA error
@@ -499,18 +775,54 @@ extern "C" int wn_flow_bf16(const void* audio, const void* cond, long long cond_
                             const void* b_rs, const void* w_end, const void* b_end, void* x0,
                             void* x1, void* skip, void* out, int B, int t_len, int C, int L,
                             int n_half, void* stream) {
-  if (C != wg::WC || (cond_sb | cond_st) % 8 || reinterpret_cast<uintptr_t>(cond) % 16)
+  if (C != wg::WC || L < 1 || (cond_sb | cond_st) % 8 || reinterpret_cast<uintptr_t>(cond) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const FlowArgs<bf16> a =
       flow_args<bf16>(audio, cond, cond_sb, cond_st, w_start, b_start, w_in_img, b_in,
                       w_rs_img, b_rs, w_end, b_end, x0, x1, skip, out, B, t_len, C, L, n_half);
-  return launch(wg::wn_flow_bf16_kernel, a, wg::BLOCK_SMEM, stream);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  wg::XMaps maps;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(wg::WC), static_cast<cuuint64_t>(t_len),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {wg::WC * 2ull, static_cast<cuuint64_t>(t_len) * wg::WC * 2};
+  const cuuint32_t box[3] = {wg::KC, TT, 1}, elem[3] = {1, 1, 1};
+  for (int i = 0; i < 2; ++i) {
+    const CUresult r = encode(&maps.x[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, i ? x1 : x0, dims,
+                              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
+  }
+  int active = 0;
+  const int err = wg::active_clusters(&active);
+  if (err != 0) return err;
+  const int pairs = (B * ((t_len + TT - 1) / TT) + wg::CLUSTER - 1) / wg::CLUSTER;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attrs[2];
+  wg::launch_config(&cfg, attrs, pairs < active ? pairs : active);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, wg::wn_flow_bf16_kernel, maps, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 kernel's blocks per SM and dynamic shared memory.
 extern "C" int wn_flow_bf16_occupancy(int* per_sm, int* smem) {
-  *smem = wg::BLOCK_SMEM;
-  return blocks_per_sm(wg::wn_flow_bf16_kernel, *smem, per_sm);
+  *smem = wg::FLOW_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(wg::wn_flow_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, wg::wn_flow_bf16_kernel,
+                                                        wg::FLOW_THREADS, *smem);
+  return static_cast<int>(err);
+}
+
+// The bf16 kernel's cluster size and the clusters of its launch that the
+// card holds at once.
+extern "C" int wn_flow_bf16_clusters(int* size, int* active) {
+  *size = wg::CLUSTER;
+  return wg::active_clusters(active);
 }
 
 // One tile's GEMM 1 (see gemm1_tile_kernel): x (T, 256) bf16, w_in_img one

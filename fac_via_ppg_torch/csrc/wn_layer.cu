@@ -152,11 +152,12 @@ __global__ void __launch_bounds__(THREADS, 1) wn_layer_bf16_kernel(const LayerAr
   for (int g = 0; g < AHEAD; ++g) issue(g);
 
   const LayerEpi epi{a.x, a.audio, a.skip};
+  CopyRing<decltype(issue)> cr{ring, issue};
   float acc[2][64];
   int g = 0;
   for (int i = 0; i < n_mine; ++i) {
     const int tile = blockIdx.x + i * gridDim.x, b = tile / n_t;
-    layer_tile(acc, ring, tile_s, tile_p, g, issue, a.b_in, a.b_rs, kLast ? WC : 0, kLast,
+    layer_tile(acc, tile_s, tile_p, g, cr, a.b_in, a.b_rs, kLast ? WC : 0, kLast,
                (tile % n_t) * TT, a.t_len, static_cast<size_t>(b) * a.t_len, epi);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");

@@ -176,14 +176,14 @@ template <bool kLast> struct Feed {
         const float* w = w_in + static_cast<size_t>(s) * KC * NW;
 #pragma unroll
         for (int v = threadIdx.x; v < B_FLOATS / 4; v += THREADS)
-          wg::cp_async16(wg::smem_u32(bs + v * 4), w + v * 4, true);
+          wg::cp_async16(smem_u32(bs + v * 4), w + v * 4, true);
       } else {
         const float* w = w_rs + static_cast<size_t>(s - STEPS1) * KC * ldw;
         constexpr int CPR = (kLast ? WC : NW) / 4;   // chunks of one row
 #pragma unroll
         for (int v = threadIdx.x; v < KC * CPR; v += THREADS) {
           const int kk = v / CPR, ch = (v % CPR) * 4;
-          wg::cp_async16(wg::smem_u32(bs + kk * NW + (kLast ? WC : 0) + ch),
+          wg::cp_async16(smem_u32(bs + kk * NW + (kLast ? WC : 0) + ch),
                          w + static_cast<size_t>(kk) * ldw + ch, true);
         }
       }

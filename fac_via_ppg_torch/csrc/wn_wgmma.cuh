@@ -26,27 +26,35 @@
 //     zero residual columns) is split between them.  round(rs + b_rs)
 //     goes to shared memory, and all threads then apply the epilogue 16 B
 //     at a time, every old value loaded before any store.
-//   - One ring of S stages of KC-deep K steps feeds both GEMMs (3C/KC steps
-//     of x slice + W_in slice, then C/KC of W_rs slices), filled with
-//     cp.async 16 B a thread, and runs on across the gate, the epilogue and
-//     the next tile.  x rows outside [0, T) are zero-filled: the conv's
-//     zero padding.  The weight images are pre-swizzled by the host, so
-//     their copies are contiguous.  One wgmma group stays in flight while
-//     the next step's copies are issued.  The tile's cond rows ride along
-//     with one ring step into a tile buffer that later holds the gate
-//     output, then the rounded rs.
+//   - A ring of KC-deep K steps feeds both GEMMs (3C/KC steps of x slice +
+//     W_in slice, then C/KC of W_rs slices) and runs on across the gate,
+//     the epilogue and the next tile; it also lands the tile's cond rows
+//     in a tile buffer that later holds the gate output, then the rounded
+//     rs.  x rows outside [0, T) read zero: the conv's zero padding.  The
+//     weight images are pre-swizzled by the host, so their copies are
+//     contiguous.  layer_tile takes the ring as a policy (`ring`: acquire
+//     a step's slices, release them, the block's barrier): CopyRing here,
+//     the layer kernel's and gemm1_tile_kernel's, S stages of x slice +
+//     weight slice filled with cp.async 16 B a thread, one wgmma group in
+//     flight while the next step's copies are issued, the cond rows riding
+//     along with ring step COND_STEP; wn_flow.cu's ClusterRing, whose
+//     stages a producer warpgroup fills by TMA and multicast.
 // Rounding follows the TPU kernels: f32 accumulation, the biases and the
 // cond added in f32 before the gate, tanh and the sigmoid in full f32
 // precision (tanhf, 1 / (1 + expf(-x))), the gate output and rs rounded to
-// bf16.  A block takes BLOCK_SMEM (~210 KB) of shared memory: 1 block per SM.
-// Ceiling: every tile and layer streams ~1 MB of bf16 weights (W_in
-// 768 x 512, W_rs 256 x 512) from L2 into its SM, ~58 FLOP a byte; at the
-// tensor cores' rate that would need ~17 TB/s of L2, several times what L2
-// gives.  Sharing each weight tile between the SMs of a cluster (TMA
-// multicast) is the step past it.
+// bf16.  The arithmetic does not depend on the ring: the same K steps go
+// into the same accumulators in the same order.  With CopyRing a block
+// takes BLOCK_SMEM (~210 KB) of shared memory: 1 block per SM.
+// Ceiling of CopyRing (the layer kernel): every tile streams ~1 MB of bf16
+// weights (W_in 768 x 512, W_rs 256 x 512) from L2 into its SM, ~58 FLOP a
+// byte, through 16 B copies of every thread, two steps ahead; the flow
+// kernel's ClusterRing, its TMA producer and its cluster multicast took
+// that kernel from ~40 to ~31 us a tile and layer on an H100 (wn_flow.cu
+// says what bounds it next).  The layer kernel does not use them yet.
 
 #pragma once
 
+#include "hopper.cuh"
 #include "wn_tile.cuh"
 
 namespace {
@@ -88,10 +96,6 @@ static_assert(COND_STEP < STEPS1, "cond lands before the gate");
 // XORed with address bits 7.. (128 B rows: row % 8; 64 B: (row / 2) % 4).
 template <int R> __device__ __forceinline__ uint32_t swz(uint32_t off) {
   return off ^ (((off >> 7) & (R / 16 - 1)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16 B global -> shared; zero-filled (nothing read) when !valid
@@ -152,9 +156,13 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
 }
 
 // One K step of one warpgroup: acc[0] += A (64 x KC at a_addr) @ B rows at
-// b0 (128 x KC), and acc[1] likewise from b1 if `two`.  Returns with this
-// step's wgmma group in flight and the previous one complete (its stage may
-// be refilled after the next barrier); wgmma_wait() before reading acc.
+// b0 (128 x KC), and acc[1] likewise from b1 if `two`.  Returns with at most
+// kPending wgmma groups in flight: with 1 (the cp.async ring), this step's,
+// the previous one complete (its stage may be refilled after the next
+// barrier); with 0 (the flow kernel's ring), this step's complete too, so
+// its stage goes back to the producer at once.  wgmma_wait() before
+// reading acc.
+template <int kPending>
 __device__ __forceinline__ void mma_step(float (&acc)[2][64], uint32_t a_addr, uint32_t a_sbo,
                                          uint64_t a_layout, uint32_t b0, uint32_t b1,
                                          bool two) {
@@ -168,7 +176,7 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][64], uint32_t a_addr, u
     if (two) wgmma_m64n128k16(acc[1], da, gmma_desc(b1 + kk * 32, 8 * ROW, SW64));
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
   fence_acc(acc[0]);
   fence_acc(acc[1]);
 }
@@ -219,17 +227,48 @@ __device__ __forceinline__ void issue_step(uint32_t stage, int s, const bf16* xb
     cp_async16(bs + v * 16, w + v * 8, true);
 }
 
-// GEMM 1 of one tile: ring steps g.. (issue(i) issues ring step i);
-// warpgroup w's acc[0] gets the tanh columns w*128.., acc[1] the sigmoid
-// columns C + w*128.. (image rows w*256..).
-template <typename Issue>
-__device__ __forceinline__ void gemm1(float (&acc)[2][64], uint32_t ring, int& g, Issue issue) {
-  const int w = threadIdx.x / 128;
-  for (int s = 0; s < STEPS1; ++s, ++g) {
+// The ring policy of the layer kernel and gemm1_tile_kernel (layer_tile and
+// gemm1 take it as `ring`): every thread copies its share of each step with
+// cp.async (issue(g) issues ring step g and commits it as one group),
+// acquire(g) waits for step g (ring_wait), issues step g + AHEAD and gives
+// the step's weight slice; its x slice shares the stage.  The block's
+// barrier is __syncthreads.  The cond rows land with step COND_STEP, and
+// GEMM 2's first ring_wait fences the gate output for wgmma, so the other
+// hooks do nothing here.  One wgmma group stays in flight across steps
+// (kPending).
+template <typename Issue> struct CopyRing {
+  static constexpr int kPending = 1;
+  uint32_t base;  // stage 0, 1 KB aligned
+  Issue& issue;
+  __device__ __forceinline__ uint32_t acquire(int g) {
     ring_wait();
     issue(g + AHEAD);
-    const uint32_t st = ring + (g % S) * STAGE, bs = st + A_BYTES;
-    mma_step(acc, st, 8 * ROW, SW64, bs + (w * 256) * ROW, bs + (w * 256 + 128) * ROW, true);
+    return base + (g % S) * STAGE + A_BYTES;
+  }
+  // GEMM 1's x slice of ring step g (its s-th step of the tile)
+  __device__ __forceinline__ uint32_t x_slice(int g, int) const {
+    return base + (g % S) * STAGE;
+  }
+  __device__ __forceinline__ void step_done(int) {}
+  __device__ __forceinline__ void x_done(int) {}
+  __device__ __forceinline__ void sync() { __syncthreads(); }
+  __device__ __forceinline__ void cond_ready() {}
+  __device__ __forceinline__ void acts_ready() {}
+  __device__ __forceinline__ void tile_done() {}
+};
+
+// GEMM 1 of one tile: ring steps g..; warpgroup w's acc[0] gets the tanh
+// columns w*128.., acc[1] the sigmoid columns C + w*128.. (image rows
+// w*256..).  ring.step_done(g) and ring.x_done(s) follow mma_step.
+template <typename Ring>
+__device__ __forceinline__ void gemm1(float (&acc)[2][64], Ring& ring, int& g) {
+  const int w = threadIdx.x / 128;
+  for (int s = 0; s < STEPS1; ++s, ++g) {
+    const uint32_t bs = ring.acquire(g), st = ring.x_slice(g, s);
+    mma_step<Ring::kPending>(acc, st, 8 * ROW, SW64, bs + (w * 256) * ROW,
+                             bs + (w * 256 + 128) * ROW, true);
+    ring.step_done(g);
+    ring.x_done(s);
   }
 }
 
@@ -262,25 +301,28 @@ __device__ __forceinline__ float ldg_bf16(const bf16* p) {
 }
 
 // One tile of one WN layer: rows t0.. of the batch row whose first row has
-// index row0 (= b * T), ring steps g.. (issue(i) issues ring step i, whose
-// cond rows land in the tile buffer at tile_s / tile_p).  b_in (2C) and
+// index row0 (= b * T), ring steps g.. of the ring policy `ring` (CopyRing
+// here, wn_flow.cu's ClusterRing), which also lands the tile's cond rows in
+// the tile buffer at tile_s / tile_p.  Only the first 256 threads (the two
+// warpgroups) run it; ring.sync() is their barrier.  b_in (2C) and
 // b_rs hold the biases (f32 or bf16), b_rs that of rs column n at n - rs_b0.
 // The epilogue policy `epi` takes the rounded rs 16 B (8 columns) at a
 // time: chunk n of row `row` (index row0 + t) is written to epi.dst(row,
 // n), where epi.adds(n) as round(old + rs) with the old value at
 // epi.src(row, n), else as rs.  Rows past T are not written.  In the last
 // layer only the skip columns [C, 2C) are computed and handed on.
-template <typename Epi, typename BiasT, typename Issue>
-__device__ __forceinline__ void layer_tile(float (&acc)[2][64], uint32_t ring, uint32_t tile_s,
-                                           unsigned char* tile_p, int& g, Issue& issue,
+template <typename Epi, typename BiasT, typename Ring>
+__device__ __forceinline__ void layer_tile(float (&acc)[2][64], uint32_t tile_s,
+                                           unsigned char* tile_p, int& g, Ring& ring,
                                            const BiasT* b_in, const BiasT* b_rs, int rs_b0,
                                            bool last, int t0, int t_len, size_t row0,
                                            const Epi& epi) {
   const int w = threadIdx.x / 128;
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.f;
-  gemm1(acc, ring, g, issue);
+  gemm1(acc, ring, g);
   wgmma_wait(acc);
+  ring.cond_ready();
 
   // the gate, in registers: z = acc + b_in + cond (f32) -> acts (bf16),
   // written over cond once every thread has read its own
@@ -297,13 +339,14 @@ __device__ __forceinline__ void layer_tile(float (&acc)[2][64], uint32_t ring, u
     const float zs1 = acc[1][e + 1] + to_f(b_in[WC + k + 1]) + hi_f(cs);
     acts[e / 2] = bf16x2_bits(gate(zt0, zs0), gate(zt1, zs1));
   }
-  __syncthreads();
+  ring.sync();
 #pragma unroll
   for (int e = 0; e < 64; e += 2) {
     const int r = acc_row(e), k = w * 128 + acc_col(e);
     *reinterpret_cast<unsigned int*>(tile_p + (k / 64) * 8192 +
                                      swz<128>(r * 128 + (k % 64) * 2)) = acts[e / 2];
   }
+  ring.acts_ready();
 
   // GEMM 2: warpgroup w's image rows w*256.. (0: residual, 1: skip
   // columns), or in the last layer the skip rows C + w*128..
@@ -311,17 +354,16 @@ __device__ __forceinline__ void layer_tile(float (&acc)[2][64], uint32_t ring, u
   for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.f;
   const int col0 = last ? WC + w * 128 : w * 256;
   for (int s = 0; s < STEPS2; ++s, ++g) {
-    ring_wait();
-    issue(g + AHEAD);
-    const uint32_t bs = ring + (g % S) * STAGE + A_BYTES, k = s * KC;
-    mma_step(acc, tile_s + (k / 64) * 8192 + (k % 64) * 2, 1024, SW128, bs + col0 * ROW,
-             bs + (col0 + 128) * ROW, !last);
+    const uint32_t bs = ring.acquire(g), k = s * KC;
+    mma_step<Ring::kPending>(acc, tile_s + (k / 64) * 8192 + (k % 64) * 2, 1024, SW128,
+                             bs + col0 * ROW, bs + (col0 + 128) * ROW, !last);
+    ring.step_done(g);
   }
 
   wgmma_wait(acc);
   // epilogue: rs = round(acc + b_rs) into the tile buffer once both
   // warpgroups' GEMM 2 is done with acts, then 16 B a thread
-  __syncthreads();
+  ring.sync();
   unsigned char* const rs_p = tile_p;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
@@ -333,7 +375,7 @@ __device__ __forceinline__ void layer_tile(float (&acc)[2][64], uint32_t ring, u
           bf16x2_bits(acc[p][e] + to_f(b_rs[n - rs_b0]), acc[p][e + 1] + to_f(b_rs[n + 1 - rs_b0]));
     }
   }
-  __syncthreads();
+  ring.sync();
   // rs columns [2C - ncol, 2C), 8 a chunk, 2^sh chunks a row
   const int sh = last ? 5 : 6, n_lo = last ? WC : 0, chunks = TT << sh;
   constexpr int Q = TT * 2 * WC / 8 / THREADS;
@@ -361,6 +403,7 @@ __device__ __forceinline__ void layer_tile(float (&acc)[2][64], uint32_t ring, u
     }
     *reinterpret_cast<uint4*>(epi.dst(row0 + t, n)) = o;
   }
+  ring.tile_done();
 }
 
 // One tile's GEMM 1 alone, through the same ring and wgmma path: x (T, C)
@@ -379,11 +422,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_commit();
   };
   for (int g = 0; g < AHEAD; ++g) issue(g);
+  CopyRing<decltype(issue)> cr{ring, issue};
   float acc[2][64];
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[0][e] = acc[1][e] = 0.f;
   int g = 0;
-  gemm1(acc, ring, g, issue);
+  gemm1(acc, cr, g);
   wgmma_wait(acc);
   const int w = threadIdx.x / 128;
 #pragma unroll

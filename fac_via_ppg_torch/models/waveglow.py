@@ -58,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 from fac_via_ppg_torch.ops.cond_int8 import cond_int8
 from fac_via_ppg_torch.ops.layers import conv1d
-from fac_via_ppg_torch.ops.wn_flow import pack_wn_flow, wn_flow
+from fac_via_ppg_torch.ops.wn_flow import cluster_size, pack_wn_flow, wn_flow
 from fac_via_ppg_torch.ops.wn_image import KERNEL_C
 from fac_via_ppg_torch.ops.wn_layer import (
     layer_images,
@@ -974,12 +974,15 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                       esz=spect_g.element_size()):
                 cond_q = quantize_cond(spect_g, cond_quant)
 
+        # the flow kernel's cluster size (0: no clustered kernel runs)
+        cluster = cluster_size(audio.dtype, cfg.wn_n_channels, dev) \
+            if wn_impl == "flow" else 0
         for k in reversed(range(cfg.n_flows)):
             n_half = audio.shape[1] // 2
             c8 = None if cond_q is None else (*cond_q, pack_c[k])
             with span("waveglow.coupling", dev, B=B, T=G, n_half=n_half,
                       C=cfg.wn_n_channels, L=cfg.wn_n_layers,
-                      esz=audio.element_size()):
+                      esz=audio.element_size(), cluster=cluster):
                 audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
                 if model_group is not None:
                     wn_out = wn_apply(

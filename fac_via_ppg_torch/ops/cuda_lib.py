@@ -65,8 +65,9 @@ class CudaLibrary:
         return self.library.stat().st_mtime < newest
 
     def occupancy(self, symbol: str) -> tuple:
-        """(blocks per SM, dynamic shared memory bytes) of a kernel on the
-        current card, from its C query `symbol(int* per_sm, int* smem)`."""
+        """The two ints of a C query `symbol(int*, int*)` about a kernel on
+        the current card: (blocks per SM, dynamic shared memory bytes), or
+        for a clustered kernel (cluster size, clusters held at once)."""
         blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
         err = self.function(symbol)(ctypes.byref(blocks), ctypes.byref(smem))
         if err != 0:

@@ -48,16 +48,28 @@ WN layer kernel).  The bf16 form at C = 256, the vocoder's, runs each tile and
 layer on the wgmma tile of `csrc/wn_wgmma.cuh`, shared with the WN layer
 kernel: both GEMMs on wgmma with f32 accumulators in registers; each of
 two warpgroups owns all 64 rows and 128 tanh columns plus the 128 sigmoid
-columns that pair with them, so the gate is applied in registers.  A
-4-stage cp.async ring feeds the K steps of both GEMMs; its weight slices
-come from a bf16 image of W_in and W_rs that `ops/wn_image.py::
-weight_image` lays out once, in the kernel's column order and in wgmma's
-swizzled K-major layout (`pack_wn_flow` stores it with the pack; the
-kernel needs it).  The gate is exact f32 tanh and
-sigmoid, as on the TPU.  Each tile and layer streams ~1 MB of weights from
-L2 (10.2 GB a launch at the serving shape): ~2 ms a launch at an assumed
-5 TB/s of L2 even with all else hidden; sharing weight tiles across a
-cluster (TMA multicast) is the step past it.
+columns that pair with them, so the gate is applied in registers.  Its K
+steps' weight slices come from a bf16 image of W_in and W_rs that
+`ops/wn_image.py::weight_image` lays out once, in the kernel's column
+order and in wgmma's swizzled K-major layout (`pack_wn_flow` stores it
+with the pack; the kernel needs it).  The gate is exact f32 tanh and
+sigmoid, as on the TPU.  The blocks (one a SM) run in clusters of
+`CLUSTER` = 2, one TPC, and a third warpgroup feeds each block through
+mbarrier rings: every 32 KB weight slice is read from L2 once for the
+cluster, each block multicasting its half into both blocks' shared memory
+(16 KB a step a block from L2, 19.8 GB a flow at the 640-frame bucket
+instead of 39.6), and the x slices come by TMA, eight steps ahead.  The
+two blocks of a cluster walk their tiles in lock-step; a tile past the
+last runs masked.  Launched cooperative and clustered together
+(`cudaLaunchKernelEx`), one cluster per TPC (66 on an H100 SXM); the
+output is bit for bit the cp.async-fed form's.  `launches` counts the
+launches and `cluster_launches` those in clusters (every bf16 one at
+C = 256); the `waveglow.coupling` span's `cluster` attribute is the
+cluster size (`cluster_size`; 0 where no cluster runs).  What
+bounds it now is not the L2's weight stream but the gate and the
+epilogue (~14 us of a tile and layer's ~31 at the serving shape), during
+which the tensor cores idle, and the stages a block can hold (32 KB a
+step, three steps in flight).
 
 The kernel is built with nvcc for sm_90a at first use (`ops/cuda_lib.py`)
 and loaded with ctypes.  CPU tensors take `wn_flow_plain`; CUDA tensors
@@ -86,20 +98,39 @@ _FLOW = [_p, _p, _ll, _ll] + [_p] * 12 + [_i] * 5 + [_p]
 _LIB = CudaLibrary("wn_flow", {
     "wn_flow_f32": _FLOW, "wn_flow_f32_tile": _FLOW, "wn_flow_bf16": _FLOW,
     "wn_flow_bf16_tile": _FLOW, "wn_flow_f32_occupancy": [_pi, _pi],
-    "wn_flow_bf16_occupancy": [_pi, _pi],
+    "wn_flow_bf16_occupancy": [_pi, _pi], "wn_flow_bf16_clusters": [_pi, _pi],
     "wn_flow_f32_gemm1_tile": [_p, _i, _i, _i, _p, _p, _p],
     "wn_flow_bf16_gemm1_tile": [_p, _i, _i, _i, _p, _p, _p]})
 build = _LIB.build
 
-# Kernel launches since the last reset (the caller sets it to 0).
+# Kernel launches since the last reset (the caller sets them to 0): all of
+# them, and those in clusters that share each weight read (CLUSTER blocks).
 launches = 0
+cluster_launches = 0
+
+# The blocks of a cluster of the bf16 kernel at C = 256.
+CLUSTER = 2
+
+
+def cluster_size(dtype, C: int, device) -> int:
+    """The cluster size of the flow kernel that `wn_flow` launches for
+    this dtype, width and device: CLUSTER for bf16 at C = 256 on the card,
+    else 0 (no cluster: the plain version, the f32 and other-width
+    kernels)."""
+    on_card = torch.device(device).type == "cuda"
+    return CLUSTER if on_card and dtype == torch.bfloat16 \
+        and C == KERNEL_C else 0
+
 
 def kernel_resources(dtype=torch.bfloat16) -> tuple:
-    """The C = 256 kernel's (blocks per SM, dynamic shared memory bytes) on
-    the current card: the bf16 wgmma kernel, or with dtype=torch.float32
-    the f32 SIMT kernel."""
-    name = "f32" if dtype == torch.float32 else "bf16"
-    return _LIB.occupancy(f"wn_flow_{name}_occupancy")
+    """The C = 256 kernel's resources on the current card: with
+    dtype=torch.float32 the f32 SIMT kernel's (blocks per SM, dynamic
+    shared memory bytes); the bf16 wgmma kernel's (blocks per SM, dynamic
+    shared memory bytes, cluster size, clusters the card holds at once)."""
+    if dtype == torch.float32:
+        return _LIB.occupancy("wn_flow_f32_occupancy")
+    return (*_LIB.occupancy("wn_flow_bf16_occupancy"),
+            *_LIB.occupancy("wn_flow_bf16_clusters"))
 
 
 def gemm1_tile(x: torch.Tensor, w: torch.Tensor, t0: int,
@@ -256,6 +287,8 @@ def wn_flow(packed: dict, audio_half: torch.Tensor,
              B, T, C, L, n_half, stream)
     if err != 0:
         raise RuntimeError(f"wn_flow kernel launch failed: CUDA error {err}")
-    global launches
+    global launches, cluster_launches
     launches += 1
+    if symbol == "wn_flow_bf16":
+        cluster_launches += 1
     return out

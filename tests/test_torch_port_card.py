@@ -2,6 +2,10 @@
 their plain PyTorch versions, on the card; and one tile's GEMM 1 of the
 bf16 wgmma tile (its cp.async ring, weight image, swizzle and wgmma
 descriptors) against torch.matmul, and the same for the f32 SIMT tile.
+The clustered bf16 flow kernel also against the same arithmetic on the
+layer kernel, bit for bit (torch.equal), at an odd tile count (a masked
+partner tile), B = 1, ragged T, a dilation past T, n_half 4 / 3 / 2 and
+the vocoder cell's 640-frame bucket.
 At C = 256 bf16 runs both kernels on the wgmma tile (csrc/wn_wgmma.cuh)
 and f32 on the SIMT tile (csrc/wn_simt.cuh); other widths on
 wn_tile.cuh's.  Tolerances: f32 atol 1e-4 (TF32 off; the same arithmetic
@@ -301,6 +305,114 @@ def test_flow_kernel_bf16_cond_strides(card):
         with pytest.raises(ValueError, match="strides a multiple of 8"):
             wf.wn_flow(packed, audio, bad)
     assert wf.launches == n0
+
+
+def _flow_exact(seed, B, T, n_half, device):
+    """A random bf16 flow (as `_flow`) whose f32 biases hold bf16 values,
+    so that the layer kernel, which takes its biases in bf16, adds the same
+    numbers; drawn on the card (the cell's shape is large)."""
+    g = torch.Generator(device).manual_seed(seed)
+    C, L, bf = 256, 8, torch.bfloat16
+
+    def mk(shape, s, dt=bf):
+        return (torch.randn(shape, generator=g, device=device) * s).to(dt)
+
+    packed = {"w_start": mk((n_half, C), 0.3),
+              "b_start": mk((C,), 0.1).float(),
+              "w_in": mk((L, 3 * C, 2 * C), 0.05),
+              "b_in": mk((L, 2 * C), 0.1).float(),
+              "w_rs": mk((L, C, 2 * C), 0.05),
+              "b_rs": mk((L, 2 * C), 0.1).float(),
+              "w_end": mk((C, 2 * n_half), 0.05),
+              "b_end": mk((2 * n_half,), 0.1).float()}
+    packed["w_rs"][L - 1, :, :C] = 0
+    packed["b_rs"][L - 1, :C] = 0
+    packed.update(wf.weight_image(packed))
+    return packed, mk((B, n_half, T), 1.0), mk((B, T, L * 2 * C), 0.3)
+
+
+def _flow_by_layers(packed, audio, cond):
+    """The bf16 flow kernel's arithmetic, with each layer on the layer
+    kernel (csrc/wn_layer.cu: the same wgmma tile, gate and epilogue, fed
+    by its cp.async ring): the start conv as the flow kernel's FMA chain
+    over n_half (a product of two bf16 is exact in f32, so each FMA is one
+    rounded add), x and the skip sum rounded to bf16 after each layer, and
+    the end conv as its warp sums it (8 channels in order a lane, then a
+    butterfly over the 32 lanes).  The flow kernel's output, bit for bit."""
+    f32, bf = torch.float32, torch.bfloat16
+    B, n_half, T = audio.shape
+    L, C, n_out = packed["b_in"].shape[0], packed["b_start"].shape[0], 2 * n_half
+    acc = torch.zeros((B, T, C), dtype=f32, device=audio.device)
+    for j in range(n_half):
+        acc = acc + audio[:, j, :, None].float() * packed["w_start"][j].float()
+    x = (acc + packed["b_start"]).to(bf)
+    skip_sum = None
+    for i in range(L):
+        last = i == L - 1
+        lo = C if last else 0
+        b_in, b_rs = packed["b_in"][i].to(bf), packed["b_rs"][i][lo:].to(bf)
+        assert torch.equal(b_in.float(), packed["b_in"][i])
+        assert torch.equal(b_rs.float(), packed["b_rs"][i][lo:])
+        x, skip = wl.wn_layer(
+            x, cond[:, :, 2 * C * i: 2 * C * (i + 1)], packed["w_in"][i], b_in,
+            packed["w_rs"][i][:, lo:].contiguous(), b_rs, dilation=2 ** i,
+            last=last, in_img=packed["w_in_img"][i],
+            rs_img=packed["w_rs_img"][i])
+        skip_sum = skip if skip_sum is None else skip_sum + skip
+    prod = (skip_sum.float().view(B, T, 32, 8, 1)
+            * packed["w_end"].float().view(32, 8, n_out))
+    part = torch.zeros((B, T, 32, n_out), dtype=f32, device=audio.device)
+    for q in range(8):
+        part = part + prod[:, :, :, q]
+    lane = torch.arange(32, device=audio.device)
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[:, :, lane ^ off]
+    return (part[:, :, 0] + packed["b_end"]).to(bf).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,n_half", [
+    (1, 64 * 5, 4),          # 5 tiles: the third cluster's second block masked
+    (3, 64 * 89, 3),         # 267 tiles: two rounds of 132, a masked partner in the third
+    (1, 1000, 4),            # B = 1: 16 tiles, fewer than the card's blocks
+    (2, 97, 2),              # ragged T; layer 7's dilation (128) reaches past T
+    (2, 64 * 5 + 1, 4),      # ragged T, an odd tile count
+    (1, 50, 3),              # one tile: one cluster, its second block masked
+    (2, 1000, 2),
+    (24, 640 * 160 // 8, 4),  # vocoder-batch's 640-frame bucket
+])
+def test_flow_kernel_bf16_bit_equal_to_its_layers(card, B, T, n_half):
+    """The clustered bf16 flow kernel against the same arithmetic on the
+    layer kernel (`_flow_by_layers`): equal bit for bit (torch.equal), one
+    launch counted, in clusters; and within the plain version's bound."""
+    packed, audio, cond = _flow_exact(B * 7919 + T + n_half, B, T, n_half,
+                                      card)
+    n0, c0 = wf.launches, wf.cluster_launches
+    got = wf.wn_flow(packed, audio, cond)
+    torch.cuda.synchronize()
+    assert (wf.launches, wf.cluster_launches) == (n0 + 1, c0 + 1)
+    want = _flow_by_layers(packed, audio, cond)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    if B * T <= 4000:
+        plain = wf.wn_flow_plain(packed, audio, cond).float()
+        scale = max(1.0, plain.abs().max().item())
+        torch.testing.assert_close(got.float(), plain, atol=3e-2 * scale,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+def test_flow_kernel_bf16_resources(card):
+    """The bf16 flow kernel: one block of 384 threads per SM, clusters of
+    two, as many clusters at once as the card has TPCs; the f32 kernel's
+    resources keep their form."""
+    blocks, smem, size, active = wf.kernel_resources(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert (blocks, size) == (1, wf.CLUSTER)
+    assert 200_000 < smem <= 232_448
+    assert 0 < active * size <= sms
+    assert len(wf.kernel_resources(torch.float32)) == 2
+    assert wf.cluster_size(torch.bfloat16, 256, card) == wf.CLUSTER
 
 
 @pytest.mark.cuda

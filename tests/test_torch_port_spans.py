@@ -164,9 +164,10 @@ def test_waveglow_infer_spans(wn_impl, cond_impl):
             assert s.attrs == {"M": B * G, "K": K, "esz": 4}
         elif s.name == "waveglow.coupling":
             assert parent == "waveglow.infer"
+            # no clustered flow kernel runs on the CPU
             assert s.attrs == {"B": B, "T": G,
                                "n_half": chans[couplings] // 2,
-                               "C": C, "L": L, "esz": 4}
+                               "C": C, "L": L, "esz": 4, "cluster": 0}
             couplings += 1
         elif s.name == "waveglow.cond.project":
             assert parent == "waveglow.coupling"
@@ -178,3 +179,28 @@ def test_waveglow_infer_spans(wn_impl, cond_impl):
             assert s.attrs == {"B": B, "T": G, "c": chans[inverses]}
             inverses += 1
     assert couplings == inverses == n
+
+
+@pytest.mark.parametrize("wn_impl,want", [("flow", 2), ("conv", 0),
+                                          ("layer", 0)])
+def test_coupling_span_carries_the_flow_kernels_cluster(monkeypatch, wn_impl,
+                                                        want):
+    """`waveglow.coupling`'s `cluster` is ops/wn_flow.cluster_size of the
+    call's dtype, width and device where the flow kernel runs (stood in for
+    here: the CPU runs none), else 0."""
+    seen = []
+
+    def size(dtype, C, device):
+        seen.append((dtype, C, torch.device(device).type))
+        return 2
+
+    monkeypatch.setattr(twg, "cluster_size", size)
+    params = twg.init_waveglow(CFG, torch.Generator().manual_seed(3))
+    mel = torch.randn(1, 16, 4, generator=torch.Generator().manual_seed(5))
+    with torch.profiler.profile(activities=CPU):
+        _infer(params, mel, wn_impl=wn_impl, cond_impl="dense")
+    got = {s.attrs["cluster"] for s in profiling.spans()
+           if s.name == "waveglow.coupling"}
+    assert got == {want}
+    assert seen == ([(torch.float32, CFG.wn_n_channels, "cpu")]
+                    if wn_impl == "flow" else [])

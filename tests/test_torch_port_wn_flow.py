@@ -171,12 +171,36 @@ def test_wn_flow_cpu_takes_plain_and_counts_no_launch(params):
     pk = twg.pack_waveglow_flow(TCFG, tparams)[0]
     audio = torch.randn(1, 4, 50, generator=torch.Generator().manual_seed(0))
     cond = torch.zeros(1, 50, CFG.wn_n_layers * 2 * CFG.wn_n_channels)
-    n0 = twf.launches
+    n0, c0 = twf.launches, twf.cluster_launches
     out = twf.wn_flow(pk, audio, cond)
-    assert twf.launches == n0
+    assert (twf.launches, twf.cluster_launches) == (n0, c0)
     assert torch.equal(out, twf.wn_flow_plain(pk, audio, cond))
     with pytest.raises(ValueError, match="unsupported device"):
         twf.wn_flow(pk, audio.to("meta"), cond.to("meta"))
+
+
+@pytest.mark.parametrize("dtype,C,device,want", [
+    (torch.bfloat16, 256, "cuda", 2), (torch.bfloat16, 256, "cpu", 0),
+    (torch.float32, 256, "cuda", 0), (torch.bfloat16, 128, "cuda", 0),
+    (torch.bfloat16, 512, "cuda", 0)])
+def test_cluster_size_names_the_clustered_kernel(dtype, C, device, want):
+    """Only the bf16 kernel at C = 256 on the card runs in clusters (of
+    CLUSTER blocks); the plain version, f32 and other widths in none."""
+    assert twf.cluster_size(dtype, C, torch.device(device)) == want
+    assert twf.CLUSTER == 2
+
+
+def test_kernel_resources_reports_the_cluster(monkeypatch):
+    """kernel_resources(bf16) adds the cluster size and the clusters the
+    card holds at once to (blocks per SM, shared memory); f32 keeps its
+    pair.  The C queries are stood in for (no card here)."""
+    answers = {"wn_flow_bf16_occupancy": (1, 215_120),
+               "wn_flow_bf16_clusters": (2, 66),
+               "wn_flow_f32_occupancy": (1, 200_000)}
+    monkeypatch.setattr(twf._LIB, "occupancy", answers.__getitem__)
+    assert twf.kernel_resources(torch.bfloat16) == (1, 215_120, 2, 66)
+    assert twf.kernel_resources() == (1, 215_120, 2, 66)
+    assert twf.kernel_resources(torch.float32) == (1, 200_000)
 
 
 def test_pack_wn_flow_places_the_last_layer_in_the_skip_columns(params):
