@@ -749,11 +749,13 @@ def stage_times(synth, paths, repeats=3):
     from fac_via_ppg_torch.models.tacotron2 import \
         tacotron2_inference_batched
     from fac_via_ppg_torch.models.waveglow import (
-        pack_waveglow_flow,
-        waveglow_infer,
+        serving_form,
+        waveglow_serve,
     )
 
-    flow_pack = pack_waveglow_flow(synth.wg_cfg, synth.wg_params)
+    form = synth.waveglow
+    flow = serving_form(form.cfg, form.params, wn_impl="flow")
+    conv = serving_form(form.cfg, form.params, wn_impl="conv")
     pairs = [synth.featurize(p) for p in paths[:BATCH]]
     t_max = max(f.shape[0] for f, _ in pairs)
     feats = torch.as_tensor(np.stack([
@@ -785,21 +787,17 @@ def stage_times(synth, paths, repeats=3):
             mel = torch.where(produced, mel, mel.new_full((), SILENCE))
             mel = mel.to(torch.bfloat16)
             t = time.time()
-            audio = waveglow_infer(synth.wg_cfg, synth.wg_params, mel,
-                                   synth.sigma, g,
-                                   packed_wn=synth._packed_wn).float()
+            audio = waveglow_serve(form, mel, synth.sigma, g).float()
             torch.cuda.synchronize()
             note("waveglow_s", time.time() - t)
             if not torch.isfinite(audio).all():
                 raise AssertionError("WaveGlow audio is not finite")
             t = time.time()
-            waveglow_infer(synth.wg_cfg, synth.wg_params, mel, synth.sigma,
-                           g, wn_impl="flow", packed_wn=flow_pack)
+            waveglow_serve(flow, mel, synth.sigma, g)
             torch.cuda.synchronize()
             note("waveglow_flow_s", time.time() - t)
             t = time.time()
-            waveglow_infer(synth.wg_cfg, synth.wg_params, mel, synth.sigma,
-                           g, wn_impl="conv")
+            waveglow_serve(conv, mel, synth.sigma, g)
             torch.cuda.synchronize()
             note("waveglow_conv_s", time.time() - t)
             t = time.time()
@@ -861,9 +859,8 @@ def profile_cli_batch(cfg, ckpt, paths):
     flow kernel, denoiser) under the profiler, after one warm-up."""
     from fac_via_ppg_torch.models.denoiser import Denoiser
     from fac_via_ppg_torch.models.waveglow import (
-        cast_params,
-        pack_waveglow_flow,
-        waveglow_infer,
+        serving_form,
+        waveglow_serve,
     )
     from fac_via_ppg_torch.scripts.waveglow_inference import (
         bucket_mels,
@@ -874,8 +871,7 @@ def profile_cli_batch(cfg, ckpt, paths):
 
     params = move(load_waveglow_model(ckpt, cfg), torch.device("cuda"))
     den = Denoiser(cfg, params)
-    serve = cast_params(params, torch.bfloat16)
-    pack = pack_waveglow_flow(cfg, serve)
+    form = serving_form(cfg, params, dtype=torch.bfloat16, wn_impl="flow")
     mels = bucket_mels([(p, load_mel(p)) for p in paths[:CLI_BATCH]], 64)
     mel = torch.as_tensor(np.stack([m for _, m, _ in mels]),
                           device="cuda").to(torch.bfloat16)
@@ -883,8 +879,7 @@ def profile_cli_batch(cfg, ckpt, paths):
 
     def batch():
         with torch.no_grad():
-            audio = waveglow_infer(cfg, serve, mel, 0.6, gen,
-                                   wn_impl="flow", packed_wn=pack).float()
+            audio = waveglow_serve(form, mel, 0.6, gen).float()
             den(audio, strength=0.005)
 
     batch()
@@ -1177,7 +1172,7 @@ COND_LAUNCHES = {}
 def counted_cond(key, n_flows, min_calls=1):
     """Counts the int8 cond kernel's launches over the block
     (ops/cond_int8.py's `launches`, set to 0 here) and the int8
-    `waveglow_infer` calls (each quantizes its codes once: models/
+    vocoder calls (each quantizes its codes once: models/
     waveglow.py::quantize_cond, wrapped for the block); holds n_flows
     launches a call and at least `min_calls` calls.  Yields a dict that
     holds "launches" and "calls" after the block; keeps the launches
@@ -2725,14 +2720,12 @@ def trace_rtf_flow(wf, tmp):
     Returns both rows."""
     from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
     from fac_via_ppg_torch.models.waveglow import (
-        cast_params,
         flow_channels,
         init_waveglow,
-        pack_waveglow_flow,
-        pack_waveglow_int8cond,
         quantize_cond,
         remove_weightnorm,
-        waveglow_infer,
+        serving_form,
+        waveglow_serve,
     )
     from fac_via_ppg_torch.ops import cond_int8 as ci8
     from fac_via_ppg_torch.weights import move
@@ -2743,18 +2736,15 @@ def trace_rtf_flow(wf, tmp):
         cfg.wn_n_layers
     params = move(remove_weightnorm(
         init_waveglow(cfg, torch.Generator().manual_seed(0))), dev)
-    packed_cond = pack_waveglow_int8cond(cfg, params)
-    serve = cast_params(params, bf16)
-    pack = pack_waveglow_flow(cfg, serve)
+    form = serving_form(cfg, params, dtype=bf16, wn_impl="flow",
+                        cond_impl="int8")
     g = torch.Generator("cuda").manual_seed(SEED + 61)
     mel = (torch.randn((B, cfg.n_mel_channels, F), generator=g,
                        device="cuda") * 0.5 - 5.0).to(bf16)
 
     def call():
         with torch.no_grad():
-            waveglow_infer(cfg, serve, mel, 0.6, g, wn_impl="flow",
-                           packed_wn=pack, cond_impl="int8",
-                           packed_cond=packed_cond).float().sum().item()
+            waveglow_serve(form, mel, 0.6, g).float().sum().item()
 
     call()
     counts = rl.waveglow_counts(cfg, B, F, bf16, "flow", cond_impl="int8")
@@ -2769,7 +2759,7 @@ def trace_rtf_flow(wf, tmp):
 
     def flows():
         for k in reversed(range(cfg.n_flows)):
-            wf.wn_flow(pack[k], halves[k], cond)
+            wf.wn_flow(form.wn[k], halves[k], cond)
 
     event_ms = cuda_ms_queued(flows)
     bound = sum(flow_bound(B, T, flow_channels(cfg)[k] // 2, bf16)[2]
@@ -2788,7 +2778,7 @@ def trace_rtf_flow(wf, tmp):
 
     def projections():
         for k in reversed(range(cfg.n_flows)):
-            ci8.cond_int8(codes, s, packed_cond[k], bf16)
+            ci8.cond_int8(codes, s, form.packed_cond[k], bf16)
 
     key = "cond_int8_kernel"
     cond_row = trace_row(rows, {key: counts[key]},
@@ -2828,7 +2818,7 @@ def trace_fused_layer(wl, models, tmp):
             * 0.3).to(bf16)
 
     def layers():
-        for pk in synth._packed_wn:
+        for pk in synth.waveglow.wn:
             for i in range(L):
                 wl.wn_layer(x, cond[:, :, 2 * C * i: 2 * C * (i + 1)],
                             pk["in_w"][i], pk["in_b"][i], pk["rs_w"][i],
@@ -2967,14 +2957,12 @@ def check_grouped_upsample(wl, wf):
     timed with CUDA events, A B B A.  Returns each kernel's launches in
     the grouped calls."""
     from fac_via_ppg_torch.models.waveglow import (
-        cast_params,
         group_spect,
-        pack_waveglow_flow,
-        pack_waveglow_layer,
         remove_weightnorm,
+        serving_form,
         upsample_grouped,
         upsample_phase_matmul,
-        waveglow_infer,
+        waveglow_serve,
     )
     from fac_via_ppg_torch.weights import move
 
@@ -2985,12 +2973,12 @@ def check_grouped_upsample(wl, wf):
         B, cfg.n_mel_channels, F) * 0.5 - 5.0, dtype=torch.float32,
         device="cuda")
     out = {}
-    for dtype, impl, pack in ((torch.bfloat16, "flow", pack_waveglow_flow),
-                              (torch.float32, "layer", pack_waveglow_layer)):
+    for dtype, impl in ((torch.bfloat16, "flow"), (torch.float32, "layer")):
         name = "wn_layer" if impl == "layer" else "wn_flow"
         want = cfg.n_flows * (cfg.wn_n_layers if impl == "layer" else 1)
-        serve = params if dtype == torch.float32 else cast_params(params,
-                                                                  dtype)
+        form = serving_form(cfg, params, wn_impl=impl,
+                            dtype=None if dtype == torch.float32 else dtype)
+        serve = form.params
         m = mel.to(dtype)
         with torch.no_grad():
             two = group_spect(upsample_phase_matmul(
@@ -3000,7 +2988,6 @@ def check_grouped_upsample(wl, wf):
             if not torch.equal(one, two) or one.stride() != two.stride():
                 raise AssertionError(f"grouped spect ({dtype}) is not the "
                                      f"two-step spect bit for bit")
-            pk = pack(cfg, serve)
             audio, ms = [], {True: [], False: []}
             out[name] = 0
             for grouped in ABBA:
@@ -3009,10 +2996,9 @@ def check_grouped_upsample(wl, wf):
                 with contextlib.nullcontext() if grouped \
                         else two_step_upsampler():
                     ev[0].record()
-                    audio.append(waveglow_infer(
-                        cfg, serve, m, 0.6,
-                        torch.Generator("cuda").manual_seed(SEED + 73),
-                        wn_impl=impl, packed_wn=pk))
+                    audio.append(waveglow_serve(
+                        form, m, 0.6,
+                        torch.Generator("cuda").manual_seed(SEED + 73)))
                     ev[1].record()
                 torch.cuda.synchronize()
                 ms[grouped].append(ev[0].elapsed_time(ev[1]))
@@ -3504,36 +3490,33 @@ def par_tp(mesh):
         PAR_TP_B, cfg.n_mel_channels, PAR_TP_FRAMES)) * 0.5 - 5).float()
     out = {}
 
-    def call(p, **kw):
+    def call(dtype, **kw):
+        """The conv formulation's call on a serving form built before the
+        clock starts."""
+        form = tw.serving_form(cfg, params, dtype=dtype, wn_impl="conv",
+                               **kw)
         torch.cuda.synchronize()
         n0 = collectives["all_reduce"]
         t0 = time.time()
         with torch.no_grad():
-            a = tw.waveglow_infer(cfg, p, mel.cuda().to(
-                p["upsample"]["weight"].dtype), 0.6,
-                torch.Generator("cuda").manual_seed(SEED), wn_impl="conv",
-                **kw).float()
+            a = tw.waveglow_serve(form, mel.cuda(), 0.6, torch.Generator(
+                "cuda").manual_seed(SEED)).float()
         torch.cuda.synchronize()
-        return a, time.time() - t0, collectives["all_reduce"] - n0
+        return a, time.time() - t0, collectives["all_reduce"] - n0, form
 
     for dtype in (torch.float32, torch.bfloat16):
-        p = tw.cast_params(params, dtype)
-        local = tw.tp_shard_waveglow(p, mesh)
-        ref, ref_s, _ = call(p)
-        dense, s, n = call(p, mesh=mesh, packed_wn=local)
+        ref, ref_s, _, _ = call(dtype)
+        dense, s, n, _ = call(dtype, mesh=mesh)
         key = str(dtype).split(".")[1]
         out[key] = {"err_rel": float((dense - ref).abs().max()
                                      / ref.abs().max()),
                     "one_process_s": ref_s, "tp_s": s, "all_reduces": n}
     # int8 cond against the bf16 dense call above, both tensor parallel:
     # the cond kernel at this rank's N, once a flow
-    pk = tw.tp_shard_int8cond(cfg, tw.pack_waveglow_int8cond(cfg, params),
-                              mesh)
     ci8.launches = 0
-    int8, s, _ = call(p, mesh=mesh, packed_wn=local, cond_impl="int8",
-                      packed_cond=pk)
+    int8, s, _, form = call(torch.bfloat16, mesh=mesh, cond_impl="int8")
     out["int8_cond_launches"] = ci8.launches
-    out["int8_cond_n"] = int(pk[0]["wq"].shape[0])
+    out["int8_cond_n"] = int(form.packed_cond[0]["wq"].shape[0])
     err = (int8 - dense).double()
     out["int8_snr_db"] = float(10 * torch.log10(
         (dense.double() ** 2).sum() / (err ** 2).sum()))

@@ -84,34 +84,17 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
     times the tensor-parallel conv formulation, each rank on its slices
     of the params and of the int8 packs."""
     from fac_via_ppg_torch.models.waveglow import (
-        cast_params,
         init_waveglow,
-        pack_waveglow_flow,
-        pack_waveglow_int8cond,
-        pack_waveglow_layer,
-        pack_waveglow_wn_int8,
         remove_weightnorm,
-        tp_shard_int8cond,
-        tp_shard_waveglow,
-        tp_shard_wn_int8,
-        waveglow_infer,
+        serving_form,
+        waveglow_serve,
     )
     from fac_via_ppg_torch.weights import move
 
     wn_impl = resolve_wn_impl(wn_impl)
-    tp = mesh is not None and mesh.shape["model"] > 1
-    if cond_impl not in ("dense", "int8"):
-        raise ValueError(f"unknown cond_impl {cond_impl!r}")
-    if cond_impl == "int8" and wn_impl == "layer":
-        raise ValueError("--cond_impl int8 requires --wn_impl flow or conv "
-                         "(xla); the WN layer kernel takes the dense cond")
-    rung = bool(wn_int8_flows or wn_int8_rs_flows)
-    if rung and wn_impl != "conv":
-        raise ValueError("--wn_int8_flows / --wn_int8_rs_flows need "
-                         "--wn_impl conv (xla): wn_int8_flows/rs requires "
-                         "wn_impl='xla'")
-    dev = mesh.device if mesh is not None else resolve_device(device)
     cfg = cfg or WaveGlowConfig()
+    rung = bool(wn_int8_flows or wn_int8_rs_flows)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     sr = 16000
     n_frames = int(seconds * sr) // cfg.hop_length
     params = move(remove_weightnorm(
@@ -119,28 +102,24 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
     mel = torch.as_tensor(
         np.random.RandomState(0).randn(batch, cfg.n_mel_channels, n_frames),
         dtype=torch.float32, device=dev) * 0.5 - 5.0
-    # int8 weights from the un-cast params, as the serving paths do
-    packed_cond = (pack_waveglow_int8cond(cfg, params)
-                   if cond_impl == "int8" else None)
-    packed_wn8 = pack_waveglow_wn_int8(cfg, params) if rung else None
-    pack = {"flow": pack_waveglow_flow, "layer": pack_waveglow_layer}.get(
-        wn_impl)
-    if tp:
-        packed_cond = (None if packed_cond is None
-                       else tp_shard_int8cond(cfg, packed_cond, mesh))
-        packed_wn8 = (None if packed_wn8 is None
-                      else tp_shard_wn_int8(packed_wn8, mesh))
-        pack = lambda c, p: tp_shard_waveglow(p, mesh)  # noqa: E731
     served = {}
 
-    def serving(dtype):
-        """(params, kernel pack, mel) in `dtype` (None: f32), built once:
-        the vocoder CLI's serving form."""
+    def serving(dtype, ci):
+        """(serving form, mel) in `dtype` (None: f32), built once a
+        dtype: the vocoder CLI's serving form, its int8 weights from the
+        un-cast params.  `ci="dense"` on an int8 form serves the same
+        weights with the dense cond."""
         if dtype not in served:
-            p = params if dtype is None else cast_params(params, dtype)
-            served[dtype] = (p, pack(cfg, p) if pack else None,
-                             mel if dtype is None else mel.to(dtype))
-        return served[dtype]
+            served[dtype] = (serving_form(
+                cfg, params, dtype=dtype, wn_impl=wn_impl,
+                cond_impl=cond_impl, wn_int8_flows=wn_int8_flows,
+                wn_int8_quant=wn_int8_quant,
+                wn_int8_rs_flows=wn_int8_rs_flows, mesh=mesh),
+                mel if dtype is None else mel.to(dtype))
+        form, m = served[dtype]
+        if ci != form.cond_impl:
+            form = dataclasses.replace(form, cond_impl=ci)
+        return form, m
 
     def measure(dtype, b=batch, pipelined=False, ci=None, depth=1):
         """Serial protocol: each call's scalar read back before the next
@@ -149,18 +128,12 @@ def bench_waveglow_rtf(batch: int = 24, seconds: float = 10.0,
         readback overlaps the card's work (the eval/streaming.py
         pipeline_depth pattern).  `repeats` > 1 times the window that many
         times; returns (median RTF, total seconds, each window's RTF)."""
-        p, pk, m = serving(dtype)
+        form, m = serving(dtype, cond_impl if ci is None else ci)
         mel_b = m[:b]
-        ci = cond_impl if ci is None else ci
-        pc = packed_cond if ci == "int8" else None
 
         def call(i):
             g = torch.Generator(dev).manual_seed(i)
-            return scalar(waveglow_infer(
-                cfg, p, mel_b, 0.6, g, wn_impl=wn_impl, packed_wn=pk,
-                cond_impl=ci, packed_cond=pc, wn_int8_flows=wn_int8_flows,
-                packed_wn_int8=packed_wn8, wn_int8_quant=wn_int8_quant,
-                wn_int8_rs_flows=wn_int8_rs_flows, mesh=mesh))
+            return scalar(waveglow_serve(form, mel_b, 0.6, g))
 
         with torch.no_grad():
             for i in range(warmup):

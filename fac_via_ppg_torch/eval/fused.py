@@ -41,7 +41,7 @@ sharding-invariant draws do).  Each rank's decode stops on its own rows
 either way).  `collect_feature_pairs` all-gathers the PCM, so every rank
 returns every row.  With `model_parallel` > 1 Tacotron2 is whole on every
 rank and WaveGlow's WN channels are split over the model group, on the
-conv formulation (models/waveglow.py::waveglow_infer(mesh=)), as the JAX
+conv formulation (models/waveglow.py::serving_form(mesh=)), as the JAX
 package runs its XLA formulation there.
 """
 
@@ -63,14 +63,9 @@ from fac_via_ppg_torch.models.tacotron2 import (
     tacotron2_inference_batched,
 )
 from fac_via_ppg_torch.models.waveglow import (
-    cast_params,
-    pack_waveglow_flow,
-    pack_waveglow_int8cond,
-    pack_waveglow_layer,
-    tp_shard_int8cond,
-    tp_shard_waveglow,
-    waveglow_infer,
+    serving_form,
     waveglow_noise,
+    waveglow_serve,
 )
 from fac_via_ppg_torch.parallel.mesh import (
     gather_rows,
@@ -116,8 +111,8 @@ class FusedSynthesizer:
         DependenciesPPG() generates the substitute bundle on first use.
 
         `cond_impl="int8"` runs the vocoder's stacked cond projections as
-        int8 matmuls (models/waveglow.py pack_waveglow_int8cond), on the
-        flow kernel.  Lossy.
+        int8 matmuls (models/waveglow.py pack_waveglow_int8cond, built by
+        its serving_form), on the flow kernel.  Lossy.
 
         `cond_impl="auto"` gates the lossy mode: at start-up the bf16+int8
         path's worst-utterance SNR against f32-dense is measured on
@@ -173,9 +168,16 @@ class FusedSynthesizer:
             print(f"cond_impl=auto: bf16+int8 worst-utterance SNR "
                   f"{worst:.1f} dB vs budget {budget:.1f} dB -> serving "
                   f"cond_impl='{cond_impl}'")
-        if cond_impl not in ("dense", "int8"):
-            raise ValueError(f"unknown cond_impl {cond_impl!r}")
         self.cond_impl = cond_impl
+        # the serving form; int8 weights from the un-cast params, as in
+        # the JAX package; the conv formulation on this rank's WN
+        # channels under TP
+        self._wn_impl = ("conv" if tp else
+                         "flow" if cond_impl == "int8" else "layer")
+        self.waveglow = serving_form(
+            wg_cfg, wg_params, dtype=serving_dtype, wn_impl=self._wn_impl,
+            cond_impl=cond_impl, mesh=self.mesh)
+        self.wg_params = self.waveglow.params
         self.deps = deps or ppg_mod.DependenciesPPG()
         self.nnet = self.deps.nnet.to(dev)
         self.t2_cfg = dataclasses.replace(t2_cfg, max_decoder_steps=max_frames)
@@ -194,28 +196,10 @@ class FusedSynthesizer:
         # measured on the card
         self.pad_to_grid = bool(pad_to_grid)
 
-        # int8 weights from the un-cast params, as in the JAX package
-        self._packed_cond = (pack_waveglow_int8cond(wg_cfg, wg_params)
-                             if cond_impl == "int8" else None)
-        if tp and self._packed_cond is not None:
-            self._packed_cond = tp_shard_int8cond(wg_cfg, self._packed_cond,
-                                                  self.mesh)
         # bias spectrum once, from the f32 vocoder
         den = Denoiser(wg_cfg, wg_params)
         self._stft = den.stft
         self._bias = den.bias_spec
-        if serving_dtype is not None:
-            wg_params = cast_params(wg_params, serving_dtype)
-        self.wg_params = wg_params
-        if tp:
-            # the conv formulation on this rank's WN channels
-            self._wn_impl = "conv"
-            self._packed_wn = tp_shard_waveglow(wg_params, self.mesh)
-            return
-        self._wn_impl = "flow" if cond_impl == "int8" else "layer"
-        pack = (pack_waveglow_flow if self._wn_impl == "flow"
-                else pack_waveglow_layer)
-        self._packed_wn = pack(wg_cfg, wg_params)
 
     def global_draws(self, b_global: int, t_in: int, generator,
                      dropout_masks=None, noise=None):
@@ -257,13 +241,9 @@ class FusedSynthesizer:
                     [None, None, :] < mel_lens[:, None, None])
         mel_in = torch.where(produced, mel_post,
                              mel_post.new_full((), SILENCE))
-        audio = waveglow_infer(
-            self.wg_cfg, self.wg_params,
-            mel_in.to(self.serving_dtype or torch.float32), self.sigma,
-            generator, noise=noise, wn_impl=self._wn_impl,
-            packed_wn=self._packed_wn, cond_impl=self.cond_impl,
-            packed_cond=self._packed_cond, mesh=self.mesh,
-        ).float()                                        # (B, M*hop)
+        audio = waveglow_serve(
+            self.waveglow, mel_in.to(self.serving_dtype or torch.float32),
+            self.sigma, generator, noise=noise).float()  # (B, M*hop)
         spec, angles = self._stft.transform(audio)
         spec = torch.clamp(spec - self._bias * self.strength, min=0.0)
         denoised = self._stft.inverse(spec, angles)[:, 0, :]

@@ -32,9 +32,8 @@ from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
 from fac_via_ppg_torch.dsp.stft import TacotronSTFT
 from fac_via_ppg_torch.models.waveglow import (
     flow_channels,
-    pack_waveglow_int8cond,
-    pack_waveglow_wn_int8,
-    waveglow_infer,
+    serving_form,
+    waveglow_serve,
 )
 from fac_via_ppg_torch.utils.inference import get_mel
 
@@ -109,32 +108,22 @@ def _snr_db(ref: np.ndarray, got: np.ndarray) -> float:
 
 def _ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor, sigma: float,
             seed: int, wn_impl: str, rungs) -> tuple:
-    """(f32-dense audio, {name: audio}) for rungs (name, dtype, cond_impl,
-    cond_quant[, wn_n, rs_n]), on the device of `params` (f32,
-    remove_weightnorm form), every run on the same matched noise; audio as
-    float64 numpy.  A rung with WN int8 flows (wn_n in_layer flows, the
-    per-tensor variant where negative; rs_n res_skip flows) runs on the
-    conv formulation."""
+    """(f32-dense audio, {name: audio}) for rungs (name, the fields of its
+    serving form: `serving_form`'s options, `wn_impl` by default the
+    ladder's), on the device of `params` (f32, remove_weightnorm form),
+    every run on the same matched noise; audio as float64 numpy.  Each
+    form's int8 packs come from the f32 params."""
     dev = params["upsample"]["weight"].device
     mel = mel.to(dev, torch.float32)
     noise = matched_noise(cfg, mel.shape[0], mel.shape[2], seed)
-    packed = pack_waveglow_int8cond(cfg, params)
-    wn8 = (pack_waveglow_wn_int8(cfg, params)
-           if any(len(r) > 4 for r in rungs) else None)
 
-    def run(dtype, cond_impl, cond_quant="column", wn_n=0, rs_n=0):
+    def run(fields):
+        form = serving_form(cfg, params, **{"wn_impl": wn_impl, **fields})
         with torch.no_grad():
-            out = waveglow_infer(
-                cfg, params, mel, sigma, dtype=dtype, noise=noise,
-                wn_impl="conv" if wn_n or rs_n else wn_impl,
-                cond_impl=cond_impl, cond_quant=cond_quant,
-                packed_cond=(packed if cond_impl == "int8" else None),
-                wn_int8_flows=abs(wn_n), packed_wn_int8=wn8,
-                wn_int8_quant="tensor" if wn_n < 0 else "column",
-                wn_int8_rs_flows=rs_n)
+            out = waveglow_serve(form, mel, sigma, noise=noise)
         return out.double().cpu().numpy()
 
-    return run(None, "dense"), {name: run(*rung) for name, *rung in rungs}
+    return run({}), {name: run(fields) for name, fields in rungs}
 
 
 def run_ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor,
@@ -159,26 +148,29 @@ def run_ladder(cfg: WaveGlowConfig, params, mel: torch.Tensor,
     (utterance) separately, worst_utt_db its minimum -- the quality gate
     should be judged on the worst utterance, not the batch mean.
     """
+    bf16 = torch.bfloat16
     rungs = [
-        ("bf16_dense", torch.bfloat16, "dense", "column"),
-        ("bf16_int8", torch.bfloat16, "int8", "column"),
-        ("f32_int8", None, "int8", "column"),
+        ("bf16_dense", dict(dtype=bf16)),
+        ("bf16_int8", dict(dtype=bf16, cond_impl="int8")),
+        ("f32_int8", dict(cond_impl="int8")),
     ]
     if include_tensorscale:
         rungs += [
-            ("bf16_int8_tensorscale", torch.bfloat16, "int8", "tensor"),
-            ("f32_int8_tensorscale", None, "int8", "tensor"),
+            ("bf16_int8_tensorscale", dict(dtype=bf16, cond_impl="int8",
+                                           cond_quant="tensor")),
+            ("f32_int8_tensorscale", dict(cond_impl="int8",
+                                          cond_quant="tensor")),
         ]
     if include_wn_int8:
         n = cfg.n_flows
-        # a negative in_layer count encodes the per-tensor variant
-        rungs += [(f"bf16_int8_wn{k}", torch.bfloat16, "int8", "column", k,
-                   0) for k in (4, 8, n) if k <= n]
-        rungs += [(f"bf16_int8_wn{n}t", torch.bfloat16, "int8", "column",
-                   -n, 0),
-                  (f"bf16_int8_rs{n}", torch.bfloat16, "int8", "column", 0,
-                   n)]
-    on_conv = {r[0] for r in rungs if len(r) > 4}
+        wn8 = dict(dtype=bf16, cond_impl="int8", wn_impl="conv")
+        rungs += [(f"bf16_int8_wn{k}", dict(wn8, wn_int8_flows=k))
+                  for k in (4, 8, n) if k <= n]
+        rungs += [(f"bf16_int8_wn{n}t", dict(wn8, wn_int8_flows=n,
+                                              wn_int8_quant="tensor")),
+                  (f"bf16_int8_rs{n}", dict(wn8, wn_int8_rs_flows=n))]
+    on_conv = {name for name, fields in rungs
+               if fields.get("wn_impl") == "conv"}
     ref, got = _ladder(cfg, params, mel, sigma, seed, wn_impl, rungs)
     out = {}
     for name, audio in got.items():
@@ -203,7 +195,8 @@ def select_cond_impl(cfg: WaveGlowConfig, params, mel: torch.Tensor,
     Runs on the device of `params` (f32, remove_weightnorm form) with
     coupling nets `wn_impl` ("conv" or "flow")."""
     ref, got = _ladder(cfg, params, mel, sigma, seed, wn_impl,
-                       [("bf16_int8", torch.bfloat16, "int8", "column")])
+                       [("bf16_int8", dict(dtype=torch.bfloat16,
+                                           cond_impl="int8"))])
     got = got["bf16_int8"]
     worst = min(_snr_db(ref[b], got[b]) for b in range(ref.shape[0]))
     return ("int8" if worst >= budget_db else "dense"), worst

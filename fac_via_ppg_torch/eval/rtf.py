@@ -92,39 +92,34 @@ def timed(fn: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
     return w.seconds / iters
 
 
-def _waveglow_serving(cfg: WaveGlowConfig, seed: int, device):
-    """Random seeded WaveGlow in its serving form on `device`."""
-    from fac_via_ppg_torch.models.waveglow import (
-        init_waveglow,
-        remove_weightnorm,
-    )
-    from fac_via_ppg_torch.weights import move
-
-    params = remove_weightnorm(
-        init_waveglow(cfg, torch.Generator().manual_seed(seed)))
-    return move(params, device)
-
-
 def waveglow_rtf(batch: int = 4, seconds: float = 10.0, sigma: float = 0.6,
                  warmup: int = 3, iters: int = 10,
                  cfg: Optional[WaveGlowConfig] = None,
                  wn_impl: str = "flow", device=None) -> dict:
     """f32 WaveGlow inference at `batch` x `seconds` of audio: seconds of
     audio per second (its coupling nets on `wn_impl`)."""
-    from fac_via_ppg_torch.models.waveglow import waveglow_infer
+    from fac_via_ppg_torch.models.waveglow import (
+        init_waveglow,
+        remove_weightnorm,
+        serving_form,
+        waveglow_serve,
+    )
+    from fac_via_ppg_torch.weights import move
 
     dev = resolve_device(device)
     cfg = cfg or WaveGlowConfig()
     sr = 16000
     n_frames = int(seconds * sr) // cfg.hop_length
-    params = _waveglow_serving(cfg, 0, dev)
+    params = remove_weightnorm(
+        init_waveglow(cfg, torch.Generator().manual_seed(0)))
+    form = serving_form(cfg, move(params, dev), wn_impl=wn_impl)
     mel = torch.as_tensor(
         np.random.RandomState(0).randn(batch, cfg.n_mel_channels, n_frames)
         * 0.5 - 5.0, dtype=torch.float32, device=dev)
 
     def infer(i):
         g = torch.Generator(dev).manual_seed(i)
-        return waveglow_infer(cfg, params, mel, sigma, g, wn_impl=wn_impl)
+        return waveglow_serve(form, mel, sigma, g)
 
     with torch.no_grad():
         for i in range(warmup):

@@ -19,6 +19,11 @@ Three coupling-net implementations:
     (ops/wn_flow.py; the JAX package's wn_impl="flow").  The stacked cond
     projection is computed outside it, as in the JAX package.
 
+Serving has one form: `serving_form` checks the options once
+(`check_serving`), casts the weights once and builds the packs the
+chosen path needs; `waveglow_serve` runs it and packs nothing;
+`waveglow_infer` builds a form for one call.
+
 The cond projection runs dense or, with `cond_impl="int8"`, as an int8
 matmul with int32 accumulation (per-column activation scales,
 per-out-channel weight scales) and exact dequantization: on the card one
@@ -34,7 +39,7 @@ the end conv as weight-norm (g, v, bias), folded inside the forward's
 autograd graph with the f32 norm and run on the conv formulation
 (`wn_apply`), as the JAX package trains on its XLA convs.
 
-Tensor parallelism (`waveglow_infer(mesh=)` with a model axis above 1,
+Tensor parallelism (`serving_form(mesh=)` with a model axis above 1,
 and `waveglow_forward(model_group=)` in training) runs the conv
 formulation on each rank's WN channels (parallel/sharding.py's paired
 rule; `wn_apply(model_group=)`), as the JAX package runs its XLA
@@ -47,6 +52,7 @@ no_grad.  The WN int8 rungs run on each rank's slice of their packs
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional
 
@@ -72,8 +78,8 @@ from fac_via_ppg_torch.weights import fold_wn
 
 def tp_shard_waveglow(params, mesh):
     """This rank's slices of WaveGlow's params under the paired WN rule
-    (parallel/sharding.py::waveglow_param_shardings): `waveglow_infer`'s
-    `packed_wn` under tensor parallelism, cut once outside the call."""
+    (parallel/sharding.py::waveglow_param_shardings): `serving_form`'s
+    `packed_wn` under tensor parallelism."""
     from fac_via_ppg_torch.parallel.sharding import (
         apply_shardings,
         waveglow_param_shardings,
@@ -829,7 +835,7 @@ def resolve_wn_impl(name: str) -> str:
 
 def waveglow_noise(cfg: WaveGlowConfig, B: int, G: int,
                    generator: Optional[torch.Generator], device) -> list:
-    """The unit-variance draws `waveglow_infer` takes from `generator` for
+    """The unit-variance draws `waveglow_serve` takes from `generator` for
     a batch of B rows of G groups, in its order (its `noise=` form): the
     (B, n_remaining, G) seed, then one (B, n_early_size, G) chunk per
     early output, k descending.  A data-parallel rank draws the global
@@ -843,34 +849,91 @@ def waveglow_noise(cfg: WaveGlowConfig, B: int, G: int,
     return out
 
 
-def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
-                   sigma: float,
-                   generator: Optional[torch.Generator] = None,
-                   dtype: Optional[torch.dtype] = None, noise=None,
-                   wn_impl: str = "layer",
-                   packed_wn: Optional[list] = None,
-                   cond_impl: str = "dense",
-                   packed_cond: Optional[list] = None,
-                   cond_quant: str = "column",
-                   wn_int8_flows: int = 0,
-                   packed_wn_int8: Optional[list] = None,
-                   wn_int8_quant: str = "column",
-                   wn_int8_rs_flows: int = 0, mesh=None) -> torch.Tensor:
-    """(B, 80, F) mel -> (B, F*hop) audio (reference glow.py:252-293).
+def check_serving(cfg: WaveGlowConfig, wn_impl: str,
+                  cond_impl: str = "dense", cond_quant: str = "column",
+                  wn_int8_flows: int = 0, wn_int8_rs_flows: int = 0,
+                  wn_int8_quant: str = "column", model: int = 1) -> None:
+    """Raises ValueError unless the port serves this combination of
+    `serving_form`'s options (`model`: the mesh's model axis), the one
+    place they are checked; a CLI runs it on its options before it loads
+    anything."""
+    if model > 1 and wn_impl != "conv":
+        raise ValueError(
+            f"model_parallel > 1 runs the conv formulation (--wn_impl "
+            f"conv, the JAX package's 'xla'), not wn_impl={wn_impl!r}: "
+            f"the hand kernels take whole channels")
+    if wn_impl not in WN_IMPLS:
+        raise ValueError(f"unknown wn_impl {wn_impl!r}")
+    if cond_impl not in ("dense", "int8"):
+        raise ValueError(f"unknown cond_impl {cond_impl!r}")
+    if cond_quant not in ("column", "tensor"):
+        raise ValueError(f"unknown cond_quant {cond_quant!r}")
+    if cond_impl == "int8" and wn_impl == "layer":
+        raise ValueError("cond_impl='int8' requires --wn_impl flow or conv "
+                         "(xla): the WN layer kernel takes the dense cond")
+    if wn_int8_quant not in ("column", "tensor"):
+        raise ValueError(f"unknown wn_int8_quant {wn_int8_quant!r}")
+    if wn_int8_flows or wn_int8_rs_flows:
+        if wn_impl != "conv":
+            raise ValueError("--wn_int8_flows / --wn_int8_rs_flows: "
+                             "wn_int8_flows/rs requires wn_impl='xla' (the "
+                             "port's 'conv')")
+        if wn_int8_flows and cfg.wn_kernel_size != 3:
+            raise ValueError("wn_int8_flows supports wn_kernel_size=3 "
+                             f"only, got {cfg.wn_kernel_size}")
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveGlowServing:
+    """WaveGlow's serving form (`serving_form`).  `params` are the cast
+    weights; `wn` is each flow's coupling net as `wn_impl` takes it: the
+    layer or flow kernel's pack, or the conv formulation's WN params
+    (this rank's channels under TP, whose group is `model_group`);
+    `cluster` is the flow kernel's cluster size (0: none runs), which
+    each `waveglow.coupling` span reports."""
+    cfg: WaveGlowConfig
+    params: dict
+    dtype: Optional[torch.dtype]
+    wn_impl: str
+    wn: list
+    cond_impl: str
+    cond_quant: str
+    packed_cond: Optional[list]
+    wn_int8_flows: int
+    wn_int8_rs_flows: int
+    wn_int8_quant: str
+    packed_wn_int8: Optional[list]
+    model_group: object
+    cluster: int
+
+
+def serving_form(cfg: WaveGlowConfig, params, *,
+                 dtype: Optional[torch.dtype] = None,
+                 wn_impl: str = "layer",
+                 packed_wn: Optional[list] = None,
+                 cond_impl: str = "dense",
+                 packed_cond: Optional[list] = None,
+                 cond_quant: str = "column",
+                 wn_int8_flows: int = 0,
+                 packed_wn_int8: Optional[list] = None,
+                 wn_int8_quant: str = "column",
+                 wn_int8_rs_flows: int = 0, mesh=None) -> WaveGlowServing:
+    """The one way to serve WaveGlow, built once: `params` (the
+    remove_weightnorm form) checked with the options (`check_serving`),
+    cast once to `dtype` and packed for `wn_impl`.  A pack given is used
+    as it is; a missing one is built here.  The int8 packs are made from
+    `params` as given, before the cast: the f32 params give the f32
+    weights' codes, as every serving caller packs them, while
+    `waveglow_infer(dtype=)` casts first, so its packs hold the cast
+    weights' codes, as the JAX package's do.
 
     `dtype=torch.bfloat16` runs the flows in bf16 with f32 matmul
     accumulation; the 1x1 inverses stay f32 (the reference's fp16 mode
     likewise, inference.py:38-41).
 
-    `noise` injects the unit-variance gaussian draws instead of sampling
-    from `generator`: first the (B, n_remaining, G) seed (glow.py:261-268),
-    then one (B, n_early_size, G) chunk per early output, k descending
-    (glow.py:284-289).  Each is scaled by `sigma` here.
-
     `wn_impl`: "layer" (the WN layer kernel; `packed_wn` from
-    pack_waveglow_layer keeps packing out of the call), "flow" (the
-    whole-net kernel, one launch per flow; `packed_wn` from
-    pack_waveglow_flow) or "conv".
+    pack_waveglow_layer), "flow" (the whole-net kernel, one launch per
+    flow; `packed_wn` from pack_waveglow_flow) or "conv".
 
     `cond_impl="int8"` (conv and flow) runs the stacked cond projections
     on int8 codes: the grouped spect is quantized once per call, per
@@ -886,55 +949,84 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
     the later flows: measure eval/int8_snr.run_ladder(include_wn_int8=True)
     first.
 
-    The grouped spect comes straight from the upsampler's phases
-    (upsample_grouped; the JAX package's `grouped_upsample=True`, whose
-    values its False path shares bit for bit).
-
     `mesh` with a model axis above 1 (parallel/mesh.py) runs tensor
-    parallel on the conv formulation: `packed_wn` is this rank's WN
-    params (`tp_shard_waveglow`; cut here when absent), `packed_cond`
-    this rank's int8 rows (`tp_shard_int8cond`), `packed_wn_int8` this
-    rank's part of the WN int8 packs (`tp_shard_wn_int8`; cut here when
-    absent), the other params whole.
-    Every rank of the model group draws the same noise (equal
-    generators) and returns the whole audio.  `wn_impl` "layer" / "flow"
-    raise there.
-    """
-    model_group = None
-    if mesh is not None and mesh.shape["model"] > 1:
-        if wn_impl != "conv":
-            raise ValueError(
-                f"model_parallel > 1 runs the conv formulation "
-                f"(wn_impl='conv', the JAX package's 'xla'), not "
-                f"wn_impl={wn_impl!r}: the hand kernels take whole "
-                f"channels")
-        model_group = mesh.model_group
-    if wn_impl not in ("layer", "conv", "flow"):
-        raise ValueError(f"unknown wn_impl {wn_impl!r}")
-    if cond_impl not in ("dense", "int8"):
-        raise ValueError(f"unknown cond_impl {cond_impl!r}")
-    if cond_quant not in ("column", "tensor"):
-        raise ValueError(f"unknown cond_quant {cond_quant!r}")
-    if cond_impl == "int8" and wn_impl == "layer":
-        raise ValueError("cond_impl='int8' requires wn_impl conv or flow")
-    if wn_int8_quant not in ("column", "tensor"):
-        raise ValueError(f"unknown wn_int8_quant {wn_int8_quant!r}")
-    if wn_int8_flows or wn_int8_rs_flows:
-        if wn_impl != "conv":
-            raise ValueError("wn_int8_flows/rs requires wn_impl='xla' (the "
-                             "port's 'conv')")
-        if wn_int8_flows and cfg.wn_kernel_size != 3:
-            raise ValueError("wn_int8_flows supports wn_kernel_size=3 "
-                             f"only, got {cfg.wn_kernel_size}")
+    parallel on the conv formulation (`wn_impl` "layer" / "flow" raise):
+    `packed_wn` is this rank's WN params (`tp_shard_waveglow`),
+    `packed_cond` its int8 rows (`tp_shard_int8cond`), `packed_wn_int8`
+    its part of the WN int8 packs (`tp_shard_wn_int8`), each cut here
+    when absent, the other params whole."""
+    model = 1 if mesh is None else mesh.shape["model"]
+    check_serving(cfg, wn_impl, cond_impl, cond_quant, wn_int8_flows,
+                  wn_int8_rs_flows, wn_int8_quant, model)
+    tp = model > 1
+    if cond_impl == "int8" and packed_cond is None:
+        packed_cond = pack_waveglow_int8cond(cfg, params)
+        if tp:
+            packed_cond = tp_shard_int8cond(cfg, packed_cond, mesh)
+    if (wn_int8_flows or wn_int8_rs_flows) and packed_wn_int8 is None:
+        packed_wn_int8 = pack_waveglow_wn_int8(cfg, params)
+        if tp:
+            packed_wn_int8 = tp_shard_wn_int8(packed_wn_int8, mesh)
+    serve = params if dtype is None else cast_params(params, dtype)
+    if tp:
+        wn = (packed_wn if packed_wn is not None
+              else tp_shard_waveglow(serve, mesh))["wn"]
+    elif wn_impl == "conv":
+        wn = serve["wn"]
+    elif packed_wn is not None:
+        wn = packed_wn
+    else:
+        pack = pack_waveglow_flow if wn_impl == "flow" else \
+            pack_waveglow_layer
+        wn = pack(cfg, serve)
+    cluster = 0
+    if wn_impl == "flow":
+        w = wn[0]["w_in"]
+        cluster = cluster_size(w.dtype, cfg.wn_n_channels, w.device)
+    return WaveGlowServing(
+        cfg, serve, dtype, wn_impl, wn, cond_impl, cond_quant, packed_cond,
+        wn_int8_flows, wn_int8_rs_flows, wn_int8_quant, packed_wn_int8,
+        mesh.model_group if tp else None, cluster)
+
+
+def _coupling(form: WaveGlowServing):
+    """The coupling net of `form`, chosen once a call:
+    (flow k, audio half, grouped spect, int8 cond or None) -> WN output."""
+    cfg, wn, wn8 = form.cfg, form.wn, form.packed_wn_int8
+    if form.wn_impl == "layer":
+        return lambda k, x, s, c8: wn_apply_layer(cfg, wn[k], x, s)
+    if form.wn_impl == "flow":
+        return lambda k, x, s, c8: wn_apply_flow(cfg, wn[k], x, s, c8)
+    return lambda k, x, s, c8: wn_apply(
+        cfg, wn[k], x, s, c8,
+        in_int8=wn8[k] if k < form.wn_int8_flows else None,
+        in_int8_quant=form.wn_int8_quant,
+        rs_int8=wn8[k] if k < form.wn_int8_rs_flows else None,
+        model_group=form.model_group)
+
+
+def waveglow_serve(form: WaveGlowServing, spect: torch.Tensor,
+                   sigma: float,
+                   generator: Optional[torch.Generator] = None,
+                   noise=None) -> torch.Tensor:
+    """(B, 80, F) mel -> (B, F*hop) audio (reference glow.py:252-293) on
+    the serving form `form`, the spect cast to its dtype; nothing is
+    cast or packed here.  The grouped spect comes straight from the
+    upsampler's phases (upsample_grouped; the JAX package's
+    `grouped_upsample=True`, whose values its False path shares bit for
+    bit).
+
+    `noise` injects the unit-variance draws, in `waveglow_noise`'s order
+    (glow.py:261-268, 284-289), instead of sampling them from `generator`;
+    each is scaled by `sigma` here.  Under tensor
+    parallelism every rank of the model group draws the same noise (equal
+    generators) and returns the whole audio."""
+    cfg, params = form.cfg, form.params
     B, F_ = spect.shape[0], spect.shape[2]
     with span("waveglow.infer", spect.device, B=B,
               G=F_ * cfg.hop_length // cfg.n_group, flows=cfg.n_flows):
-        if dtype is not None:
-            params = cast_params(params, dtype)
-            spect = spect.to(dtype)
-        if model_group is not None:
-            wn_local = (packed_wn if packed_wn is not None
-                        else tp_shard_waveglow(params, mesh))["wn"]
+        if form.dtype is not None:
+            spect = spect.to(form.dtype)
         dev = spect.device
         with span("waveglow.upsample", dev, B=B, frames=F_):
             spect_g = upsample_grouped(params["upsample"], spect,
@@ -950,59 +1042,22 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                                    device=dev)
 
         audio = (sigma * draw()).to(dt)
-        packed = None
-        if wn_impl == "layer":
-            packed = packed_wn or pack_waveglow_layer(cfg, params)
-        elif wn_impl == "flow":
-            packed = packed_wn or pack_waveglow_flow(cfg, params)
-        wn8 = None
-        if wn_int8_flows or wn_int8_rs_flows:
-            wn8 = packed_wn_int8
-            if wn8 is None:
-                wn8 = pack_waveglow_wn_int8(cfg, params)
-                if model_group is not None:
-                    wn8 = tp_shard_wn_int8(wn8, mesh)
+        coupling = _coupling(form)
         cond_q = None
-        if cond_impl == "int8":
-            pack_c = packed_cond
-            if pack_c is None:
-                pack_c = pack_waveglow_int8cond(cfg, params)
-                if model_group is not None:
-                    pack_c = tp_shard_int8cond(cfg, pack_c, mesh)
+        if form.cond_impl == "int8":
             # the spect is constant across flows: quantized once per call
             with span("waveglow.cond.quantize", dev, M=B * G, K=K,
                       esz=spect_g.element_size()):
-                cond_q = quantize_cond(spect_g, cond_quant)
+                cond_q = quantize_cond(spect_g, form.cond_quant)
 
-        # the flow kernel's cluster size (0: no clustered kernel runs)
-        cluster = cluster_size(audio.dtype, cfg.wn_n_channels, dev) \
-            if wn_impl == "flow" else 0
         for k in reversed(range(cfg.n_flows)):
             n_half = audio.shape[1] // 2
-            c8 = None if cond_q is None else (*cond_q, pack_c[k])
+            c8 = None if cond_q is None else (*cond_q, form.packed_cond[k])
             with span("waveglow.coupling", dev, B=B, T=G, n_half=n_half,
                       C=cfg.wn_n_channels, L=cfg.wn_n_layers,
-                      esz=audio.element_size(), cluster=cluster):
+                      esz=audio.element_size(), cluster=form.cluster):
                 audio_0, audio_1 = audio[:, :n_half], audio[:, n_half:]
-                if model_group is not None:
-                    wn_out = wn_apply(
-                        cfg, wn_local[k], audio_0, spect_g, c8,
-                        in_int8=wn8[k] if k < wn_int8_flows else None,
-                        in_int8_quant=wn_int8_quant,
-                        rs_int8=wn8[k] if k < wn_int8_rs_flows else None,
-                        model_group=model_group)
-                elif wn_impl == "layer":
-                    wn_out = wn_apply_layer(cfg, packed[k], audio_0,
-                                            spect_g)
-                elif wn_impl == "flow":
-                    wn_out = wn_apply_flow(cfg, packed[k], audio_0,
-                                           spect_g, c8)
-                else:
-                    wn_out = wn_apply(
-                        cfg, params["wn"][k], audio_0, spect_g, c8,
-                        in_int8=wn8[k] if k < wn_int8_flows else None,
-                        in_int8_quant=wn_int8_quant,
-                        rs_int8=wn8[k] if k < wn_int8_rs_flows else None)
+                wn_out = coupling(k, audio_0, spect_g, c8)
                 s, b = wn_out[:, n_half:], wn_out[:, :n_half]
                 audio_1 = (audio_1 - b) * torch.exp(-s)
                 audio = torch.cat([audio_0, audio_1], dim=1)
@@ -1018,3 +1073,32 @@ def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
                     z = (sigma * draw()).to(dt)
                     audio = torch.cat([z, audio], dim=1)
         return ungroup_audio(audio)
+
+
+def waveglow_infer(cfg: WaveGlowConfig, params, spect: torch.Tensor,
+                   sigma: float,
+                   generator: Optional[torch.Generator] = None,
+                   dtype: Optional[torch.dtype] = None, noise=None,
+                   wn_impl: str = "layer",
+                   packed_wn: Optional[list] = None,
+                   cond_impl: str = "dense",
+                   packed_cond: Optional[list] = None,
+                   cond_quant: str = "column",
+                   wn_int8_flows: int = 0,
+                   packed_wn_int8: Optional[list] = None,
+                   wn_int8_quant: str = "column",
+                   wn_int8_rs_flows: int = 0, mesh=None) -> torch.Tensor:
+    """The JAX package's `waveglow_infer`: `waveglow_serve` on a
+    `serving_form` built for this call alone, with its options; a caller
+    that serves more than once builds the form once.  `dtype` casts
+    `params` before the form is built, so an int8 pack made here holds
+    the cast weights' codes."""
+    if dtype is not None:
+        params = cast_params(params, dtype)
+    form = serving_form(
+        cfg, params, dtype=dtype, wn_impl=wn_impl, packed_wn=packed_wn,
+        cond_impl=cond_impl, packed_cond=packed_cond, cond_quant=cond_quant,
+        wn_int8_flows=wn_int8_flows, packed_wn_int8=packed_wn_int8,
+        wn_int8_quant=wn_int8_quant, wn_int8_rs_flows=wn_int8_rs_flows,
+        mesh=mesh)
+    return waveglow_serve(form, spect, sigma, generator, noise)

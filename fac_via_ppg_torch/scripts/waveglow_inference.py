@@ -51,17 +51,11 @@ from fac_via_ppg_torch.data.mel2samp import MAX_WAV_VALUE, files_to_list
 from fac_via_ppg_torch.eval.int8_snr import waveglow_config_from_json
 from fac_via_ppg_torch.models.denoiser import Denoiser
 from fac_via_ppg_torch.models.waveglow import (
-    cast_params,
-    pack_waveglow_flow,
-    pack_waveglow_int8cond,
-    pack_waveglow_layer,
-    pack_waveglow_wn_int8,
+    check_serving,
     resolve_wn_impl,
-    tp_shard_int8cond,
-    tp_shard_waveglow,
-    tp_shard_wn_int8,
-    waveglow_infer,
+    serving_form,
     waveglow_noise,
+    waveglow_serve,
 )
 from fac_via_ppg_torch.ops import wn_flow
 from fac_via_ppg_torch.parallel.mesh import (
@@ -137,22 +131,20 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
     if cond_impl not in ("dense", "int8", "auto"):
         raise SystemExit(f"--cond_impl must be dense/int8/auto, got "
                          f"{cond_impl!r}")
-    if cond_impl != "dense" and wn_impl == "layer":
-        raise SystemExit("--cond_impl int8/auto requires --wn_impl conv "
-                         "or flow")
-    if wn_int8_flows and wn_impl != "conv":
-        raise SystemExit("--wn_int8_flows: wn_int8_flows/rs requires "
-                         "wn_impl='xla' (the port's 'conv')")
     if pad_batches not in ("grid", "full", "none"):
         raise SystemExit(f"--pad_batches must be grid/full/none, "
                          f"got {pad_batches!r}")
     if compute_dtype not in DTYPES:
         raise SystemExit(f"--compute_dtype must be one of {list(DTYPES)}")
-    if model_parallel > 1 and wn_impl != "conv":
-        raise SystemExit(
-            f"--model_parallel {model_parallel} runs the conv formulation: "
-            f"pass --wn_impl conv (or xla); the {wn_impl} kernel takes "
-            f"whole channels")
+    cfg = (waveglow_config_from_json(config_path) if config_path is not None
+           else WaveGlowConfig())
+    # the serving form's checks, before any work ("auto" may serve int8)
+    try:
+        check_serving(cfg, wn_impl, "dense" if cond_impl == "dense"
+                      else "int8", wn_int8_flows=wn_int8_flows,
+                      model=model_parallel)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     dev = job_device(device)
     mesh = None
     if data_parallel or model_parallel > 1:
@@ -161,10 +153,7 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
         print(f"vocoder mesh: {mesh.shape['data']} data x "
               f"{mesh.shape['model']} model")
     dp = mesh is not None and mesh.data_group is not None
-    tp = mesh is not None and mesh.shape["model"] > 1
     lead = mesh is None or mesh.rank == 0
-    cfg = (waveglow_config_from_json(config_path) if config_path is not None
-           else WaveGlowConfig())
     params = move(load_waveglow_model(waveglow_path, cfg), dev)
     denoiser = Denoiser(cfg, params) if denoiser_strength > 0 else None
 
@@ -197,25 +186,11 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
               f"cond_impl='{cond_impl}'")
 
     dtype = DTYPES[compute_dtype]
-    # the serving weights, cast once (the 1x1 inverses stay f32), and the
-    # kernels' packs, computed once
-    serve = params if dtype is None else cast_params(params, dtype)
-    packed_wn = None
-    if tp:
-        packed_wn = tp_shard_waveglow(serve, mesh)
-    elif wn_impl == "flow":
-        packed_wn = pack_waveglow_flow(cfg, serve)
-    elif wn_impl == "layer":
-        packed_wn = pack_waveglow_layer(cfg, serve)
-    # int8 weights from the f32 params
-    packed_cond = (pack_waveglow_int8cond(cfg, params)
-                   if cond_impl == "int8" else None)
-    if tp and packed_cond is not None:
-        packed_cond = tp_shard_int8cond(cfg, packed_cond, mesh)
-    packed_wn8 = (pack_waveglow_wn_int8(cfg, params) if wn_int8_flows
-                  else None)
-    if tp and packed_wn8 is not None:
-        packed_wn8 = tp_shard_wn_int8(packed_wn8, mesh)
+    # the serving form, built once: the weights cast (the 1x1 inverses
+    # stay f32), the kernels' packs, the int8 ones from the f32 params
+    form = serving_form(cfg, params, dtype=dtype, wn_impl=wn_impl,
+                        cond_impl=cond_impl, wn_int8_flows=wn_int8_flows,
+                        mesh=mesh)
 
     if (batch_size > 1 and not mel_bucket and len(files) > 1
             and len(by_len) > len(files) // 2):
@@ -249,12 +224,8 @@ def main(mel_files, waveglow_path, output_dir, sigma, denoiser_strength,
                 noise = [z[rows] for z in waveglow_noise(
                     cfg, mel.shape[0], G, gen, dev)]
                 mel = mel[rows]
-            audio = waveglow_infer(
-                cfg, serve, mel.to(dtype or torch.float32), sigma, gen,
-                noise=noise, wn_impl=wn_impl, packed_wn=packed_wn,
-                cond_impl=cond_impl, packed_cond=packed_cond,
-                wn_int8_flows=wn_int8_flows, packed_wn_int8=packed_wn8,
-                mesh=mesh).float()
+            audio = waveglow_serve(form, mel.to(dtype or torch.float32),
+                                   sigma, gen, noise=noise).float()
             if denoiser is not None:
                 audio = denoiser(audio, strength=denoiser_strength)[:, 0, :]
             audio = audio * MAX_WAV_VALUE

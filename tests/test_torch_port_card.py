@@ -1032,6 +1032,53 @@ def test_cond_int8_kernel_launches_once_a_flow(card, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_serving_form_equals_the_hand_built_packs(card):
+    """The vocoder CLI's serving form (models/waveglow.py::serving_form:
+    bf16, the flow kernel, dense and int8 cond) against the benchmark's
+    vocoder-batch cell, which casts and packs by hand and calls
+    `waveglow_infer`, at the full WaveGlowConfig (B=2 x 128 frames): the
+    same audio, bit for bit."""
+    from fac_via_ppg_torch.configs.hparams import WaveGlowConfig
+    from fac_via_ppg_torch.models.waveglow import (
+        cast_params,
+        init_waveglow,
+        pack_waveglow_flow,
+        pack_waveglow_int8cond,
+        remove_weightnorm,
+        serving_form,
+        waveglow_infer,
+        waveglow_serve,
+    )
+    from fac_via_ppg_torch.weights import move
+
+    cfg = WaveGlowConfig()
+    g = torch.Generator().manual_seed(29)
+    params = init_waveglow(cfg, g)
+    for wn in params["wn"]:
+        wn["end"]["weight"] = torch.randn(wn["end"]["weight"].shape,
+                                          generator=g) * 1e-2
+    params = move(remove_weightnorm(params), card)
+    mel = (torch.randn((2, 80, 128), device=card) * 0.5 - 5).to(
+        torch.bfloat16)
+    serve = cast_params(params, torch.bfloat16)
+    pack = pack_waveglow_flow(cfg, serve)
+    for cond_impl in ("dense", "int8"):
+        form = serving_form(cfg, params, dtype=torch.bfloat16,
+                            wn_impl="flow", cond_impl=cond_impl)
+        packed_cond = (pack_waveglow_int8cond(cfg, params)
+                       if cond_impl == "int8" else None)
+        with torch.no_grad():
+            want = waveglow_infer(
+                cfg, serve, mel, 0.6, torch.Generator("cuda").manual_seed(5),
+                wn_impl="flow", packed_wn=pack, cond_impl=cond_impl,
+                packed_cond=packed_cond)
+            got = waveglow_serve(form, mel, 0.6,
+                                 torch.Generator("cuda").manual_seed(5))
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, want), cond_impl
+
+
+@pytest.mark.cuda
 def test_cond_int8_kernel_names_a_shape_it_refuses(card):
     from fac_via_ppg_torch.ops import cond_int8 as ci8
 
